@@ -24,6 +24,8 @@
 // are skipped, and masked positions inside a page are never read into the
 // sums: the mask is a select, never a multiply by 0, so a stale NaN in a
 // recycled or null page cannot leak (0 * NaN = NaN).
+// Only what the serving path runs is compiled: bf16 queries, and K and V
+// of one head width (the Python wrapper refuses the rest).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,9 +53,6 @@ __device__ __forceinline__ float decode_fp8(int code, int shift, const Fp8& f) {
                             : pow2i(ef - f.bias - shift) * (1.f + manf);
   return (code >> (f.exp_bits + f.man_bits)) & 1 ? -val : val;
 }
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 struct Fp8Decode {  // one page's codes of one head -> values
   Fp8 fmt;
@@ -88,14 +87,14 @@ __device__ __forceinline__ void stage_rows(const TS* __restrict__ src, size_t st
   }
 }
 
-template <bool FP8, typename TQ>
+template <bool FP8>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_attn_kernel(const TQ* __restrict__ q, const void* __restrict__ k_pages,
+paged_decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pages,
                          const void* __restrict__ v_pages, const float* __restrict__ k_smax,
                          const int* __restrict__ k_shift, const float* __restrict__ v_smax,
                          const int* __restrict__ v_shift, const int* __restrict__ page_table,
                          const int* __restrict__ kv_lens, float* __restrict__ out, int H,
-                         int KV, int hd, int dv, int page, int PP, int window, float scale,
+                         int KV, int hd, int page, int PP, int window, float scale,
                          Fp8 fmt) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y, g = H / KV;
@@ -104,16 +103,16 @@ paged_decode_attn_kernel(const TQ* __restrict__ q, const void* __restrict__ k_pa
                                  // across threads, a stride of hd would hit one bank
   float* qs = smem;              // (g, hd)
   float* ks = qs + g * hd;       // (page, kp)
-  float* vs = ks + page * kp;    // (page, dv)
-  float* ps = vs + page * dv;    // (g, page) scores, then probabilities
-  float* acc = ps + g * page;    // (g, dv)
-  float* m_run = acc + g * dv;   // (g,)
+  float* vs = ks + page * kp;    // (page, hd)
+  float* ps = vs + page * hd;    // (g, page) scores, then probabilities
+  float* acc = ps + g * page;    // (g, hd)
+  float* m_run = acc + g * hd;   // (g,)
   float* l_run = m_run + g;      // (g,)
   float* corr = l_run + g;       // (g,)
 
   for (int i = tid; i < g * hd; i += THREADS)
-    qs[i] = to_f32(q[((size_t)b * H + h * g) * hd + i]);
-  for (int i = tid; i < g * dv; i += THREADS) acc[i] = 0.f;
+    qs[i] = __bfloat162float(q[((size_t)b * H + h * g) * hd + i]);
+  for (int i = tid; i < g * hd; i += THREADS) acc[i] = 0.f;
   for (int i = tid; i < g; i += THREADS) {
     m_run[i] = NEG;
     l_run[i] = 0.f;
@@ -136,11 +135,11 @@ paged_decode_attn_kernel(const TQ* __restrict__ q, const void* __restrict__ k_pa
       const Fp8Decode kf{fmt, k_shift[(size_t)pid * KV + h], k_smax[pid]};
       const Fp8Decode vf{fmt, v_shift[(size_t)pid * KV + h], v_smax[pid]};
       stage_rows((const uint8_t*)k_pages + row0 * hd, stride * hd, t_hi, hd, ks, kp, kf);
-      stage_rows((const uint8_t*)v_pages + row0 * dv, stride * dv, t_hi, dv, vs, dv, vf);
+      stage_rows((const uint8_t*)v_pages + row0 * hd, stride * hd, t_hi, hd, vs, hd, vf);
     } else {
       stage_rows((const __nv_bfloat16*)k_pages + row0 * hd, stride * hd, t_hi, hd, ks, kp,
                  Bf16Decode{});
-      stage_rows((const __nv_bfloat16*)v_pages + row0 * dv, stride * dv, t_hi, dv, vs, dv,
+      stage_rows((const __nv_bfloat16*)v_pages + row0 * hd, stride * hd, t_hi, hd, vs, hd,
                  Bf16Decode{});
     }
     __syncthreads();
@@ -177,73 +176,61 @@ paged_decode_attn_kernel(const TQ* __restrict__ q, const void* __restrict__ k_pa
     }
     __syncthreads();
 
-    for (int i = tid; i < g * dv; i += THREADS) {
-      const int gi = i / dv, d = i % dv;
+    for (int i = tid; i < g * hd; i += THREADS) {
+      const int gi = i / hd, d = i % hd;
       float a = acc[i] * corr[gi];
-      for (int t = t_lo; t < t_hi; ++t) a += ps[gi * page + t] * vs[t * dv + d];
+      for (int t = t_lo; t < t_hi; ++t) a += ps[gi * page + t] * vs[t * hd + d];
       acc[i] = a;
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < g * dv; i += THREADS) {
-    const int gi = i / dv;
-    out[((size_t)b * H + h * g) * dv + i] = acc[i] / fmaxf(l_run[gi], 1e-30f);
+  for (int i = tid; i < g * hd; i += THREADS) {
+    const int gi = i / hd;
+    out[((size_t)b * H + h * g) * hd + i] = acc[i] / fmaxf(l_run[gi], 1e-30f);
   }
 }
 
-template <bool FP8, typename TQ>
+template <bool FP8>
 int launch(const void* q, const void* k_pages, const void* v_pages, const void* k_smax,
            const void* k_shift, const void* v_smax, const void* v_shift,
            const void* page_table, const void* kv_lens, void* out, int B, int H, int KV,
-           int hd, int dv, int page, int PP, int window, float scale, Fp8 fmt,
-           cudaStream_t stream) {
+           int hd, int page, int PP, int window, float scale, Fp8 fmt, cudaStream_t stream) {
   const int g = H / KV;
   const size_t bytes =
-      sizeof(float) * ((size_t)g * hd + (size_t)page * (hd + 1 + dv) + (size_t)g * page +
-                       (size_t)g * dv + 3 * (size_t)g);
-  auto kernel = paged_decode_attn_kernel<FP8, TQ>;
+      sizeof(float) * ((size_t)g * hd + (size_t)page * (2 * hd + 1) + (size_t)g * page +
+                       (size_t)g * hd + 3 * (size_t)g);
+  auto kernel = paged_decode_attn_kernel<FP8>;
   if (bytes > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<dim3(B, KV), THREADS, bytes, stream>>>(
-      (const TQ*)q, k_pages, v_pages, (const float*)k_smax, (const int*)k_shift,
+      (const __nv_bfloat16*)q, k_pages, v_pages, (const float*)k_smax, (const int*)k_shift,
       (const float*)v_smax, (const int*)v_shift, (const int*)page_table, (const int*)kv_lens,
-      (float*)out, H, KV, hd, dv, page, PP, window, scale, fmt);
+      (float*)out, H, KV, hd, page, PP, window, scale, fmt);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B, H, hd) bf16 (q_bf16 = 1) or f32; k/v_pages: (P+1, page, KV, hd|dv)
-// uint8 codes (fp8 = 1) or bf16; k/v_smax: (P+1,) f32 and k/v_shift:
-// (P+1, KV) int32 (read only for fp8 pages); page_table: (B, PP) int32;
-// kv_lens: (B,) int32; out: (B, H, dv) f32. Returns cudaGetLastError().
-extern "C" int paged_decode_attn_launch(const void* q, int q_bf16, const void* k_pages,
+// q: (B, H, hd) bf16; k/v_pages: (P+1, page, KV, hd) uint8 codes (fp8 = 1)
+// or bf16; k/v_smax: (P+1,) f32 and k/v_shift: (P+1, KV) int32 (read only
+// for fp8 pages); page_table: (B, PP) int32; kv_lens: (B,) int32;
+// out: (B, H, hd) f32. Returns cudaGetLastError().
+extern "C" int paged_decode_attn_launch(const void* q, const void* k_pages,
                                         const void* v_pages, int fp8, const void* k_smax,
                                         const void* k_shift, const void* v_smax,
                                         const void* v_shift, const void* page_table,
                                         const void* kv_lens, void* out, int B, int H, int KV,
-                                        int hd, int dv, int page, int PP, int window,
-                                        float scale, int exp_bits, int man_bits, int bias,
-                                        void* stream) {
+                                        int hd, int page, int PP, int window, float scale,
+                                        int exp_bits, int man_bits, int bias, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
   Fp8 fmt{exp_bits, man_bits, bias};
   cudaStream_t s = (cudaStream_t)stream;
-  if (fp8)
-    return q_bf16 ? launch<true, __nv_bfloat16>(q, k_pages, v_pages, k_smax, k_shift, v_smax,
-                                                v_shift, page_table, kv_lens, out, B, H, KV,
-                                                hd, dv, page, PP, window, scale, fmt, s)
-                  : launch<true, float>(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift,
-                                        page_table, kv_lens, out, B, H, KV, hd, dv, page, PP,
-                                        window, scale, fmt, s);
-  return q_bf16 ? launch<false, __nv_bfloat16>(q, k_pages, v_pages, k_smax, k_shift, v_smax,
-                                               v_shift, page_table, kv_lens, out, B, H, KV,
-                                               hd, dv, page, PP, window, scale, fmt, s)
-                : launch<false, float>(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift,
-                                       page_table, kv_lens, out, B, H, KV, hd, dv, page, PP,
-                                       window, scale, fmt, s);
+  auto run = fp8 ? &launch<true> : &launch<false>;
+  return run(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift, page_table, kv_lens, out,
+             B, H, KV, hd, page, PP, window, scale, fmt, s);
 }

@@ -4,6 +4,9 @@
 launches the kernel on the current stream; ``w4a8_fused_matmul_cuda.launches``
 counts the launches. It takes CUDA tensors only: the plain version for
 the CPU is ``ref.w4a8_matmul_ref`` (``ops.w4a8_matmul`` dispatches).
+The kernel covers what the serving path runs: bf16 activations quantized
+to FP8 E4M3 in-kernel and FP4 E2M1 weights, with or without M2 and LoRC;
+the wrapper refuses any other variant.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.formats import FORMATS, FloatFormat, get_format
+from repro_torch.core.formats import FORMATS
 
 from . import build
 
@@ -25,8 +28,8 @@ def _lib():
     lib = build.load("w4a8_fused")
     fn = lib.w4a8_fused_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _F, _F, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _P]
         fn.restype = _I
     return fn
 
@@ -46,20 +49,19 @@ def _ptr(t: Optional[torch.Tensor]):
 def w4a8_fused_matmul_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=None,
                            lorc_b=None, *, w_fmt: str = "fp4_e2m1",
                            a_fmt: Optional[str] = "fp8_e4m3", group_size: int = 256):
-    """x: (M, K) bf16 or f32 raw activations (quantized in-kernel when
-    ``a_fmt`` is set); codes: (N, K/2) uint8; scale: (N, G) f32; optional
-    M2 split s_max (N, 1) f32 + shifts (N, G) int8 and LoRC lorc_a (N, r) /
-    lorc_b (r, K) bf16. Returns (M, N) in x.dtype."""
+    """x: (M, K) bf16 raw activations (quantized to FP8 E4M3 in-kernel);
+    codes: (N, K/2) uint8 E2M1 nibbles; scale: (N, G) f32; optional M2
+    split s_max (N, 1) f32 + shifts (N, G) int8 and LoRC lorc_a (N, r) /
+    lorc_b (r, K) bf16. Returns (M, N) bf16."""
+    if w_fmt != "fp4_e2m1" or a_fmt != "fp8_e4m3":
+        raise NotImplementedError(
+            f"w_fmt={w_fmt!r}, a_fmt={a_fmt!r}: the CUDA kernel runs fp4_e2m1 weights with "
+            "fp8_e4m3 activations only (ROADMAP queue 2: other W4A8 variants)")
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"w4a8_fused_matmul_cuda takes CUDA tensors, got {dev}")
-    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
-        raise ValueError(f"x: want contiguous 2-D bf16/f32, got {x.dtype} {tuple(x.shape)}")
-    if w_fmt not in ("fp4_e2m1", "fp4_e3m0"):
-        raise ValueError(f"w_fmt={w_fmt!r}: the kernel decodes fp4_e2m1 / fp4_e3m0")
-    afmt = get_format(a_fmt)
-    if afmt is not None and not isinstance(afmt, FloatFormat):
-        raise ValueError(f"a_fmt={a_fmt!r}: the kernel quantizes onto float grids only")
+    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"x: want contiguous 2-D bf16, got {x.dtype} {tuple(x.shape)}")
     m, k = x.shape
     n = codes.shape[0]
     g = k // group_size
@@ -78,13 +80,12 @@ def w4a8_fused_matmul_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=None
             raise ValueError(f"LoRC rank {r} > 32 (the kernel's epilogue bound)")
         _check(lorc_a, "lorc_a", torch.bfloat16, (n, r), dev)
         _check(lorc_b, "lorc_b", torch.bfloat16, (r, k), dev)
-    grid = afmt or FORMATS["fp8_e4m3"]  # unread when a_fmt is None
-    out = torch.empty((m, n), dtype=x.dtype, device=dev)
-    rc = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
-                scale.data_ptr(), _ptr(shifts), _ptr(s_max), _ptr(lorc_a) if r else None,
-                _ptr(lorc_b) if r else None, out.data_ptr(), m, n, k, group_size, r,
-                int(w_fmt == "fp4_e3m0"), int(afmt is not None), grid.man_bits,
-                grid.min_exp, grid.max_exp, grid.max_value, 1.0 / grid.max_value,
+    grid = FORMATS[a_fmt]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    rc = _lib()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(shifts), _ptr(s_max),
+                _ptr(lorc_a) if r else None, _ptr(lorc_b) if r else None, out.data_ptr(),
+                m, n, k, group_size, r, grid.man_bits, grid.min_exp, grid.max_exp,
+                grid.max_value, 1.0 / grid.max_value,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"w4a8_fused kernel launch failed: CUDA error {rc}")

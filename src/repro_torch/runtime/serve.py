@@ -51,20 +51,14 @@ class SchedulerConfig:
 
     * ``headroom_pages``: decode headroom charged at admission on top of
       the prompt's pages.
-    * ``low_watermark``: pages that must stay free after admitting fresh
-      work while other requests run.
-    * ``prefill_chunk_pages`` / ``prefill_token_budget``: the streaming
-      prefill chunk, in pages or in tokens (the latter wins; rounded down
-      to a page multiple, at least one page, so chunk starts stay
-      page-aligned).
+    * ``prefill_chunk_pages``: the streaming prefill chunk, in pages, so
+      chunk starts stay page-aligned.
     * ``engine``: ``"alternating"`` only in this slice; ``"mixed"`` raises
       (ROADMAP queue 1, item 8)."""
 
     headroom_pages: int = 1
-    low_watermark: int = 0
     prefill_chunk_pages: int = 4
     engine: str = "alternating"
-    prefill_token_budget: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +101,6 @@ class Request:
     prompt: list
     max_new: int = 16
     sampling: SamplingParams = SamplingParams()
-    priority: int = 0  # higher = served first when pages are allocated
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
     status: str = "ok"
@@ -148,11 +141,9 @@ class Server:
         self.slots, self.max_seq, self.a_fmt = config.slots, config.max_seq, config.a_fmt
         self.page_size = page = config.page_size
         self.headroom_pages = sched.headroom_pages
-        self.low_watermark = sched.low_watermark
-        budget = sched.prefill_token_budget
-        if budget is None:
-            budget = sched.prefill_chunk_pages * page
-        self.prefill_token_budget = max(page, (budget // page) * page)
+        if sched.prefill_chunk_pages < 1:
+            raise ValueError(f"prefill_chunk_pages={sched.prefill_chunk_pages} must be >= 1")
+        self.prefill_token_budget = sched.prefill_chunk_pages * page
         self.pages_per_slot = math.ceil(self.max_seq / page)
         self._n_pages = self.slots * self.pages_per_slot  # fully backed pool
         self.pools = [kvc.init_gqa_pool(seg.count, self._n_pages, page, cfg.n_kv_heads,
@@ -210,8 +201,7 @@ class Server:
         req = self.queue[0]
         need = min(kvc.pages_needed(len(req.prompt), self.page_size) + self.headroom_pages,
                    self._worst_case_pages(req))
-        margin = self.low_watermark if any(r is not None for r in self.active) else 0
-        if len(self.free_pages) - need < margin:
+        if need > len(self.free_pages):
             return False
         self.queue.pop(0)
         self.active[slot] = req
@@ -280,9 +270,9 @@ class Server:
     # -- decode ------------------------------------------------------------------
     def _grow(self):
         """Allocate a page for every active row whose next token crosses
-        into an unallocated page (priority, then arrival order)."""
+        into an unallocated page, in arrival order."""
         order = sorted((s for s, r in enumerate(self.active) if r is not None),
-                       key=lambda s: (-self.active[s].priority, self.active[s].seq))
+                       key=lambda s: self.active[s].seq)
         for slot in order:
             if int(self.lengths[slot]) // self.page_size >= len(self.slot_pages[slot]):
                 self._alloc(slot, 1)

@@ -169,6 +169,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                k_fz=torch.zeros(1))
 
 
+@pytest.mark.parametrize("w_fmt,a_fmt", [("fp4_e3m0", "fp8_e4m3"), ("fp4_e2m1", None),
+                                          ("fp4_e2m1", "fp8_e5m2")])
+def test_w4a8_cuda_wrapper_refuses_variants_it_does_not_build(w_fmt, a_fmt):
+    """The kernel compiles only E2M1 weights with FP8 E4M3 activations; any
+    other variant raises before a launch (the plain version takes it)."""
+    x = torch.zeros((2, 64), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="fp4_e2m1 weights with fp8_e4m3"):
+        w4a8_fused_matmul_cuda(x, torch.zeros((8, 32), dtype=torch.uint8), torch.ones((8, 1)),
+                               w_fmt=w_fmt, a_fmt=a_fmt, group_size=64)
+
+
 def test_build_refuses_without_nvcc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
