@@ -13,7 +13,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               time, the plain version's, one PyTorch library call's, and its
               bound (the larger of bytes / 3.35 TB/s and operations / peak);
               then every other variant the wrappers accept (no M2, no
-              LoRC, a sliding window), checked but not timed;
+              LoRC, a sliding window), checked but not timed; the
+              frozen-region variant of decode attention (FP8 pages with
+              half of each row's full pages in the packed FP4 region)
+              timed the same way, and checked at an odd head width and
+              with a window;
 4. serve   -- opt-125m at full width, random weights from a seed, packed to
               W4A8 (FP4 E2M1 weights, M2 scales, LoRC rank 8, FP8 E4M3
               activations), served greedily over FP8 pages; every request
@@ -23,7 +27,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               versions: one prefill chunk and 4 decode steps for 2
               requests, logits compared with the card's; a witness (the
               plain versions on the card) and two injected faults show
-              what the comparison can and cannot tell apart.
+              what the comparison can and cannot tell apart;
+6. prefix -- the reference Server's default path: the mixed prefill+decode
+              engine, the prefix cache and FP8 pages with a packed-FP4
+              frozen region, at opt-125m's full width; 8 requests in two
+              waves share a 512-token system prompt. Every request must
+              end ok, the prompt's pages must freeze into FP4 and be hit,
+              every step must have launched the GEMM and the frozen
+              attention variant, and at one step the frozen kernel is held
+              against its plain version on the live pool (and an injected
+              fault must read far above the tolerance).
 
 The last two lines are the card line and ``{"ok": true, "device": ...}``.
 The script imports nothing of jax and nothing of the JAX package.
@@ -235,6 +248,93 @@ def _attn_case(torch, timer, fmt, gen):
     return row
 
 
+def _frozen_layer(torch, gen, hd):
+    """A random mixed-precision pool layer at the decode shapes of opt-125m
+    (B=4, KV=12, page 64, contexts 2048/1337/300/1) and its table: the
+    first half of each row's full pages sit in the packed FP4 frozen
+    region (ids >= P+1), the rest are FP8 pages. Returns (layer, table,
+    kv_lens, lens, frozen pages per row)."""
+    from repro_torch.runtime import kv_cache as kvc
+
+    b, kv, page = 4, 12, 64
+    lens = [2048, 1337, 300, 1]
+    pp = 2048 // page
+    n_pages = b * pp
+    layer = {}
+    for name in ("k", "v"):
+        for suffix, fmt in (("", "fp8_e4m3"), ("_fz", "fp4_e2m1")):
+            vals = torch.randn((n_pages + 1, page, kv, hd), generator=gen, device=DEV)
+            codes, smax, shift = kvc.quantize_pages(vals, fmt)
+            layer.update({name + suffix: codes, name + suffix + "_smax": smax,
+                          name + suffix + "_shift": shift})
+    table = torch.full((b, pp), n_pages, dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(SEED))
+    fperm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(SEED + 1))
+    n_frozen = []
+    for row, n in enumerate(lens):
+        npg, nfr = kvc.pages_needed(n, page), (n // page) // 2
+        table[row, :npg] = perm[row * pp: row * pp + npg].to(torch.int32)
+        table[row, :nfr] = n_pages + 1 + fperm[row * pp: row * pp + nfr].to(torch.int32)
+        n_frozen.append(nfr)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    return layer, table.to(DEV), kv_lens, lens, n_frozen
+
+
+def _frozen_calls(layer, table, kv_lens, q, window=0):
+    """The frozen variant and its plain version on one mixed pool layer."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import paged_decode_attn_cuda
+
+    args = (q, layer["k"], layer["v"], layer["k_smax"], layer["k_shift"], layer["v_smax"],
+            layer["v_shift"], table, kv_lens)
+    fz = {n + s: layer[n + s] for n in ("k", "v") for s in ("_fz", "_fz_smax", "_fz_shift")}
+    kw = dict(fmt="fp8_e4m3", window=window, frozen="fp4_e2m1")
+    return (lambda: paged_decode_attn_cuda(*args, **kw, **fz),
+            lambda: ref.paged_decode_attn_ref(*args, **kw, **fz))
+
+
+def _attn_frozen_check(torch, gen, hd=64, window=0):
+    layer, table, kv_lens, lens, n_frozen = _frozen_layer(torch, gen, hd)
+    q = torch.randn((4, 12, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    kernel, plain = _frozen_calls(layer, table, kv_lens, q, window)
+    o_k, o_p = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((o_k - o_p).abs().max())
+    if not torch.allclose(o_k, o_p, rtol=ATTN_TOL, atol=ATTN_TOL):
+        fail(f"paged_decode_attn frozen variant (hd {hd}, window {window}) disagrees with its "
+             f"plain version: max |err| {err}")
+    return layer, table, kv_lens, lens, n_frozen, q, o_k, kernel, plain, err
+
+
+def _attn_frozen_case(torch, timer, gen):
+    from repro_torch.runtime import kv_cache as kvc
+
+    b, kv, hd, page = 4, 12, 64, 64
+    layer, table, kv_lens, lens, n_frozen, q, o_k, kernel, plain, err = _attn_frozen_check(
+        torch, gen)
+    st = kvc.PagedState(table, kv_lens)
+    kf, vf = (kvc.gather_pages(layer, n, st).to(torch.bfloat16).transpose(1, 2) for n in "kv")
+    mask = (torch.arange(table.shape[1] * page, device=DEV)[None, :]
+            < kv_lens[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = lambda: sdpa(q[:, :, None], kf, vf, attn_mask=mask)
+    fz_tok = sum(f * page for f in n_frozen)
+    fp8_tok = sum(lens) - fz_tok
+    pages_read = sum(kvc.pages_needed(n, page) for n in lens)
+    nbytes = (q.numel() * 2 + fp8_tok * kv * 2 * hd + fz_tok * kv * 2 * ((hd + 1) // 2)
+              + b * 4 + o_k.numel() * 4 + pages_read * 4 + pages_read * 2 * (4 + kv * 4))
+    flops = sum(lens) * kv * 2 * 2 * hd
+    b_ms, by = bound(nbytes, flops, "f32")
+    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
+               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    log(f"    paged_decode_attn frozen variant, fp8 pages + {sum(n_frozen)} fp4 frozen pages "
+        f"B={b} H=KV={kv} hd={hd} page={page} ctx={lens}: kernel {row['ms']:.4f} ms  plain "
+        f"{row['plain_ms']:.4f} ms  library(SDPA) {row['library_ms']:.4f} ms  bound "
+        f"{b_ms * 1e3:.2f} us ({by}; {nbytes} B / 3.35 TB/s = "
+        f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)  max|err| {err:.3g}")
+    return row
+
+
 def phase_kernels(torch):
     log(f"[3 kernels] each CUDA kernel against its plain version on the card "
         f"(W4A8 tolerance {W4A8_TOL}, attention {ATTN_TOL}; times cold-L2, CUDA events)")
@@ -245,6 +345,7 @@ def phase_kernels(torch):
         for k, n in ((768, 768), (768, 3072), (3072, 768)):
             gemm[(m, k, n)] = _w4a8_case(torch, timer, m, k, n, gen)
     attn = {fmt: _attn_case(torch, timer, fmt, gen) for fmt in ("fp8_e4m3", None)}
+    frozen = _attn_frozen_case(torch, timer, gen)
     # every other variant the wrappers accept, held against the plain versions
     for mode, rank in (("none", 0), ("none", 8), ("m2", 0)):
         err = _w4a8_check(torch, 37, 3072, 768, gen, scale_mode=mode, lorc_rank=rank)[-1]
@@ -253,7 +354,11 @@ def phase_kernels(torch):
     for fmt in ("fp8_e4m3", None):
         err = _attn_check(torch, fmt, gen, window=300)[-1]
         log(f"    paged_decode_attn {fmt or 'bf16'} pages, window 300: max|err| {err:.3g}")
-    return gemm, attn
+    for hd, window in ((9, 0), (64, 300)):
+        err = _attn_frozen_check(torch, gen, hd=hd, window=window)[-1]
+        frozen["max_abs_err"] = max(frozen["max_abs_err"], err)
+        log(f"    paged_decode_attn frozen variant, hd {hd}, window {window}: max|err| {err:.3g}")
+    return gemm, attn, frozen
 
 
 def _opt_125m():
@@ -277,7 +382,8 @@ def phase_serve(torch, cfg, packed):
     from repro_torch.runtime import serve
 
     config = serve.ServerConfig(slots=4, max_seq=640, page_size=64, a_fmt="fp8_e4m3",
-                                cache=serve.CachePolicy(active_fmt="fp8_e4m3"))
+                                cache=serve.CachePolicy(active_fmt="fp8_e4m3"), prefix_cache=False,
+                                scheduler=serve.SchedulerConfig(engine="alternating"))
     srv = serve.Server(packed, cfg, config)
     rng = np.random.default_rng(SEED)
     prompt_lens = (32, 512, 77, 256, 140, 400, 64, 300)
@@ -325,14 +431,21 @@ def _profile_decode(torch, srv, rng, vocab, n_steps=3):
     """Device busy share of decode steps: 4 fresh requests are admitted
     and prefilled by one step, then ``n_steps`` pure decode steps run
     under torch.profiler. Returns the line to print."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.runtime import serve
 
     for i in range(srv.slots):
         srv.submit(serve.Request(rid=1000 + i, prompt=rng.integers(2, vocab, 300).tolist(),
                                  max_new=n_steps + 2))
     srv.step()
+    return _profiled(torch, srv, n_steps, "4 rows, 300-token contexts")
+
+
+def _profiled(torch, srv, n_steps, what):
+    """``n_steps`` steps of ``srv`` under torch.profiler, then a drain.
+    Returns the line to print: wall and device-busy time per step, the
+    busy share, launches and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -348,7 +461,7 @@ def _profile_decode(torch, srv, rng, vocab, n_steps=3):
         return f"    profiled decode step: {wall_ms:.2f} ms wall; device time not measured (no CUDA events)"
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
     launches = sum(e.count for e in kernels) / n_steps
-    return (f"    profiled decode step (4 rows, 300-token contexts): {wall_ms:.2f} ms wall, device busy "
+    return (f"    profiled decode step ({what}): {wall_ms:.2f} ms wall, device busy "
             f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), {launches:.0f} device launches; "
             f"top: " + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n_steps:.2f} ms" for e in top))
 
@@ -514,6 +627,156 @@ def phase_cpu(torch, cfg, packed):
     return free, forced
 
 
+def _counts():
+    from repro_torch.kernels.decode_attn import paged_decode_attn_cuda as attn
+    from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda as gemm
+
+    return {"w4a8_fused": gemm.launches, "paged_decode_attn": attn.launches,
+            "paged_decode_attn_frozen": attn.frozen_launches}
+
+
+def _set_counts(counts):
+    from repro_torch.kernels.decode_attn import paged_decode_attn_cuda as attn
+    from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda as gemm
+
+    gemm.launches = counts["w4a8_fused"]
+    attn.launches = counts["paged_decode_attn"]
+    attn.frozen_launches = counts["paged_decode_attn_frozen"]
+
+
+def _live_pool_check(torch, srv, gen):
+    """Every layer of the live pool, at a step where every active row is
+    decoding over a table that holds frozen ids: the frozen variant and
+    its plain version on the same q must agree to ATTN_TOL, and the same
+    call with ``k_fz_shift + 1`` (every frozen K halved) must read at least
+    10x above it. q is scaled to the layer's K so the scores are O(1).
+    Returns (largest error, smallest fault reading). Its launches are not
+    the main path's: the counts are restored."""
+    from repro_torch.runtime import kv_cache as kvc
+
+    saved = _counts()
+    rows = [s for s, r in enumerate(srv.active) if r is not None]
+    table = torch.as_tensor(srv.page_table[rows]).to(DEV)
+    kv_lens = torch.as_tensor(srv.lengths[rows]).to(DEV)
+    err, fault = 0.0, math.inf
+    for pool in srv.pools:
+        for i in range(pool["k"].shape[0]):
+            layer = {name: leaf[i] for name, leaf in pool.items()}
+            k_rms = float(kvc.gather_pages(layer, "k", kvc.PagedState(table, kv_lens))
+                          .pow(2).mean().sqrt())
+            q = (torch.randn((len(rows), srv.cfg.n_heads, srv.cfg.resolved_head_dim),
+                             generator=gen, device=DEV) * (2.0 / max(k_rms, 1e-6))
+                 ).to(torch.bfloat16)
+            kernel, plain = _frozen_calls(layer, table, kv_lens, q)
+            o_p = plain()
+            err = max(err, float((kernel() - o_p).abs().max()))
+            layer["k_fz_shift"] = layer["k_fz_shift"] + 1
+            kernel, _ = _frozen_calls(layer, table, kv_lens, q)
+            fault = min(fault, float((kernel() - o_p).abs().max()))
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    if err > ATTN_TOL:
+        fail(f"live pool: the frozen variant differs from its plain version by {err:.3g} > "
+             f"{ATTN_TOL}")
+    if fault < 10 * ATTN_TOL:
+        fail(f"live pool: the injected fault (k_fz_shift + 1) reads {fault:.3g} < 10 x {ATTN_TOL}")
+    return err, fault
+
+
+def phase_prefix(torch, cfg, packed, card):
+    """The reference Server's default path at full width: the mixed engine,
+    the prefix cache and FP8 pages with an FP4 frozen region."""
+    import numpy as np
+
+    from repro_torch.runtime import serve
+
+    config = serve.ServerConfig(
+        slots=4, max_seq=1024, page_size=64, a_fmt="fp8_e4m3",
+        cache=serve.CachePolicy(active_fmt="fp8_e4m3", frozen_fmt="fp4_e2m1"), prefix_cache=True)
+    srv = serve.Server(packed, cfg, config)
+    if srv.engine != "mixed":
+        fail(f"the default engine is {srv.engine!r}, not the mixed engine")
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    system = rng.integers(2, cfg.vocab_size, 512).tolist()  # 8 pages of 64
+    tails = rng.integers(16, 201, size=8)
+    waves = [[serve.Request(rid=4 * w + i, max_new=32, prompt=system + rng.integers(
+        2, cfg.vocab_size, int(tails[4 * w + i])).tolist()) for i in range(4)] for w in range(2)]
+    _set_counts(dict.fromkeys(_counts(), 0))
+    step_ms = {"decode": [], "mixed": []}
+    live, t_live = None, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wave in waves:  # the second wave is submitted after the first drains
+        for r in wave:
+            srv.submit(r)
+        while True:
+            prefilled = srv.stats["prefill_tokens"]
+            s0 = time.perf_counter()
+            if not srv.step():
+                if srv.queue:
+                    fail("serving starved")
+                break
+            torch.cuda.synchronize()
+            step_ms["decode" if srv.stats["prefill_tokens"] == prefilled else "mixed"].append(
+                (time.perf_counter() - s0) * 1e3)
+            active = [s for s, r in enumerate(srv.active) if r is not None]
+            if (live is None and len(active) == srv.slots and srv._pick_prefill_slot() is None
+                    and all((srv.page_table[s] >= srv._frozen_base).any() for s in active)):
+                c0 = time.perf_counter()
+                live = _live_pool_check(torch, srv, gen)
+                t_live = time.perf_counter() - c0
+    wall = time.perf_counter() - t0 - t_live
+    launches = _counts()
+    results = [r.result() for r in srv.finished]
+    if len(results) != 8 or not all(r.ok for r in results):
+        fail(f"not every request ended ok: {[(r.rid, r.status) for r in results]}")
+    if live is None:
+        fail("no decode step had every row decoding over frozen pages: live check not run")
+    st = srv.stats
+    steps, programs, n_layers = st["steps"], st["programs"], cfg.n_layers
+    # the mixed engine runs one program per step (decode rows plus at most
+    # one prefill chunk): 6 GEMMs a layer each, and one decode attention a
+    # layer each, always the frozen variant over a pool with a frozen region
+    want = {"w4a8_fused": 6 * n_layers * programs, "paged_decode_attn": 0,
+            "paged_decode_attn_frozen": n_layers * steps}
+    if launches != want or programs != steps or launches["paged_decode_attn_frozen"] <= 0:
+        fail(f"kernel launches {launches}, want {want} ({programs} programs, {steps} steps)")
+    if st["fp4_frozen_pages"] < 8 or st["prefix_hit_pages"] <= 0:
+        fail(f"the system prompt did not freeze and hit: {st}")
+    res = srv.cache_residency()
+    ratio = res["frozen_bytes_per_token"] / res["active_bytes_per_token"]
+    n_tok = sum(len(r.tokens) for r in results)
+    log(f"[6 prefix] opt-125m W4A8, mixed engine, prefix cache, fp8 pages + fp4_e2m1 frozen "
+        f"pages, {config.slots} slots, 8 requests (512-token system prompt + 16-200 token "
+        f"tails, 32 new tokens) in 2 waves, on {card}:")
+    log(f"    {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s; {steps} steps: "
+        f"median pure decode step {statistics.median(step_ms['decode']):.2f} ms over "
+        f"{len(step_ms['decode'])}, median mixed step {statistics.median(step_ms['mixed']):.2f} "
+        f"ms over {len(step_ms['mixed'])}")
+    log(f"    prefix_hit_pages {st['prefix_hit_pages']}, prefix_hit_tokens "
+        f"{st['prefix_hit_tokens']}, fp4_frozen_pages {st['fp4_frozen_pages']}, prefix_reclaims "
+        f"{st['prefix_reclaims']}, prefill_tokens {st['prefill_tokens']}, prefix hit rate "
+        f"{srv.prefix_hit_rate():.4f}; frozen/active bytes "
+        f"per token {res['frozen_bytes_per_token']:.1f}/{res['active_bytes_per_token']:.1f} = "
+        f"{ratio:.4f}")
+    log(f"    launches {launches} (want {want})")
+    log(f"    live pool, {n_layers} layers: frozen variant vs plain max|err| {live[0]:.3g} "
+        f"(tolerance {ATTN_TOL}); injected fault k_fz_shift + 1 reads {live[1]:.3g} "
+        f"(>= {10 * ATTN_TOL} required)")
+    for i in range(srv.slots):  # busy share: 4 hits on the system prompt, all decoding
+        srv.submit(serve.Request(rid=100 + i, max_new=8, prompt=system + rng.integers(
+            2, cfg.vocab_size, 100).tolist()))
+    for _ in range(4 * srv.slots):
+        if srv._pick_prefill_slot() is None and all(r is not None for r in srv.active):
+            break
+        srv.step()
+    else:
+        fail("the profiled requests never all reached decode")
+    log(_profiled(torch, srv, 3, "4 rows over 9 frozen + 1 fp8 pages"))
+    return launches, live
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -529,11 +792,12 @@ def main():
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
-    gemm, attn = phase_kernels(torch)
+    gemm, attn, frozen = phase_kernels(torch)
     cfg, packed, t_pack = _opt_125m()
     log(f"    opt-125m init + W4A8 pack on the card: {t_pack:.1f} s")
     launches = phase_serve(torch, cfg, packed)
     phase_cpu(torch, cfg, packed)
+    launches_6, live = phase_prefix(torch, cfg, packed, card)
 
     # one decode step of opt-125m at 4 slots: per layer q, k, v, o (768->768),
     # up (768->3072) and down (3072->768) at M=4, and one attention launch
@@ -560,6 +824,16 @@ def main():
          "ms": 12 * a["ms"], "plain_ms": 12 * a["plain_ms"], "bound_ms": 12 * a["bound_ms"],
          "bound_by": a["bound_by"], "library_ms": 12 * a["library_ms"],
          "per": "12 launches (one per layer), fp8 pages, B=4, contexts 2048/1337/300/1"},
+        {"name": "paged_decode_attn_frozen", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn.py:131 (frozen)",
+         "launches": launches_6["paged_decode_attn_frozen"],
+         "max_abs_err": max(frozen["max_abs_err"], live[0]),
+         "ms": 12 * frozen["ms"], "plain_ms": 12 * frozen["plain_ms"],
+         "bound_ms": 12 * frozen["bound_ms"], "bound_by": frozen["bound_by"],
+         "library_ms": 12 * frozen["library_ms"],
+         "per": "12 launches (one per layer), fp8 pages with half of each row's full pages "
+                "in the fp4 frozen region, B=4, contexts 2048/1337/300/1; launches from phase 6"},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

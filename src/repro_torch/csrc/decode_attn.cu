@@ -2,8 +2,8 @@
 // paged FP8 (or bf16) KV pool.
 //
 // Replaces the TPU kernel repro/kernels/decode_attn.py:131
-// (paged_decode_attn_pallas) for pools without the packed-FP4 frozen
-// region. For batch row b and KV head h, the g = H / KV query heads of
+// (paged_decode_attn_pallas), with and without the packed-FP4 frozen region
+// (its `frozen` branch, :86-100). For batch row b and KV head h, the g = H / KV query heads of
 // the group attend the tokens of pages page_table[b, 0..PP) up to
 // kv_lens[b] (and inside the sliding window when window > 0). FP8 codes are
 // decoded by the integer exponent add of kernels/common.py::decode_fp8
@@ -24,6 +24,18 @@
 // are skipped, and masked positions inside a page are never read into the
 // sums: the mask is a select, never a multiply by 0, so a stale NaN in a
 // recycled or null page cannot leak (0 * NaN = NaN).
+// The frozen region (FROZEN = true, behind FP8 active pages): page ids >=
+// base = P + 1 address the half-width packed FP4 E2M1 store, row
+// min(pid - base, nfz), with its own s_max and shifts. The TPU kernel
+// fetches both candidate pages through clamped index maps and selects per
+// page; here the id class is uniform within a page, so a plain branch per
+// page picks one store and reads only that one (no divergence inside a
+// warp). The clamps of the plain version (min(pid, P) for the FP8 store,
+// the dummy row nfz for ids past the region) are kept, so the kernel equals
+// it on every table. FP4 rows are ceil(hd / 2) bytes per (token, head), low
+// nibble first (core/formats.pack_nibbles); each byte is loaded once and
+// both nibbles are decoded by the same integer exponent add, E2M1's
+// subnormal (exponent field 0 -> 0.5 * m) included.
 // Only what the serving path runs is compiled: bf16 queries, and K and V
 // of one head width (the Python wrapper refuses the rest).
 
@@ -36,7 +48,7 @@ namespace {
 constexpr int THREADS = 128;
 constexpr float NEG = -1e30f;
 
-struct Fp8 {
+struct Grid {  // an ExMy code grid: FP8 E4M3 pages, FP4 E2M1 frozen pages
   int exp_bits, man_bits, bias;
 };
 
@@ -45,7 +57,7 @@ __device__ __forceinline__ float pow2i(int k) {
   return __int_as_float((k + 127) << 23);
 }
 
-__device__ __forceinline__ float decode_fp8(int code, int shift, const Fp8& f) {
+__device__ __forceinline__ float decode_code(int code, int shift, const Grid& f) {
   const int man = code & ((1 << f.man_bits) - 1);
   const int ef = (code >> f.man_bits) & ((1 << f.exp_bits) - 1);
   const float manf = (float)man * pow2i(-f.man_bits);
@@ -54,11 +66,11 @@ __device__ __forceinline__ float decode_fp8(int code, int shift, const Fp8& f) {
   return (code >> (f.exp_bits + f.man_bits)) & 1 ? -val : val;
 }
 
-struct Fp8Decode {  // one page's codes of one head -> values
-  Fp8 fmt;
+struct CodeDecode {  // one page's codes (FP8 bytes or FP4 nibbles) of one head -> values
+  Grid fmt;
   int shift;
   float smax;
-  __device__ float operator()(uint8_t c) const { return decode_fp8(c, shift, fmt) * smax; }
+  __device__ float operator()(int c) const { return decode_code(c, shift, fmt) * smax; }
 };
 
 struct Bf16Decode {
@@ -87,7 +99,41 @@ __device__ __forceinline__ void stage_rows(const TS* __restrict__ src, size_t st
   }
 }
 
-template <bool FP8>
+// Packed FP4 rows: dst[t * pitch + d] = f(nibble d of src row t), for
+// t < rows, d < hd; a row holds ceil(hd / 2) bytes, nibble 2c in the low
+// half of byte c. Each thread loads whole bytes and decodes both nibbles.
+template <typename F>
+__device__ __forceinline__ void stage_rows_fp4(const uint8_t* __restrict__ src, size_t stride,
+                                               int rows, int hd, float* dst, int pitch, F f) {
+  const int wb = (hd + 1) >> 1, n = rows * wb;
+  for (int i0 = threadIdx.x; i0 < n; i0 += IN_FLIGHT * THREADS) {
+    uint8_t raw[IN_FLIGHT];
+#pragma unroll
+    for (int u = 0; u < IN_FLIGHT; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < n) raw[u] = src[(size_t)(i / wb) * stride + i % wb];
+    }
+#pragma unroll
+    for (int u = 0; u < IN_FLIGHT; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i >= n) continue;
+      float* row = dst + (i / wb) * pitch;
+      const int d = 2 * (i % wb);
+      row[d] = f(raw[u] & 15);
+      if (d + 1 < hd) row[d + 1] = f(raw[u] >> 4);
+    }
+  }
+}
+
+struct Frozen {                  // the packed FP4 region of a mixed-precision pool
+  const uint8_t *k, *v;          // (nfz + 1, page, KV, ceil(hd / 2))
+  const float *k_smax, *v_smax;  // (nfz + 1,)
+  const int *k_shift, *v_shift;  // (nfz + 1, KV)
+  int base, nfz;                 // first frozen logical id (P + 1); the dummy row
+  Grid fmt;
+};
+
+template <bool FP8, bool FROZEN>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pages,
                          const void* __restrict__ v_pages, const float* __restrict__ k_smax,
@@ -95,7 +141,7 @@ paged_decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const void* __rest
                          const int* __restrict__ v_shift, const int* __restrict__ page_table,
                          const int* __restrict__ kv_lens, float* __restrict__ out, int H,
                          int KV, int hd, int page, int PP, int window, float scale,
-                         Fp8 fmt) {
+                         Grid fmt, Frozen fz) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y, g = H / KV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = THREADS / 32;
@@ -130,13 +176,24 @@ paged_decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const void* __rest
     const int pid = page_table[(size_t)b * PP + j];
 
     // decode rows [0, t_hi) of this page's K / V for head h into shared memory
-    const size_t row0 = ((size_t)pid * page * KV + h), stride = (size_t)KV;
-    if (FP8) {
-      const Fp8Decode kf{fmt, k_shift[(size_t)pid * KV + h], k_smax[pid]};
-      const Fp8Decode vf{fmt, v_shift[(size_t)pid * KV + h], v_smax[pid]};
+    const size_t stride = (size_t)KV;
+    if (FROZEN && pid >= fz.base) {  // a frozen page: the packed FP4 store
+      const int f = min(pid - fz.base, fz.nfz);
+      const int wb = (hd + 1) >> 1;
+      const size_t row0 = (size_t)f * page * KV + h;
+      const CodeDecode kf{fz.fmt, fz.k_shift[(size_t)f * KV + h], fz.k_smax[f]};
+      const CodeDecode vf{fz.fmt, fz.v_shift[(size_t)f * KV + h], fz.v_smax[f]};
+      stage_rows_fp4(fz.k + row0 * wb, stride * wb, t_hi, hd, ks, kp, kf);
+      stage_rows_fp4(fz.v + row0 * wb, stride * wb, t_hi, hd, vs, hd, vf);
+    } else if (FP8) {
+      const int a = FROZEN ? min(pid, fz.base - 1) : pid;
+      const size_t row0 = (size_t)a * page * KV + h;
+      const CodeDecode kf{fmt, k_shift[(size_t)a * KV + h], k_smax[a]};
+      const CodeDecode vf{fmt, v_shift[(size_t)a * KV + h], v_smax[a]};
       stage_rows((const uint8_t*)k_pages + row0 * hd, stride * hd, t_hi, hd, ks, kp, kf);
       stage_rows((const uint8_t*)v_pages + row0 * hd, stride * hd, t_hi, hd, vs, hd, vf);
     } else {
+      const size_t row0 = (size_t)pid * page * KV + h;
       stage_rows((const __nv_bfloat16*)k_pages + row0 * hd, stride * hd, t_hi, hd, ks, kp,
                  Bf16Decode{});
       stage_rows((const __nv_bfloat16*)v_pages + row0 * hd, stride * hd, t_hi, hd, vs, hd,
@@ -191,16 +248,17 @@ paged_decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const void* __rest
   }
 }
 
-template <bool FP8>
+template <bool FP8, bool FROZEN>
 int launch(const void* q, const void* k_pages, const void* v_pages, const void* k_smax,
            const void* k_shift, const void* v_smax, const void* v_shift,
            const void* page_table, const void* kv_lens, void* out, int B, int H, int KV,
-           int hd, int page, int PP, int window, float scale, Fp8 fmt, cudaStream_t stream) {
+           int hd, int page, int PP, int window, float scale, Grid fmt, Frozen fz,
+           cudaStream_t stream) {
   const int g = H / KV;
   const size_t bytes =
       sizeof(float) * ((size_t)g * hd + (size_t)page * (2 * hd + 1) + (size_t)g * page +
                        (size_t)g * hd + 3 * (size_t)g);
-  auto kernel = paged_decode_attn_kernel<FP8>;
+  auto kernel = paged_decode_attn_kernel<FP8, FROZEN>;
   if (bytes > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -209,7 +267,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
   kernel<<<dim3(B, KV), THREADS, bytes, stream>>>(
       (const __nv_bfloat16*)q, k_pages, v_pages, (const float*)k_smax, (const int*)k_shift,
       (const float*)v_smax, (const int*)v_shift, (const int*)page_table, (const int*)kv_lens,
-      (float*)out, H, KV, hd, page, PP, window, scale, fmt);
+      (float*)out, H, KV, hd, page, PP, window, scale, fmt, fz);
   return (int)cudaGetLastError();
 }
 
@@ -218,19 +276,30 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
 // q: (B, H, hd) bf16; k/v_pages: (P+1, page, KV, hd) uint8 codes (fp8 = 1)
 // or bf16; k/v_smax: (P+1,) f32 and k/v_shift: (P+1, KV) int32 (read only
 // for fp8 pages); page_table: (B, PP) int32; kv_lens: (B,) int32;
-// out: (B, H, hd) f32. Returns cudaGetLastError().
+// out: (B, H, hd) f32. frozen = 1 (fp8 pages only): k/v_fz (nfz+1, page, KV,
+// ceil(hd/2)) packed codes of the grid (fz_exp_bits, fz_man_bits, fz_bias),
+// k/v_fz_smax (nfz+1,) f32, k/v_fz_shift (nfz+1, KV) int32; table ids >=
+// P+1 address them. Returns cudaGetLastError().
 extern "C" int paged_decode_attn_launch(const void* q, const void* k_pages,
                                         const void* v_pages, int fp8, const void* k_smax,
                                         const void* k_shift, const void* v_smax,
                                         const void* v_shift, const void* page_table,
                                         const void* kv_lens, void* out, int B, int H, int KV,
                                         int hd, int page, int PP, int window, float scale,
-                                        int exp_bits, int man_bits, int bias, void* stream) {
+                                        int exp_bits, int man_bits, int bias, int frozen,
+                                        const void* k_fz, const void* v_fz,
+                                        const void* k_fz_smax, const void* k_fz_shift,
+                                        const void* v_fz_smax, const void* v_fz_shift,
+                                        int n_pages1, int nfz, int fz_exp_bits,
+                                        int fz_man_bits, int fz_bias, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
-  Fp8 fmt{exp_bits, man_bits, bias};
+  if (KV <= 0 || H % KV || (frozen && (!fp8 || nfz < 0))) return (int)cudaErrorInvalidValue;
+  const Grid fmt{exp_bits, man_bits, bias};
+  const Frozen fz{(const uint8_t*)k_fz, (const uint8_t*)v_fz, (const float*)k_fz_smax,
+                  (const float*)v_fz_smax, (const int*)k_fz_shift, (const int*)v_fz_shift,
+                  n_pages1, nfz, Grid{fz_exp_bits, fz_man_bits, fz_bias}};
   cudaStream_t s = (cudaStream_t)stream;
-  auto run = fp8 ? &launch<true> : &launch<false>;
+  auto run = frozen ? &launch<true, true> : fp8 ? &launch<true, false> : &launch<false, false>;
   return run(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift, page_table, kv_lens, out,
-             B, H, KV, hd, page, PP, window, scale, fmt, s);
+             B, H, KV, hd, page, PP, window, scale, fmt, fz, s);
 }

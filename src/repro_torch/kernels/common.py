@@ -74,6 +74,10 @@ class PageFormat:
     def fmt(self):
         return FORMATS[self.name] if self.name is not None else None
 
+    def width(self, d: int) -> int:
+        """Stored last-dim width for ``d`` logical codes (two per byte when packed)."""
+        return (d + 1) // 2 if self.packed else d
+
     def decode(self, raw: torch.Tensor, shift, d: int) -> torch.Tensor:
         """Page bytes -> f32 values before the per-page s_max multiply."""
         if not self.quantized:

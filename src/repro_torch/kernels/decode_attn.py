@@ -1,12 +1,14 @@
 """Python binding of the paged decode attention kernel (``csrc/decode_attn.cu``).
 
 ``paged_decode_attn_cuda`` checks its operands, allocates the output and
-launches the kernel on the current stream; ``paged_decode_attn_cuda.launches``
-counts the launches. CUDA tensors only: the plain version for the CPU is
-``ref.paged_decode_attn_ref`` (``ops.paged_decode_attn`` dispatches). Pools
-with the packed-FP4 frozen region are not supported yet (ROADMAP queue 2).
-The kernel covers what the serving path runs: bf16 queries over FP8 or bf16
-pages whose K and V share the head width; the wrapper refuses the rest.
+launches the kernel on the current stream. It counts its launches by
+variant: ``paged_decode_attn_cuda.launches`` over FP8 or bf16 pages,
+``paged_decode_attn_cuda.frozen_launches`` over FP8 pages with the packed
+FP4 frozen region. CUDA tensors only: the plain version for the CPU is
+``ref.paged_decode_attn_ref`` (``ops.paged_decode_attn`` dispatches). The
+kernel covers what the serving path runs: bf16 queries over FP8 or bf16
+pages (and the frozen region behind FP8 pages) whose K and V share the
+head width; the wrapper refuses the rest.
 """
 from __future__ import annotations
 
@@ -26,25 +28,34 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib():
     fn = build.load("decode_attn").paged_decode_attn_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _F, _I, _I, _I, _P]
+        fn.argtypes = ([_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _I, _I, _I, _I] + [_P] * 6 + [_I] * 5 + [_P])
         fn.restype = _I
     return fn
 
 
 def paged_decode_attn_cuda(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift,
-                           page_table, kv_lens, fmt=None, window: int = 0, **frozen):
+                           page_table, kv_lens, fmt=None, window: int = 0, frozen=None,
+                           k_fz=None, v_fz=None, k_fz_smax=None, k_fz_shift=None,
+                           v_fz_smax=None, v_fz_shift=None):
     """q: (B, H, hd) bf16; k/v_pages: (P+1, page, KV, hd) uint8 FP8
     codes (``fmt`` 'fp8_e4m3') or bf16 (``fmt`` None); k/v_smax (P+1,) f32
     and k/v_shift (P+1, KV) int32 (FP8 only); page_table (B, PP) int32;
-    kv_lens (B,) int32. Returns (B, H, hd) f32."""
-    if any(v is not None for v in frozen.values()):
-        raise NotImplementedError(
-            "paged decode over a packed-FP4 frozen region is not ported yet "
-            "(ROADMAP queue 2: the frozen-FP4 decode variant)")
+    kv_lens (B,) int32. With ``frozen`` 'fp4_e2m1' (behind FP8 pages):
+    k/v_fz (F+1, page, KV, ceil(hd/2)) uint8 packed codes, k/v_fz_smax
+    (F+1,) f32, k/v_fz_shift (F+1, KV) int32, and table ids >= P+1 address
+    them. Returns (B, H, hd) f32."""
     pf = page_format(fmt)
+    fz = page_format(frozen) if frozen is not None else None
     if pf.packed:
         raise NotImplementedError("packed FP4 active pages are not a writable pool format")
+    if fz is not None and (fz.name != "fp4_e2m1" or pf.name != "fp8_e4m3"):
+        raise NotImplementedError(
+            f"frozen region {fz.name!r} behind {pf.name!r} pages: the kernel reads only "
+            "packed fp4_e2m1 frozen pages behind fp8_e4m3 pages")
+    if fz is None and any(t is not None for t in (k_fz, v_fz, k_fz_smax, k_fz_shift,
+                                                   v_fz_smax, v_fz_shift)):
+        raise ValueError("frozen-region operands given without frozen='fp4_e2m1'")
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attn_cuda takes CUDA tensors, got {dev}")
@@ -65,18 +76,38 @@ def paged_decode_attn_cuda(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift
             _check(t, name, torch.float32, (p1,), dev)
         for t, name in ((k_shift, "k_shift"), (v_shift, "v_shift")):
             _check(t, name, torch.int32, (p1, kv), dev)
-    f = pf.fmt
+    nfz = 0
+    if fz is not None:
+        if any(t is None for t in (k_fz, v_fz, k_fz_smax, k_fz_shift, v_fz_smax, v_fz_shift)):
+            raise ValueError("frozen='fp4_e2m1' needs all six k/v_fz operands")
+        f1 = k_fz.shape[0]
+        nfz = f1 - 1
+        for t, name in ((k_fz, "k_fz"), (v_fz, "v_fz")):
+            _check(t, name, torch.uint8, (f1, page, kv, fz.width(hd)), dev)
+        for t, name in ((k_fz_smax, "k_fz_smax"), (v_fz_smax, "v_fz_smax")):
+            _check(t, name, torch.float32, (f1,), dev)
+        for t, name in ((k_fz_shift, "k_fz_shift"), (v_fz_shift, "v_fz_shift")):
+            _check(t, name, torch.int32, (f1, kv), dev)
+    f, ff = pf.fmt, fz.fmt if fz is not None else None
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    ptr = lambda t: t.data_ptr() if pf.quantized else None
+    ptr = lambda t, on: t.data_ptr() if on else None
     rc = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), int(pf.quantized),
-                ptr(k_smax), ptr(k_shift), ptr(v_smax), ptr(v_shift), page_table.data_ptr(),
-                kv_lens.data_ptr(), out.data_ptr(), b, h, kv, hd, page, pp, int(window),
-                1.0 / float(hd) ** 0.5, f.exp_bits if f else 0, f.man_bits if f else 0,
-                f.bias if f else 0, torch.cuda.current_stream(dev).cuda_stream)
+                ptr(k_smax, f), ptr(k_shift, f), ptr(v_smax, f), ptr(v_shift, f),
+                page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), b, h, kv, hd, page,
+                pp, int(window), 1.0 / float(hd) ** 0.5, f.exp_bits if f else 0,
+                f.man_bits if f else 0, f.bias if f else 0, int(ff is not None),
+                *(ptr(t, ff) for t in (k_fz, v_fz, k_fz_smax, k_fz_shift, v_fz_smax,
+                                       v_fz_shift)),
+                p1, nfz, ff.exp_bits if ff else 0, ff.man_bits if ff else 0,
+                ff.bias if ff else 0, torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"paged_decode_attn kernel launch failed: CUDA error {rc}")
-    paged_decode_attn_cuda.launches += 1
+    if ff is not None:
+        paged_decode_attn_cuda.frozen_launches += 1
+    else:
+        paged_decode_attn_cuda.launches += 1
     return out
 
 
 paged_decode_attn_cuda.launches = 0
+paged_decode_attn_cuda.frozen_launches = 0

@@ -36,21 +36,40 @@ def w4a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
     return y.reshape(*lead, -1)
 
 
+def _layer_formats(pool_layer):
+    """The (active, frozen) page formats of a pool slice, from its leaves:
+    the dtype picks bf16 or codes, the zero-size ``_fp4`` marker packed FP4
+    over FP8, and a ``k_fz`` leaf the packed frozen region."""
+    if pool_layer["k"].dtype != torch.uint8:
+        name = None
+    else:
+        name = "fp4_e2m1" if "_fp4" in pool_layer else "fp8_e4m3"
+    return name, ("fp4_e2m1" if "k_fz" in pool_layer else None)
+
+
+def _fz_operands(pool_layer):
+    """The frozen-region operands (all None for a homogeneous pool)."""
+    return {name + suffix: pool_layer.get(name + suffix)
+            for name in ("k", "v") for suffix in ("_fz", "_fz_smax", "_fz_shift")}
+
+
 def paged_decode_attn(q: torch.Tensor, pool_layer, page_table, kv_lens,
                       window: int = 0) -> torch.Tensor:
-    """Paged decode attention over one layer's pool slice ({'k', 'v'} plus
-    the FP8 scale leaves when the pages are uint8 codes). q: (B, H, hd);
-    page_table: (B, PP) int32; kv_lens: (B,) int32. Returns (B, H, dv) f32."""
-    if any(name.endswith("_fz") or name == "_fp4" for name in pool_layer):
-        raise NotImplementedError("packed-FP4 pages are not ported yet (ROADMAP queue 2)")
+    """Paged decode attention over one layer's pool slice ({'k', 'v'}, the
+    scale leaves when the pages are codes, and the ``*_fz`` leaves of a
+    mixed-precision pool, whose ids >= P+1 in ``page_table`` address the
+    packed FP4 frozen region). q: (B, H, hd); page_table: (B, PP) int32;
+    kv_lens: (B,) int32. Returns (B, H, dv) f32. On the card: the paged
+    decode kernel, or its frozen-region variant for a mixed pool."""
     kp, vp = pool_layer["k"], pool_layer["v"]
-    fmt = "fp8_e4m3" if kp.dtype == torch.uint8 else None
+    fmt, frozen = _layer_formats(pool_layer)
     scales = ((pool_layer["k_smax"], pool_layer["k_shift"], pool_layer["v_smax"],
                pool_layer["v_shift"]) if fmt else (None,) * 4)
+    fz = _fz_operands(pool_layer)
     if _route(q) == "cpu":
-        return ref.paged_decode_attn_ref(q, kp, vp, *scales, page_table, kv_lens,
-                                         fmt=fmt, window=window)
+        return ref.paged_decode_attn_ref(q, kp, vp, *scales, page_table, kv_lens, fmt=fmt,
+                                         window=window, frozen=frozen, **fz)
     from .decode_attn import paged_decode_attn_cuda
 
     return paged_decode_attn_cuda(q.contiguous(), kp, vp, *scales, page_table, kv_lens,
-                                  fmt=fmt, window=window)
+                                  fmt=fmt, window=window, frozen=frozen, **fz)

@@ -52,32 +52,47 @@ def w4a8_matmul_ref(x, codes, scale, lorc_a=None, lorc_b=None,
 
 def paged_decode_attn_ref(q, k_pages, v_pages, k_smax, k_shift, v_smax,
                           v_shift, page_table, kv_lens, fmt=None,
-                          window: int = 0):
+                          window: int = 0, frozen=None, k_fz=None, v_fz=None,
+                          k_fz_smax=None, k_fz_shift=None, v_fz_smax=None,
+                          v_fz_shift=None):
     """Paged decode attention, gathered and dequantized in full.
 
     q: (B, H, hd); k/v_pages: (P+1, page, KV, hd) uint8 codes (``fmt``
     quantized) or bf16; k/v_smax: (P+1,) f32; k/v_shift: (P+1, KV) int32;
-    page_table: (B, PP) int32; kv_lens: (B,). Positions >= kv_lens[b] (and
-    outside the sliding window) are masked with ``where`` before and after
-    the softmax. Returns (B, H, dv) f32."""
+    page_table: (B, PP) int32; kv_lens: (B,). With ``frozen`` set, the
+    ``*_fz`` operands hold the packed frozen region ((F+1, page, KV,
+    ceil(hd/2)) codes, (F+1,) smax, (F+1, KV) shifts; row F is the dummy)
+    and table ids >= P+1 address it: both regions are gathered with clamped
+    ids (``min(pid, P)`` and ``clip(pid - (P+1), 0, F)``) and a ``where`` on
+    the id class picks each page, the TPU kernel's dataflow. Positions >=
+    kv_lens[b] (and outside the sliding window) are masked with ``where``
+    before and after the softmax. Returns (B, H, dv) f32."""
     fmt = page_format(fmt)
+    frozen = page_format(frozen) if frozen is not None else None
     b, h, hd = q.shape
-    _, page, kv, _ = k_pages.shape
+    base, page, kv, _ = k_pages.shape
     dv = v_pages.shape[-1]
     pp = page_table.shape[1]
     g = h // kv
     pt = page_table.long()
 
-    def dq(pages, smax, shift):
-        gathered = pages[pt]  # (B, PP, page, KV, d)
+    def dq(pages, smax, shift, fpages, fsmax, fshift):
+        apt = torch.clamp(pt, max=base - 1) if frozen is not None else pt
+        gathered = pages[apt]  # (B, PP, page, KV, d)
         if not fmt.quantized:
             return gathered.float().reshape(b, pp * page, kv, -1)
-        vals = fmt.decode(gathered, shift[pt][:, :, None, :, None], pages.shape[-1])
-        vals = vals * smax[pt][:, :, None, None, None]
+        d = pages.shape[-1] * (2 if fmt.packed else 1)
+        vals = fmt.decode(gathered, shift[apt][:, :, None, :, None], d)
+        vals = vals * smax[apt][:, :, None, None, None]
+        if frozen is not None:
+            fpt = torch.clamp(pt - base, 0, fpages.shape[0] - 1)
+            fvals = frozen.decode(fpages[fpt], fshift[fpt][:, :, None, :, None], pages.shape[-1])
+            fvals = fvals * fsmax[fpt][:, :, None, None, None]
+            vals = torch.where((pt >= base)[:, :, None, None, None], fvals, vals)
         return vals.reshape(b, pp * page, kv, -1)
 
-    kf = dq(k_pages, k_smax, k_shift)
-    vf = dq(v_pages, v_smax, v_shift)
+    kf = dq(k_pages, k_smax, k_shift, k_fz, k_fz_smax, k_fz_shift)
+    vf = dq(v_pages, v_smax, v_shift, v_fz, v_fz_smax, v_fz_shift)
     qg = q.reshape(b, kv, g, hd).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, kf) * (1.0 / float(hd) ** 0.5)
     pos = torch.arange(pp * page, device=q.device)[None, None, None, :]

@@ -32,9 +32,15 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
     (B, S) at per-row positions ``state.lengths``. A state with
     ``chunk_len`` is a bucketed prefill chunk, so the logits row is its last
     *true* token (``chunk_len - 1``); otherwise the last row. Returns
-    (B, V) f32 logits."""
+    (B, V) f32 logits. A mixed step (``state.prefill`` set, tokens the
+    fused (1, slots + S) row) returns (slots + 1, V): one row per slot,
+    then the chunk's last true token."""
     hidden = _tf.lm_forward(params, cfg, tokens, caches, state, a_fmt=a_fmt)
-    if state.chunk_len is not None:
+    if state.prefill is not None:
+        nd = state.lengths.shape[0]
+        h_pre = hidden[0, nd + int(state.prefill.chunk_len[0]) - 1]
+        h_last = torch.cat([hidden[0, :nd], h_pre[None]], dim=0)
+    elif state.chunk_len is not None:
         h_last = hidden[:, int(state.chunk_len[0]) - 1]
     else:
         h_last = hidden[:, -1]

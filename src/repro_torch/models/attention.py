@@ -1,8 +1,8 @@
 """GQA attention over the paged KV pool (port of the paged branches of
 ``repro.models.attention``): the decode step (one token per row, appended
-then read through ``ops.paged_decode_attn``) and the streaming-prefill
-chunk (batch 1: written to its pages, attending gathered history pages
-plus its own exact K/V). The mixed engine's fused branch, the training /
+then read through ``ops.paged_decode_attn``), the streaming-prefill chunk
+(batch 1: written to its pages, attending gathered history pages plus its
+own exact K/V), and the mixed engine's fused row of both. The training /
 contiguous-cache modes and cross-attention come with later slices."""
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import f32
+from repro_torch.kernels import ops
 from repro_torch.runtime.kv_cache import (PagedState, append_paged,
                                           append_prefill_chunk, gather_history)
 
@@ -78,8 +79,9 @@ def _paged_chunk_attn(q, k, v, pool_layer, state: PagedState, g: int, window: in
 def attention(p, x: torch.Tensor, cfg, kv_cache, state: PagedState,
               a_fmt: Optional[str] = None):
     """Returns (out, kv_cache). ``kv_cache`` is one layer's pool slice,
-    written in place. A state with ``chunk_len`` is a prefill chunk (even a
-    1-token one); without, x is one decode token per row."""
+    written in place. A state with ``prefill`` is a mixed step (x is the
+    fused (1, slots + S) row); one with ``chunk_len`` a prefill chunk (even
+    a 1-token one); otherwise x is one decode token per row."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = h // kv
     b, s, _ = x.shape
@@ -89,9 +91,22 @@ def attention(p, x: torch.Tensor, cfg, kv_cache, state: PagedState,
     v = linear(p["wv"], xq, p.get("bv")).reshape(b, s, kv, hd)
     if cfg.pos_embedding == "rope":
         raise NotImplementedError("rope models come with a later slice (ROADMAP queue 1, item 4)")
-    if s == 1 and state.chunk_len is None:
-        from repro_torch.kernels import ops
-
+    if state.prefill is not None:
+        # the mixed engine's fused batch-1 row: one decode token per slot,
+        # then one request's bucketed prefill chunk. The decode lanes append
+        # first, then the chunk, both in place on this pool; mid-prefill
+        # slots ride with lengths 0, so their appends go to the null page
+        assert cfg.causal and b == 1, "the mixed step is one causal fused row"
+        pre, nd = state.prefill, state.lengths.shape[0]
+        append_paged(kv_cache, {"k": k[:, :nd].transpose(0, 1),
+                                "v": v[:, :nd].transpose(0, 1)}, state)
+        append_prefill_chunk(kv_cache, {"k": k[:, nd:], "v": v[:, nd:]}, pre)
+        o_dec = ops.paged_decode_attn(q[0, :nd], kv_cache, state.page_table,
+                                      state.lengths + 1, window=cfg.window)
+        o_pre = _paged_chunk_attn(q[:, nd:], k[:, nd:], v[:, nd:], kv_cache, pre, g,
+                                  cfg.window)
+        o = torch.cat([o_dec[None].to(x.dtype), o_pre.to(x.dtype)], dim=1)
+    elif s == 1 and state.chunk_len is None:
         append_paged(kv_cache, {"k": k, "v": v}, state)
         o = ops.paged_decode_attn(q[:, 0], kv_cache, state.page_table,
                                   state.lengths + 1, window=cfg.window)

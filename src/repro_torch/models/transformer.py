@@ -80,12 +80,21 @@ def block_apply(p, x, cfg, cache_layer, state: PagedState, a_fmt=None):
 
 def lm_forward(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
                a_fmt: Optional[str] = None):
-    """tokens (B, S) at per-row positions ``state.lengths[:, None] + j``.
-    ``caches``: one pool dict per segment, written in place. Returns the
+    """tokens (B, S) at per-row positions ``state.lengths[:, None] + j``
+    (for a mixed step, the fused (1, slots + S) row of decode tokens and
+    one prefill chunk). ``caches``: one pool dict per segment, written in place. Returns the
     final-norm hidden states (B, S, d)."""
     x = params["embed"][tokens.long()]
     s = tokens.shape[1]
-    positions = state.lengths.long()[:, None] + torch.arange(s, device=tokens.device)[None]
+    steps = torch.arange(s, device=tokens.device)
+    if state.prefill is not None:
+        # the mixed step's fused row: each decode token at its slot's true
+        # length, chunk token j at the chunk start + j
+        nd = state.lengths.shape[0]
+        positions = torch.cat([state.lengths.long(),
+                               state.prefill.lengths.long()[0] + steps[:s - nd]])[None]
+    else:
+        positions = state.lengths.long()[:, None] + steps[None]
     if cfg.pos_embedding == "learned":
         x = x + params["pos_embed"][positions].to(x.dtype)
     for seg_params, pool in zip(params["segments"], caches):

@@ -1,4 +1,5 @@
-"""Quantized paged KV pool, GQA slice (port of ``repro.runtime.kv_cache``).
+"""Quantized paged KV pool, GQA slice, and the shared-prefix index (port of
+``repro.runtime.kv_cache``).
 
 Layout (one pool dict per model segment, leading dim = stacked layers):
 
@@ -12,101 +13,221 @@ M2-constrained across the page's heads with floor rounding (never
 saturates), so decode applies them as an exponent add plus one s_max
 multiply per page.
 
+Mixed precision (``CachePolicy(frozen_fmt="fp4_e2m1")``): the pool grows a
+frozen region of half-width packed FP4 E2M1 stores (``k_fz``/``v_fz``, two
+codes per byte, low nibble first, with their own ``*_fz_smax`` and
+``*_fz_shift``) of ``n_frozen`` pages plus one dummy row that clamped reads
+land on. Frozen logical ids share the id space above the active store: id
+``(P+1) + fidx`` addresses frozen row ``fidx``. A page enters the region
+exactly once, through ``transcode_page`` when the prefix cache freezes it,
+and is read-only afterwards.
+
 Unlike the reference, whose arrays are immutable, the write paths here
-(``append_paged``, ``append_prefill_chunk``) update the pool leaves in
-place: copying the whole pool for every layer of every step would cost far
-more than the step. They return the (same) layer dict, so callers read as
-in the reference.
+(``append_paged``, ``append_prefill_chunk``, ``transcode_page``) update the
+pool leaves in place: copying the whole pool for every layer of every step
+would cost far more than the step. They return the (same) dict, so callers
+read as in the reference. In place also means a write to a page that other
+rows share corrupts them without any error, so the serving engine checks
+every write set with ``PrefixCache.assert_unfrozen`` where the reference
+does.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional
+from collections import OrderedDict
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.formats import f32, fp_encode, quantize_to_grid
+from repro_torch.core.formats import f32, fp_encode, pack_nibbles, quantize_to_grid
 from repro_torch.core.scales import constrain_scales_m2
 from repro_torch.kernels.common import PageFormat, page_format
 
-__all__ = ["CachePolicy", "PagedState", "init_gqa_pool", "pool_format",
-           "quantize_pages", "dequantize_pages", "append_paged",
-           "append_prefill_chunk", "gather_pages", "gather_history", "pages_needed"]
+__all__ = ["CachePolicy", "PagedState", "PrefixCache", "page_key", "init_gqa_pool",
+           "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
+           "dequantize_pages", "transcode_page", "append_paged", "append_prefill_chunk",
+           "gather_pages", "gather_history", "pool_bytes_per_token", "page_bytes",
+           "pages_needed"]
 
 _EPS = 1e-12
 
 
 @dataclasses.dataclass(frozen=True)
 class CachePolicy:
-    """KV-cache precision. This slice ports ``active_fmt`` only: ``None``
-    (bf16 pages) or ``'fp8_e4m3'``. Frozen FP4 pages and cross pages come
-    with the prefix cache and enc-dec (ROADMAP queue 1, items 8 and 12)."""
+    """KV-cache precision per page class.
+
+    * ``active_fmt``: pages a write path can still touch (decode appends
+      requantize them): ``None`` (bf16) or ``'fp8_e4m3'``.
+    * ``frozen_fmt``: pages the prefix cache has registered, read-only for
+      the rest of their lives. ``None`` inherits ``active_fmt``;
+      ``'fp4_e2m1'`` (behind FP8 active pages) transcodes each page to
+      packed FP4 exactly once, at the freeze point.
+    * ``cross_fmt``: enc-dec cross pages (validated as in the reference; no
+      port model has them yet, ROADMAP queue 1, item 12).
+    * ``frozen_pages`` sizes the frozen region (``None``: the active pool's
+      page count)."""
 
     active_fmt: Optional[str] = None
+    frozen_fmt: Optional[str] = None
+    cross_fmt: Optional[str] = None
+    frozen_pages: Optional[int] = None
 
     def __post_init__(self):
         if self.active_fmt not in (None, "fp8_e4m3"):
             raise ValueError(
                 f"active_fmt={self.active_fmt!r}: active pages are requantized "
                 "by decode appends, so only None (bf16) or 'fp8_e4m3' are writable")
+        page_format(self.frozen_fmt)  # fail fast with the allowed set
+        page_format(self.cross_fmt)
+        if self.frozen_fmt is not None and self.frozen_fmt != self.active_fmt:
+            if (self.active_fmt, self.frozen_fmt) != ("fp8_e4m3", "fp4_e2m1"):
+                raise ValueError(
+                    f"unsupported transcode {self.active_fmt!r} -> {self.frozen_fmt!r}: the "
+                    "only mixed-precision policy is FP8 active pages with 'fp4_e2m1' "
+                    "frozen pages")
+        if self.cross_fmt == "fp4_e2m1" and self.active_fmt != "fp8_e4m3":
+            raise ValueError("cross_fmt='fp4_e2m1' requires quantized (fp8_e4m3) active pages")
+        if self.frozen_pages is not None and self.frozen_pages < 1:
+            raise ValueError(f"frozen_pages={self.frozen_pages}: must be >= 1")
 
     @property
     def active(self) -> PageFormat:
         return page_format(self.active_fmt)
+
+    @property
+    def frozen(self) -> PageFormat:
+        return page_format(self.frozen_fmt if self.frozen_fmt is not None else self.active_fmt)
+
+    @property
+    def cross(self) -> PageFormat:
+        return page_format(self.cross_fmt if self.cross_fmt is not None else self.active_fmt)
+
+    @property
+    def mixed(self) -> bool:
+        """True when frozen pages live in a separate (FP4) region."""
+        return self.frozen != self.active
 
 
 class PagedState(NamedTuple):
     """Per-row cache index: which pages each row owns and how many tokens
     it truly holds. ``chunk_len`` ((1,) int) marks a streaming-prefill
     chunk (batch 1) bucketed to a power of two: positions >= chunk_len are
-    pad, masked out of page writes and of the logits row."""
+    pad, masked out of page writes and of the logits row. ``prefill`` is
+    the mixed engine's nested batch-1 chunk state: the outer state indexes
+    the decode rows, and the fused token row ``[decode tokens | chunk]``
+    splits at ``lengths.shape[0]``."""
 
     page_table: torch.Tensor  # (B, pages_per_slot) int32
     lengths: torch.Tensor  # (B,) int32
     chunk_len: Optional[torch.Tensor] = None
+    prefill: Optional["PagedState"] = None
 
 
 def pool_format(pool: Dict) -> PageFormat:
-    return page_format("fp8_e4m3" if pool["k"].dtype == torch.uint8 else None)
+    """The active store's format: bf16 values, FP8 codes, or packed FP4
+    codes (marked by the zero-size ``_fp4`` leaf)."""
+    if pool["k"].dtype != torch.uint8:
+        return page_format(None)
+    return page_format("fp4_e2m1" if "_fp4" in pool else "fp8_e4m3")
 
 
-def init_gqa_pool(n_layers: int, n_pages: int, page_size: int, n_kv: int,
-                  head_dim: int, fmt="fp8_e4m3", device="cpu") -> Dict:
-    """Zeroed pool of ``n_pages`` pages plus the null page."""
+def frozen_format(pool: Dict) -> Optional[PageFormat]:
+    """The frozen region's format, or None for a homogeneous pool."""
+    return page_format("fp4_e2m1") if "k_fz" in pool else None
+
+
+def n_frozen_pages(pool: Dict) -> int:
+    """Frozen-region page count (0 when homogeneous), for full pools and
+    per-layer slices alike."""
+    if "k_fz" not in pool:
+        return 0
+    leaf = pool["k_fz"]
+    return leaf.shape[1 if leaf.dim() == 5 else 0] - 1
+
+
+def _init_store(n_layers, n_pages, page_size, n_kv, head_dim, fmt: PageFormat, device):
+    shape = (n_layers, n_pages + 1, page_size, n_kv)  # + the null page / dummy row
+    if not fmt.quantized:
+        return {"": torch.zeros(shape + (head_dim,), dtype=torch.bfloat16, device=device)}
+    return {"": torch.zeros(shape + (fmt.width(head_dim),), dtype=torch.uint8, device=device),
+            "_smax": torch.zeros(shape[:2], dtype=torch.float32, device=device),
+            "_shift": torch.zeros(shape[:2] + (n_kv,), dtype=torch.int32, device=device)}
+
+
+def init_gqa_pool(n_layers: int, n_pages: int, page_size: int, n_kv: int, head_dim: int,
+                  fmt="fp8_e4m3", frozen_fmt=None, n_frozen: int = 0,
+                  device="cpu") -> Dict:
+    """Zeroed pool of ``n_pages`` pages plus the null page. A ``frozen_fmt``
+    other than ``fmt`` adds the frozen region: half-width packed stores of
+    ``n_frozen`` pages plus the dummy row."""
     fmt = page_format(fmt)
-    if fmt.packed:
-        raise NotImplementedError("packed FP4 pools come with the frozen region (ROADMAP queue 1, item 8)")
-    shape = (n_layers, n_pages + 1, page_size, n_kv, head_dim)
     pool = {}
     for name in ("k", "v"):
-        if fmt.quantized:
-            pool[name] = torch.zeros(shape, dtype=torch.uint8, device=device)
-            pool[name + "_smax"] = torch.zeros(shape[:2], dtype=torch.float32, device=device)
-            pool[name + "_shift"] = torch.zeros(shape[:2] + (n_kv,), dtype=torch.int32,
-                                                device=device)
-        else:
-            pool[name] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        for suffix, leaf in _init_store(n_layers, n_pages, page_size, n_kv, head_dim, fmt,
+                                        device).items():
+            pool[name + suffix] = leaf
+    if fmt.packed:  # zero-size marker: this uint8 store holds packed FP4, not FP8
+        pool["_fp4"] = torch.zeros((n_layers, 0), dtype=torch.uint8, device=device)
+    frozen = page_format(frozen_fmt) if frozen_fmt is not None else None
+    if frozen is not None and frozen != fmt:
+        if (fmt.name, frozen.name) != ("fp8_e4m3", "fp4_e2m1"):
+            raise ValueError(f"unsupported frozen store {frozen.name!r} behind {fmt.name!r} "
+                             "active pages (only fp4_e2m1 behind fp8_e4m3)")
+        if n_frozen < 1:
+            raise ValueError("a mixed-precision pool needs n_frozen >= 1")
+        for name in ("k", "v"):
+            for suffix, leaf in _init_store(n_layers, n_frozen, page_size, n_kv, head_dim,
+                                            frozen, device).items():
+                pool[name + "_fz" + suffix] = leaf
     return pool
 
 
 def quantize_pages(vals: torch.Tensor, fmt="fp8_e4m3"):
     """vals (..., page, KV, hd) f32 -> (codes uint8, s_max (...,), shifts
     (..., KV) int32): amax / fmt_max per (page, head), M2 across heads with
-    floor rounding, then RNE onto the grid."""
-    grid = page_format(fmt).fmt
+    floor rounding, then RNE onto the grid. A packed format stores two
+    codes per byte, an odd head dim padded with one zero nibble."""
+    pf = page_format(fmt)
+    grid = pf.fmt
     amax = torch.amax(vals.abs(), dim=(-3, -1))
     raw = torch.clamp(amax * f32(1.0 / grid.max_value), min=_EPS)
     m2 = constrain_scales_m2(raw, group_axis=-1, rounding="floor")
-    q = quantize_to_grid(vals / m2.scales[..., None, :, None], grid)
-    return fp_encode(q, grid), m2.s_max[..., 0], m2.shifts
+    codes = fp_encode(quantize_to_grid(vals / m2.scales[..., None, :, None], grid), grid)
+    if pf.packed:
+        if codes.shape[-1] % 2:
+            codes = torch.cat([codes, codes.new_zeros(codes.shape[:-1] + (1,))], dim=-1)
+        codes = pack_nibbles(codes)
+    return codes, m2.s_max[..., 0], m2.shifts
 
 
-def dequantize_pages(codes, s_max, shifts, fmt="fp8_e4m3"):
+def dequantize_pages(codes, s_max, shifts, fmt="fp8_e4m3", d: Optional[int] = None):
     """Inverse: exponent-add shift per (page, head), one s_max multiply per
-    page. codes (..., page, KV, hd); s_max (...,); shifts (..., KV) -> f32."""
-    v = page_format(fmt).decode(codes, shifts[..., None, :, None], codes.shape[-1])
+    page. codes (..., page, KV, width); s_max (...,); shifts (..., KV) ->
+    f32. ``d`` is the logical head dim (needed for a packed odd width)."""
+    pf = page_format(fmt)
+    if d is None:
+        d = codes.shape[-1] * (2 if pf.packed else 1)
+    v = pf.decode(codes, shifts[..., None, :, None], d)
     return v * s_max[..., None, None, None]
+
+
+def transcode_page(pool: Dict, src_pid: int, dst_fidx: int) -> Dict:
+    """Re-encode active page ``src_pid`` (every stacked layer) into frozen
+    row ``dst_fidx``: dequantize the FP8 page, requantize it onto packed FP4
+    E2M1 with fresh M2 scales. The only writer of the ``*_fz`` leaves; the
+    source page is untouched (the caller releases it)."""
+    fz = frozen_format(pool)
+    if fz is None or pool_format(pool).name != "fp8_e4m3":
+        raise ValueError("transcode_page needs an FP8 pool with a frozen FP4 region")
+    for name in ("k", "v"):
+        vals = dequantize_pages(pool[name][:, src_pid], pool[name + "_smax"][:, src_pid],
+                                pool[name + "_shift"][:, src_pid])
+        codes, smax, shift = quantize_pages(vals, fz)
+        pool[name + "_fz"][:, dst_fidx] = codes
+        pool[name + "_fz_smax"][:, dst_fidx] = smax
+        pool[name + "_fz_shift"][:, dst_fidx] = shift
+    return pool
 
 
 def append_paged(pool_layer: Dict, new_vals: Dict, state: PagedState) -> Dict:
@@ -116,6 +237,9 @@ def append_paged(pool_layer: Dict, new_vals: Dict, state: PagedState) -> Dict:
     it zeroed (a recycled page may hold a previous owner's stale codes) and
     the page requantized with fresh scales."""
     pf = pool_format(pool_layer)
+    if pf.packed:  # frozen pages are transcoded once and never written again
+        raise AssertionError(
+            "decode append must never target packed FP4 pages (frozen pages are read-only)")
     lengths = state.lengths.long()
     b = lengths.shape[0]
     rows = torch.arange(b, device=lengths.device)
@@ -125,6 +249,8 @@ def append_paged(pool_layer: Dict, new_vals: Dict, state: PagedState) -> Dict:
         slot = torch.clamp(lengths // page, max=state.page_table.shape[1] - 1)
         off = lengths % page
         pid = state.page_table.long().gather(1, slot[:, None])[:, 0]
+        # a row's tail page is private (boundary pages never freeze), so pid
+        # is an active id; the clamp keeps a violation inside the store
         pid = torch.clamp(torch.where(lengths > 0, pid, torch.full_like(pid, null)), max=null)
         new = new_vals[name].float()[:, 0]  # (B, KV, hd)
         if not pf.quantized:
@@ -165,9 +291,12 @@ def append_prefill_chunk(pool_layer: Dict, new_vals: Dict, state: PagedState) ->
             new = torch.cat([new, new.new_zeros((npg * page - s,) + tuple(new.shape[1:]))])
         vals = new.reshape(npg, page, new.shape[-2], new.shape[-1])
         pid = state.page_table[0, start // page: start // page + npg].long()
+        # prefill writes target private active pages only; a frozen id here
+        # is a bug the engine's assert_unfrozen catches, the clamp keeps it
+        # inside the store
         pid = torch.clamp(pid, max=store.shape[0] - 1)
         if pf.quantized:
-            codes, smax, shifts = quantize_pages(vals)
+            codes, smax, shifts = quantize_pages(vals, pf)
             store[pid] = codes
             pool_layer[name + "_smax"][pid] = smax
             pool_layer[name + "_shift"][pid] = shifts
@@ -177,16 +306,30 @@ def append_prefill_chunk(pool_layer: Dict, new_vals: Dict, state: PagedState) ->
 
 
 def gather_pages(pool_layer: Dict, name: str, state: PagedState) -> torch.Tensor:
-    """Dequantized gather (B, PP * page, KV, hd) f32 of each row's table."""
+    """Dequantized gather (B, PP * page, KV, hd) f32 of each row's table.
+    In a mixed pool, ids >= P+1 are frozen logical ids: both regions are
+    gathered with clamped ids (frozen ids clamp to the null page in the
+    active store, active ids to row 0 of the frozen store) and a ``where``
+    on the id class picks each page."""
     store = pool_layer[name]
+    pf = pool_format(pool_layer)
+    fz = frozen_format(pool_layer)
     pt = state.page_table.long()
     b, pp = pt.shape
-    pages = store[pt]
-    if pool_format(pool_layer).quantized:
-        vals = dequantize_pages(pages, pool_layer[name + "_smax"][pt],
-                                pool_layer[name + "_shift"][pt])
+    base = store.shape[0]  # P+1: the first frozen logical id
+    apt = torch.clamp(pt, max=base - 1) if fz is not None else pt
+    if pf.quantized:
+        d = store.shape[-1] * (2 if pf.packed else 1)
+        vals = dequantize_pages(store[apt], pool_layer[name + "_smax"][apt],
+                                pool_layer[name + "_shift"][apt], pf, d=d)
     else:
-        vals = pages.float()
+        vals = store[apt].float()
+    if fz is not None:
+        fstore = pool_layer[name + "_fz"]
+        fpt = torch.clamp(pt - base, 0, fstore.shape[0] - 1)
+        fvals = dequantize_pages(fstore[fpt], pool_layer[name + "_fz_smax"][fpt],
+                                 pool_layer[name + "_fz_shift"][fpt], fz, d=store.shape[-1])
+        vals = torch.where((pt >= base)[:, :, None, None, None], fvals, vals)
     return vals.reshape(b, pp * store.shape[1], *vals.shape[3:])
 
 
@@ -200,6 +343,162 @@ def gather_history(pool_layer: Dict, state: PagedState, chunk_len: int):
         return {}, 0
     return ({name: gather_pages(pool_layer, name, state) for name in ("k", "v")},
             state.page_table.shape[1] * page)
+
+
+# ---------------------------------------------------------------------------
+# Content-addressed shared-prefix index (host side)
+# ---------------------------------------------------------------------------
+_PREFIX_ROOT = -1  # the parent node id of every depth-0 page
+
+
+def page_key(parent: int, tokens: Sequence[int]) -> Tuple:
+    """Content address of one full page: its token ids chained on the
+    parent page's node id (assigned at registration, never reissued), so a
+    key names the whole prefix up to and including this page."""
+    return (parent, tuple(int(t) for t in tokens))
+
+
+class PrefixCache:
+    """Host-side radix index over full, scale-frozen KV pages.
+
+    A full page's content is a pure function of its token prefix (the
+    prefill stream wrote it in one shot and its M2 scales never move
+    again), so requests sharing a prompt prefix can map the same pages.
+    ``page_key(parent, tokens)`` -> page id, one entry per registered page.
+    Refcounts live in the engine; the index keeps the reusable LRU of
+    registered pages at refcount 0, which stay reusable until the
+    allocator reclaims them, oldest first."""
+
+    def __init__(self, page_size: int):
+        self.page_size = page_size
+        self._by_key: Dict[Tuple, Tuple[int, int]] = {}  # key -> (pid, node id)
+        self._by_pid: Dict[int, Tuple] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()  # oldest-parked first
+        self._next_node = 0
+        self.reclaims = 0
+
+    def __len__(self) -> int:
+        return len(self._by_key)
+
+    @property
+    def n_reusable(self) -> int:
+        """Registered pages at refcount 0."""
+        return len(self._lru)
+
+    def reusable_ids(self) -> List[int]:
+        """The parked page ids, oldest first."""
+        return list(self._lru)
+
+    def registered(self, pid: int) -> bool:
+        return int(pid) in self._by_pid
+
+    def walk(self, tokens: Sequence[int], max_pages: Optional[int] = None) -> List[int]:
+        """Longest chain of consecutive full-page hits for this token
+        prefix: the page ids holding ``tokens[:len(hits) * page_size]``."""
+        page = self.page_size
+        limit = len(tokens) // page
+        if max_pages is not None:
+            limit = min(limit, max_pages)
+        pids: List[int] = []
+        parent = _PREFIX_ROOT
+        for i in range(limit):
+            hit = self._by_key.get(page_key(parent, tokens[i * page: (i + 1) * page]))
+            if hit is None:
+                break
+            pids.append(hit[0])
+            parent = hit[1]
+        return pids
+
+    def insert(self, tokens: Sequence[int], pids: Sequence[int]) -> List[int]:
+        """Register the full pages covering ``tokens[:len(pids) * page]``.
+        Returns the canonical pid per page: where the chain key already
+        exists, the existing page wins and the caller adopts it."""
+        page = self.page_size
+        out: List[int] = []
+        parent = _PREFIX_ROOT
+        for i, pid in enumerate(pids):
+            pid = int(pid)
+            key = page_key(parent, tokens[i * page: (i + 1) * page])
+            cur = self._by_key.get(key)
+            if cur is None:
+                if pid in self._by_pid:
+                    raise AssertionError(f"page {pid} already registered under another prefix")
+                cur = (pid, self._next_node)
+                self._next_node += 1
+                self._by_key[key] = cur
+                self._by_pid[pid] = key
+            out.append(cur[0])
+            parent = cur[1]
+        return out
+
+    def park(self, pid: int):
+        """A registered page's refcount hit zero: keep it in the LRU."""
+        pid = int(pid)
+        if pid not in self._by_pid:
+            raise AssertionError(f"parking unregistered page {pid}")
+        self._lru[pid] = None
+        self._lru.move_to_end(pid)
+
+    def unpark(self, pid: int):
+        """A parked page was mapped again (refcount 0 -> 1)."""
+        self._lru.pop(int(pid), None)
+
+    def reclaim(self) -> Optional[int]:
+        """Drop the least recently parked page from the index and return its
+        id as a blank; None when nothing is parked."""
+        if not self._lru:
+            return None
+        pid, _ = self._lru.popitem(last=False)
+        del self._by_key[self._by_pid.pop(pid)]
+        self.reclaims += 1
+        return pid
+
+    def assert_unfrozen(self, page_ids: Iterable[int], frozen_base: Optional[int] = None):
+        """No write path may target a registered page (shared, possibly
+        mapped by several rows) nor, with ``frozen_base``, any id of the
+        packed FP4 region (read-only once transcoded, registered or not)."""
+        for pid in page_ids:
+            pid = int(pid)
+            if frozen_base is not None and pid >= frozen_base:
+                raise AssertionError(
+                    f"write targets frozen FP4 page {pid} (>= frozen base {frozen_base}): "
+                    "packed FP4 pages are transcoded once at freeze time and never written again")
+            if pid in self._by_pid:
+                raise AssertionError(
+                    f"write targets shared-frozen page {pid}: frozen pages are immutable "
+                    "(copy-on-write means the boundary page must be private)")
+
+
+# ---------------------------------------------------------------------------
+# Accounting
+# ---------------------------------------------------------------------------
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def pool_bytes_per_token(pool: Dict) -> float:
+    """Bytes of active-store storage per token slot (values and scales,
+    across the stacked layers), excluding the null page and the frozen
+    region."""
+    n_layers, p1, page = pool["k"].shape[:3]
+    total = 0.0
+    for name, leaf in pool.items():
+        if "_fz" in name or leaf.numel() == 0:
+            continue
+        total += _nbytes(leaf) * (leaf.shape[1] - 1) / leaf.shape[1]
+    return total / ((p1 - 1) * page)
+
+
+def page_bytes(pool: Dict, frozen: bool = False) -> float:
+    """Bytes one page costs across the stacked layers (values and scales)
+    in the active store, or with ``frozen`` in the packed frozen region
+    (0.0 when the pool is homogeneous)."""
+    total = 0.0
+    for name, leaf in pool.items():
+        if leaf.numel() == 0 or ("_fz" in name) != frozen:
+            continue
+        total += _nbytes(leaf) / leaf.shape[1 if leaf.dim() >= 2 else 0]
+    return total
 
 
 def pages_needed(n_tokens: int, page_size: int) -> int:

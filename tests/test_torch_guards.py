@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it imports neither jax nor the JAX
 package, and its entry points never fall back to the CPU on their own."""
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -41,14 +42,17 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("engine", "mixed", "item 8"), ("prefix_cache", True, "item 8")])
+    ("pos_embedding", "rope", "item 4"), ("temperature", 0.7, "item 9")])
 def test_unported_serving_options_raise(field, value, item):
-    params = api.init_params(SMOKE, seed=0, device="cpu")
-    if field == "engine":
-        config = serve.ServerConfig(scheduler=serve.SchedulerConfig(engine=value))
-    else:
-        config = serve.ServerConfig(**{field: value})
+    """What the port still refuses names its ROADMAP item: rope models
+    (queue 1, item 4) and sampled decoding (item 9)."""
+    if field == "temperature":
+        with pytest.raises(NotImplementedError, match=item):
+            serve.SamplingParams(temperature=value).validate()
+        return
+    cfg = dataclasses.replace(SMOKE, **{field: value})
+    srv = serve.Server(api.init_params(cfg, seed=0, device="cpu"), cfg,
+                       serve.ServerConfig(slots=1, max_seq=64, page_size=8), device="cpu")
+    srv.submit(serve.Request(rid=0, prompt=[1, 2, 3], max_new=2))
     with pytest.raises(NotImplementedError, match=item):
-        serve.Server(params, SMOKE, config, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve.SamplingParams(temperature=0.7).validate()
+        srv.run_until_drained()

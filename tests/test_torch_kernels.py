@@ -164,7 +164,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                torch.zeros((2, 4, 2, 8), dtype=torch.bfloat16), None, None, None,
                                None, torch.zeros((1, 1), dtype=torch.int32),
                                torch.ones((1,), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="frozen"):
+    with pytest.raises(ValueError, match="without frozen"):
         paged_decode_attn_cuda(None, None, None, None, None, None, None, None, None,
                                k_fz=torch.zeros(1))
 

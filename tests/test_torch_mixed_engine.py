@@ -1,0 +1,267 @@
+"""The reference Server's default path in the port: the mixed prefill+decode
+engine, the prefix cache, and FP8 pages with a packed-FP4 frozen region.
+
+A random-init tiny LM (varied greedy streams), packed to W4A8 by repro's
+``quantize_tree`` and bridged, is served by both packages on the same
+shared-prefix workload. The reference runs its ``ref`` kernels with its
+step compiled under strict bf16 rounding (``_strict_decode``, see
+``test_torch_serve.py``). Everything the engines decide must agree: the
+token streams, the prefix and prefill counters, the chunk shapes, and the
+final refcounts and free lists.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro import models as jmodels
+from repro.core.ptq import quantize_tree
+from repro.runtime import serve as jserve
+from repro_torch.core.policy import QuantPolicy as TPolicy
+from repro_torch.models import api
+from repro_torch.models.bridge import from_numpy
+from repro_torch.runtime import kv_cache as tkvc
+from repro_torch.runtime import serve as tserve
+
+from conftest import tiny_lm_cfg
+from test_torch_bridge import POLICY, flatten_jax, port_cfg
+
+STATS = ("prefix_hit_pages", "prefix_hit_tokens", "prefix_reclaims", "fp4_frozen_pages",
+         "prefill_tokens", "steps")
+MIXED = dict(active_fmt="fp8_e4m3", frozen_fmt="fp4_e2m1", frozen_pages=4)
+TAILS = (3, 6)  # prompt tails: chunks of 4 and 8 tokens after a 3-page prefix hit
+_COMPILED = {}
+
+
+def _strict_decode(jcfg, a_fmt):
+    """repro's engine step compiled with excess precision off (see
+    ``test_torch_serve._strict_decode``), one program per input shape and
+    pool layout, shared by every reference server of this file."""
+    step = jax.jit(functools.partial(jserve._decode_step, cfg=jcfg, a_fmt=a_fmt))
+
+    def call(params, pools, *args):
+        leaves = jax.tree_util.tree_leaves((pools, args))
+        key = (jcfg, a_fmt, str(jax.tree_util.tree_structure((pools, args))),
+               tuple((jnp.shape(a), str(jnp.result_type(a))) for a in leaves))
+        if key not in _COMPILED:
+            _COMPILED[key] = step.lower(params, pools, *args).compile(
+                compiler_options={"xla_allow_excess_precision": False})
+        return _COMPILED[key](params, pools, *args)
+
+    return call
+
+
+def _packed(key: int):
+    jcfg = tiny_lm_cfg()
+    packed = quantize_tree(jmodels.init_params(jcfg, jax.random.PRNGKey(key)),
+                           jmodels.build_def(jcfg), POLICY)
+    tcfg = port_cfg(jcfg)
+    tparams = from_numpy(flatten_jax(packed), tcfg, "cpu", policy=TPolicy(**vars(POLICY)))
+    return jcfg, packed, tcfg, tparams
+
+
+@pytest.fixture(scope="module")
+def tiny_packed():
+    """Random weights from key 2. Under key 0 this workload's greedy streams
+    collapse onto one token (the comparison would be vacuous; the tests
+    assert that the streams vary). Under key 1 the three FP8 configurations
+    differ from the reference in one stream: one attention score of the
+    first request's second chunk differs by one f32 ulp (XLA's CPU dot and
+    torch's sum its 16 products in different orders), one bf16 probability
+    rounds the other way, and the token-wise FP8 quantization of the next
+    layer's input turns that into other codes in a page that the shared
+    prefix then carries to every request (ROADMAP queue 3).
+    ``test_engines_agree_where_the_reference_order_differs`` serves that
+    case through both of the port's engines."""
+    return _packed(2)
+
+
+def _waves(vocab, prefixes, n_per_wave=(4, 3), max_new=6, seed=0):
+    """Waves of requests: each prompt is one of ``prefixes`` plus a tail of
+    its own. The second wave is submitted after the first drains."""
+    rng = np.random.default_rng(seed)
+    waves, rid = [], 0
+    for w, n in enumerate(n_per_wave):
+        wave = []
+        for i in range(n):
+            tail = rng.integers(1, vocab, size=TAILS[(i + w) % 2]).tolist()
+            wave.append((rid, prefixes[(i + w) % len(prefixes)] + tail, max_new))
+            rid += 1
+        waves.append(wave)
+    return waves
+
+
+def _serve(mod, srv, waves):
+    out = {}
+    for wave in waves:
+        for rid, prompt, max_new in wave:
+            srv.submit(mod.Request(rid=rid, prompt=list(prompt), max_new=max_new))
+        out.update({r.rid: (list(r.tokens), r.status) for r in srv.run_until_drained()})
+    return out
+
+
+def _serve_both(tiny_packed, engine, cache, waves, slots=3, max_seq=64):
+    jcfg, packed, tcfg, tparams = tiny_packed
+    common = dict(slots=slots, max_seq=max_seq, page_size=8, a_fmt="fp8_e4m3",
+                  prefix_cache=True)
+    jsrv = jserve.Server(packed, jcfg, jserve.ServerConfig(
+        **common, kernel_backend="ref", cache=jserve.CachePolicy(**cache),
+        scheduler=jserve.SchedulerConfig(engine=engine, prefill_chunk_pages=2)))
+    jsrv._decode = _strict_decode(jcfg, common["a_fmt"])
+    want = _serve(jserve, jsrv, waves)
+    tsrv = tserve.Server(tparams, tcfg, tserve.ServerConfig(
+        **common, cache=tserve.CachePolicy(**cache),
+        scheduler=tserve.SchedulerConfig(engine=engine, prefill_chunk_pages=2)), device="cpu")
+    assert tsrv.engine == jsrv.engine == engine
+    got = _serve(tserve, tsrv, waves)
+    assert got == want
+    assert all(status == "ok" for _, status in got.values())
+    assert {k: tsrv.stats[k] for k in STATS} == {k: jsrv.stats[k] for k in STATS}
+    assert tsrv.prefill_traces == jsrv.prefill_traces
+    np.testing.assert_array_equal(tsrv.page_refs, jsrv.page_refs)
+    assert tsrv.free_pages == jsrv.free_pages
+    assert tsrv.free_frozen == jsrv.free_frozen
+    assert tsrv.reusable_pages == jsrv.reusable_pages
+    assert tsrv.prefix_hit_rate() == jsrv.prefix_hit_rate()
+    assert tsrv.cache_residency() == pytest.approx(jsrv.cache_residency())
+    return got, tsrv
+
+
+@pytest.mark.parametrize("engine,cache", [
+    ("mixed", dict(active_fmt=None)),
+    ("mixed", dict(active_fmt="fp8_e4m3")),
+    ("mixed", MIXED),
+    ("alternating", MIXED),
+], ids=["mixed-bf16", "mixed-fp8", "mixed-fp8-fp4frozen", "alternating-fp8-fp4frozen"])
+def test_shared_prefix_streams_identical_to_jax_server(tiny_packed, engine, cache):
+    """Two waves over one 3-page system prompt: the first wave's first
+    request registers it, its siblings adopt it at their stream start (the
+    mixed engine) or at admission (alternating), the second wave hits it at
+    admission after it parked."""
+    jcfg = tiny_packed[0]
+    prefix = np.random.default_rng(7).integers(1, jcfg.vocab_size, size=24).tolist()
+    got, srv = _serve_both(tiny_packed, engine, cache, _waves(jcfg.vocab_size, [prefix]))
+    assert len({t for toks, _ in got.values() for t in toks}) > 3  # streams vary
+    assert srv.stats["prefix_hit_pages"] >= 3 * 5
+    if cache.get("frozen_fmt"):
+        assert srv.stats["fp4_frozen_pages"] >= 3
+        res = srv.cache_residency()
+        assert res["n_frozen_live"] >= 3
+        assert res["frozen_bytes_per_token"] / res["active_bytes_per_token"] <= 0.55
+
+
+def test_frozen_region_rotates_by_reclaim(tiny_packed):
+    """Two system prompts of 3 pages each in three waves through a 4-page
+    frozen region: registering the next wave's prompt reclaims the parked
+    pages of the other."""
+    jcfg = tiny_packed[0]
+    rng = np.random.default_rng(11)
+    prefixes = [rng.integers(1, jcfg.vocab_size, size=24).tolist() for _ in range(2)]
+    waves = [[(3 * w + i, prefixes[w % 2] + rng.integers(1, jcfg.vocab_size, n).tolist(), 5)
+              for i, n in enumerate(TAILS)] for w in range(3)]
+    _, srv = _serve_both(tiny_packed, "mixed", MIXED, waves)
+    assert srv.stats["prefix_reclaims"] >= 1
+    assert srv.stats["fp4_frozen_pages"] >= 6
+
+
+def test_homogeneous_pool_reclaims_parked_pages(tiny_packed):
+    """A one-slot pool of 4 FP8 pages: the first prompt's two full pages
+    park when it retires, and the next prompt, which needs all 4 pages,
+    gets two of them by reclaiming the parked ones (active pages are
+    reclaimed only in a homogeneous pool)."""
+    jcfg = tiny_packed[0]
+    rng = np.random.default_rng(13)
+    waves = [[(0, rng.integers(1, jcfg.vocab_size, 17).tolist(), 4)],
+             [(1, rng.integers(1, jcfg.vocab_size, 25).tolist(), 4)]]
+    _, srv = _serve_both(tiny_packed, "mixed", dict(active_fmt="fp8_e4m3"), waves,
+                         slots=1, max_seq=32)
+    assert srv.stats["prefix_reclaims"] == 2
+    assert srv.stats["prefix_hit_pages"] == 0
+
+
+def test_engines_agree_where_the_reference_order_differs():
+    """Under key 1 (see ``tiny_packed``) the port's two engines still serve
+    identical streams over FP8 pages with the FP4 frozen region: the mixed
+    step computes each row exactly as the alternating engine's programs."""
+    _, _, tcfg, tparams = _packed(1)
+    prefix = np.random.default_rng(7).integers(1, tcfg.vocab_size, size=24).tolist()
+    waves = _waves(tcfg.vocab_size, [prefix])
+    out = {}
+    for engine in ("mixed", "alternating"):
+        srv = tserve.Server(tparams, tcfg, tserve.ServerConfig(
+            slots=3, max_seq=64, page_size=8, cache=tserve.CachePolicy(**MIXED),
+            scheduler=tserve.SchedulerConfig(engine=engine, prefill_chunk_pages=2)),
+            device="cpu")
+        out[engine] = _serve(tserve, srv, waves)
+        assert srv.stats["fp4_frozen_pages"] >= 3
+    assert out["mixed"] == out["alternating"]
+    assert len({t for toks, _ in out["mixed"].values() for t in toks}) > 3
+
+
+def test_mixed_step_logits_match_reference(tiny_packed):
+    """One fused step through ``api.decode_step`` against repro's, compiled
+    with excess precision off as in ``test_torch_forward.py``: two decoding
+    rows (one reading frozen FP4 pages), a mid-prefill row riding with
+    lengths 0, and a 5-token chunk whose history holds a frozen page. All
+    (slots + 1) logits rows agree to 1e-5."""
+    import jax.numpy as jnp
+
+    from repro.runtime import kv_cache as jkvc
+    from test_torch_bridge import t, to_np
+
+    jcfg, packed, tcfg, tparams = tiny_packed
+    page, kv, hd, n_layers = 8, jcfg.n_kv_heads, jcfg.resolved_head_dim, jcfg.n_layers
+    rng = np.random.default_rng(3)
+    jpool = jkvc.init_gqa_pool(n_layers, 8, page, kv, hd, "fp8_e4m3",
+                               frozen_fmt="fp4_e2m1", n_frozen=4)
+    for n in ("k", "v"):
+        vals = rng.normal(size=(n_layers, 9, page, kv, hd)).astype(np.float32)
+        codes, smax, shift = jkvc.quantize_pages(jnp.asarray(vals))
+        jpool = {**jpool, n: codes, n + "_smax": smax, n + "_shift": shift}
+    for src, fidx in ((0, 0), (1, 1), (4, 2)):
+        jpool = jkvc.transcode_page(jpool, src, fidx)
+    base = 9  # P + 1
+    table = np.array([[base, base + 1, 2], [3, 8, 8], [5, 8, 8]], np.int32)
+    lengths = np.array([19, 6, 0], np.int32)
+    pre_table = np.array([[base + 2, 6, 7, 8]], np.int32)
+    tokens = np.zeros((1, 3 + 8), np.int32)
+    tokens[0, :2] = [4, 9]
+    tokens[0, 3:8] = rng.integers(1, jcfg.vocab_size, 5)
+    pre = (pre_table, np.array([8], np.int32), np.array([5], np.int32))
+    jstate = jkvc.PagedState(jnp.asarray(table), jnp.asarray(lengths),
+                             prefill=jkvc.PagedState(*map(jnp.asarray, pre)))
+    fn = jax.jit(lambda p, tk, c, st: jmodels.decode_step(p, jcfg, tk, c, st, a_fmt="fp8_e4m3"))
+    args = (packed, jnp.asarray(tokens), [{"kv": jpool}], jstate)
+    jlog, _ = fn.lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+    tstate = tkvc.PagedState(t(table), t(lengths), prefill=tkvc.PagedState(*map(t, pre)))
+    tpools = [{k: t(np.asarray(v)) for k, v in jpool.items()}]
+    tlog = api.decode_step(tparams, tcfg, t(tokens), tpools, tstate, a_fmt="fp8_e4m3")
+    assert tlog.shape == (4, jcfg.vocab_size)
+    np.testing.assert_allclose(to_np(tlog), np.asarray(jlog), atol=1e-5, rtol=0)
+    # the pools were written alike: the decode appends, then the chunk
+    for name in ("k", "v", "k_smax", "k_shift", "k_fz", "k_fz_shift"):
+        np.testing.assert_array_equal(to_np(tpools[0][name]), np.asarray(_[0]["kv"][name]))
+
+
+def test_server_config_defaults_match_reference():
+    t_cfg, j_cfg = tserve.ServerConfig(), jserve.ServerConfig()
+    assert t_cfg.scheduler.engine == j_cfg.scheduler.engine == "mixed"
+    assert t_cfg.prefix_cache is j_cfg.prefix_cache is True
+    assert (t_cfg.slots, t_cfg.max_seq, t_cfg.page_size, t_cfg.a_fmt) == \
+        (j_cfg.slots, j_cfg.max_seq, j_cfg.page_size, j_cfg.a_fmt)
+    assert t_cfg.scheduler.prefill_chunk_pages == j_cfg.scheduler.prefill_chunk_pages
+    assert t_cfg.scheduler.headroom_pages == j_cfg.scheduler.headroom_pages
+
+
+def test_mixed_precision_policy_needs_the_prefix_cache(tiny_packed):
+    _, _, tcfg, tparams = tiny_packed
+    with pytest.raises(ValueError, match="prefix cache"):
+        tserve.Server(tparams, tcfg, tserve.ServerConfig(
+            slots=2, max_seq=64, page_size=8, prefix_cache=False,
+            cache=tserve.CachePolicy(**MIXED)), device="cpu")
+    with pytest.raises(ValueError, match="engine"):
+        tserve.Server(tparams, tcfg, tserve.ServerConfig(
+            scheduler=tserve.SchedulerConfig(engine="fused")), device="cpu")

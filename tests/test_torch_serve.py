@@ -1,9 +1,10 @@
 """Served greedy token streams: the port's ``Server`` against repro's.
 
 Both serve the same requests on W4A8-packed weights (repro's
-``quantize_tree``, bridged with ``from_numpy``). The reference runs its
-alternating engine without the prefix cache, on its ``ref`` kernels: the
-engine this slice ports. Six requests of ragged prompt lengths share two
+``quantize_tree``, bridged with ``from_numpy``). Both run the alternating
+engine without the prefix cache (the reference on its ``ref`` kernels);
+the mixed engine and the prefix cache are held in
+``test_torch_mixed_engine.py``. Six requests of ragged prompt lengths share two
 slots, so admission waits for retirements, prompts stream in several
 chunks, and recycled pages are reused. The streams must be identical, over
 bf16 pages and over FP8 pages, on two models:
@@ -87,7 +88,8 @@ def _serve_both(jcfg, packed, kv_fmt, strict):
     tparams = from_numpy(flatten_jax(packed), tcfg, "cpu", policy=TPolicy(**vars(POLICY)))
     tsrv = tserve.Server(tparams, tcfg, tserve.ServerConfig(
         **common, cache=tserve.CachePolicy(active_fmt=kv_fmt),
-        scheduler=tserve.SchedulerConfig(prefill_chunk_pages=2)), device="cpu")
+        scheduler=tserve.SchedulerConfig(engine="alternating", prefill_chunk_pages=2)),
+        device="cpu")
     got = _drain(tsrv, _requests(tserve, tcfg.vocab_size))
 
     assert got == want
