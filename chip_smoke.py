@@ -36,7 +36,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               every step must have launched the GEMM and the frozen
               attention variant, and at one step the frozen kernel is held
               against its plain version on the live pool (and an injected
-              fault must read far above the tolerance).
+              fault must read far above the tolerance);
+7. mla     -- MiniCPM3-4B (MLA, 62 layers) at full width, random weights
+              initialized and packed on the card, on phase 6's server and
+              traffic: every request ok, every route's launches equal to
+              their invariant (7 x 62 GEMMs, 62 of each batched GEMM
+              orientation and 62 frozen latent-decode launches a step, no
+              GQA attention), the live latent-pool check with an injected
+              fault, and a profiled decode step;
+8. mla cpu -- MiniCPM3 at full width cut to 2 layers against the CPU plain
+              path, free-running and teacher-forced at each attention
+              block, with two injected faults (wk_b's LoRC dropped in the
+              batched kernel, the latent decode one token short).
+
+Phase 3 also checks and times MiniCPM3's kernels: the GEMM at its 7
+shapes, the batched and transposed GEMM at E=40, and the latent decode
+kernel over bf16, FP8 and FP8 + FP4 frozen pages.
 
 The last two lines are the card line and ``{"ok": true, "device": ...}``.
 The script imports nothing of jax and nothing of the JAX package.
@@ -64,6 +79,13 @@ ATTN_TOL = 1e-4  # rtol = atol: f32 sums in another order
 # PERF.md.
 LOGIT_RTOL = 0.1
 BLOCK_RTOL = 0.08
+# phase 8, MiniCPM3 (2 layers, full widths): free-running logits, a gross
+# bound (on an H100 the sound routes read 0.084 and 0.103, the faults 0.119
+# and 0.347), and the teacher-forced attention blocks, near the geometric
+# mean of the kernels' 0.0326 and the wk_b LoRC fault's 0.0418 (the plain
+# versions on the card read 0.0035, the short read 0.226); see PERF.md
+MLA_LOGIT_RTOL = 0.15
+MLA_BLOCK_RTOL = 0.037
 SEED = 0
 DEV = "cuda"
 
@@ -123,9 +145,10 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build_all()
+    done = build.build_all()
     log(f"[2 build] {len(build.SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({' '.join(build.FLAGS)})")
+        f"({' '.join(build.FLAGS)}); each source ready after: "
+        + ", ".join(f"{n} {sec:.1f} s" for n, sec in done.items()))
     for name, out in build.build_logs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -335,6 +358,167 @@ def _attn_frozen_case(torch, timer, gen):
     return row
 
 
+def _batched_check(torch, transpose, m, gen, scale_mode="m2", lorc_rank=8):
+    """MiniCPM3's absorbed head projections: a packed (40 * 64, 256) weight
+    viewed per head (``packed_head_view``), wk_b transposed (x (40, M, 64)
+    -> (40, M, 256)) or wv_b normal (x (40, M, 256) -> (40, M, 64)), bf16
+    activations unquantized; the kernel held against its plain version.
+    Returns (view, x, kernel, plain, err)."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.ptq import pack_linear
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a8_fused import w4a8_fused_batched_cuda
+    from repro_torch.models.layers import packed_head_view
+
+    heads, n, r = 40, 64, 256
+    policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256,
+                         scale_mode=scale_mode, lorc_rank=lorc_rank)
+    w = (torch.randn((heads * n, r), generator=gen, device=DEV) / math.sqrt(r)).to(torch.bfloat16)
+    v = packed_head_view(pack_linear(w, policy), heads)
+    x = torch.randn((heads, m, n if transpose else r), generator=gen, device=DEV).to(torch.bfloat16)
+    kw = dict(group_size=v.group_size, transpose_w=transpose)
+    kernel = lambda: w4a8_fused_batched_cuda(x, v.codes, v.scale, v.s_max, v.shifts, v.lorc_a,
+                                             v.lorc_b, **kw)
+    plain = lambda: ref.w4a8_batched_matmul_ref(x, v.codes, v.scale, v.lorc_a, v.lorc_b,
+                                                a_fmt=None, **kw)
+    y_k, y_p = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((y_k - y_p).abs().max())
+    what = (f"w4a8_fused batched {'transposed (wk_b)' if transpose else 'normal (wv_b)'} E=40 "
+            f"M={m} scale_mode={scale_mode} lorc_rank={lorc_rank}")
+    if not torch.allclose(y_k, y_p, rtol=W4A8_TOL, atol=W4A8_TOL):
+        fail(f"{what} disagrees with its plain version: max |err| {err}")
+    return v, x, kernel, plain, err
+
+
+def _batched_case(torch, timer, transpose, gen):
+    """The served variant (M2, LoRC 8) at a decode step's M=4, timed."""
+    from repro_torch.kernels import ref
+
+    v, x, kernel, plain, err = _batched_check(torch, transpose, 4, gen)
+    w_deq = ref.dequant_packed_ref(v.codes, v.scale, v.w_fmt, v.group_size)  # (40, 64, 256)
+    library = (lambda: torch.matmul(x, w_deq)) if transpose else \
+        (lambda: torch.matmul(x, w_deq.transpose(1, 2)))
+    e, n, in_f, m, r = 40, 64, 256, 4, v.lorc_a.shape[-1]
+    d, n_out = (n, in_f) if transpose else (in_f, n)
+    nbytes = (e * m * d * 2 + e * n * in_f // 2 + e * n * (in_f // v.group_size) + e * n * 4
+              + e * n * r * 2 + r * in_f * 2 + e * m * n_out * 4)  # lorc_b: one factor for all heads
+    flops = 2 * e * m * n * in_f + 2 * e * m * r * (n + in_f)
+    b_ms, by = bound(nbytes, flops, "bf16")
+    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
+               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    name = "transposed (wk_b, 64->256)" if transpose else "normal (wv_b, 256->64)"
+    log(f"    w4a8_fused batched {name} E=40 M=4: kernel {row['ms']:.4f} ms  plain "
+        f"{row['plain_ms']:.4f} ms  library(bf16 matmul per head) {row['library_ms']:.4f} ms  "
+        f"bound {b_ms * 1e3:.3f} us ({by}; {nbytes} B)  max|err| {err:.3g}")
+    return row
+
+
+def _mla_layer(torch, gen, b, r, dr, page, lens, fmt, frozen):
+    """A random latent pool layer (ckv (P+1, page, r), krope (P+1, page,
+    dr)) and its table: ``fmt`` pages, and with ``frozen`` the first half of
+    each row's full pages in the packed FP4 region. Returns (layer, table,
+    kv_lens, frozen pages per row)."""
+    from repro_torch.runtime import kv_cache as kvc
+
+    pp = -(-max(lens) // page)
+    n_pages = b * pp
+    layer = {}
+    for name, d in (("ckv", r), ("krope", dr)):
+        for suffix, f in (("", fmt),) + ((("_fz", "fp4_e2m1"),) if frozen else ()):
+            vals = torch.randn((n_pages + 1, page, 1, d), generator=gen, device=DEV)
+            if f:
+                codes, smax, shift = kvc.quantize_pages(vals, f)
+                layer.update({name + suffix: codes[..., 0, :].contiguous(),
+                              name + suffix + "_smax": smax, name + suffix + "_shift": shift})
+            else:
+                layer[name] = vals[..., 0, :].to(torch.bfloat16)
+    table = torch.full((b, pp), n_pages, dtype=torch.int32)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(SEED))
+    fperm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(SEED + 1))
+    n_frozen = []
+    for row, n in enumerate(lens):
+        npg, nfr = kvc.pages_needed(n, page), (n // page) // 2 if frozen else 0
+        table[row, :npg] = perm[row * pp: row * pp + npg].to(torch.int32)
+        table[row, :nfr] = n_pages + 1 + fperm[row * pp: row * pp + nfr].to(torch.int32)
+        n_frozen.append(nfr)
+    return layer, table.to(DEV), torch.tensor(lens, dtype=torch.int32, device=DEV), n_frozen
+
+
+def _mla_calls(layer, table, kv_lens, q_lat, q_rope, scale):
+    """The MLA latent decode kernel and its plain version on one pool layer
+    (the variant follows the layer: bf16, FP8, FP8 + the frozen region)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attn import paged_mla_decode_attn_cuda
+
+    fmt, frozen = ops._layer_formats(layer, "ckv")
+    sc = ((layer["ckv_smax"], layer["ckv_shift"], layer["krope_smax"], layer["krope_shift"])
+          if fmt else (None,) * 4)
+    fz = ops._fz_operands(layer, ("ckv", "krope")) if frozen else {}
+    args = (q_lat, q_rope, layer["ckv"], layer["krope"], *sc, table, kv_lens, scale)
+    kw = dict(fmt=fmt, frozen=frozen, **fz)
+    return (lambda: paged_mla_decode_attn_cuda(*args, **kw),
+            lambda: ref.paged_mla_decode_attn_ref(*args, **kw))
+
+
+MLA_SHAPE = dict(b=4, h=40, r=256, dr=32, page=64, lens=[2048, 1337, 300, 1])
+
+
+def _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens):
+    layer, table, kv_lens, n_frozen = _mla_layer(torch, gen, b, r, dr, page, lens, fmt, frozen)
+    q_lat = torch.randn((b, h, r), generator=gen, device=DEV).to(torch.bfloat16)
+    q_rope = torch.randn((b, h, dr), generator=gen, device=DEV).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(96)  # MiniCPM3: 1 / sqrt(qk_nope + qk_rope)
+    kernel, plain = _mla_calls(layer, table, kv_lens, q_lat, q_rope, scale)
+    o_k, o_p = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((o_k - o_p).abs().max())
+    what = (f"paged_mla_decode_attn {fmt or 'bf16'} pages{' + fp4 frozen' if frozen else ''} "
+            f"B={b} H={h} r={r} dr={dr} page={page}")
+    if not torch.allclose(o_k, o_p, rtol=ATTN_TOL, atol=ATTN_TOL):
+        fail(f"{what} disagrees with its plain version: max |err| {err}")
+    return layer, table, kv_lens, n_frozen, q_lat, q_rope, scale, kernel, plain, err, what
+
+
+def _mla_case(torch, timer, gen, fmt, frozen):
+    from repro_torch.runtime import kv_cache as kvc
+
+    b, h, r, dr, page, lens = (MLA_SHAPE[k] for k in ("b", "h", "r", "dr", "page", "lens"))
+    layer, table, kv_lens, n_frozen, q_lat, q_rope, scale, kernel, plain, err, what = \
+        _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens)
+    # the library yardstick: SDPA over the gathered, dequantized latents,
+    # k = concat(ckv, krope) and v = ckv, one KV head broadcast to the H heads
+    st = kvc.PagedState(table, kv_lens)
+    ckv, kr = (kvc.gather_pages(layer, n, st).to(torch.bfloat16) for n in ("ckv", "krope"))
+    k = torch.cat([ckv, kr], -1)[:, None].expand(b, h, -1, r + dr).contiguous()
+    v = ckv[:, None].expand(b, h, -1, r).contiguous()
+    q = torch.cat([q_lat, q_rope], -1)[:, :, None]
+    mask = (torch.arange(table.shape[1] * page, device=DEV)[None, :] < kv_lens[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = lambda: sdpa(q, k, v, attn_mask=mask, scale=scale)
+    library()
+    fz_tok = sum(f * page for f in n_frozen)
+    act_tok = sum(lens) - fz_tok
+    esize = 1 if fmt else 2
+    pages_read = sum(kvc.pages_needed(n, page) for n in lens)
+    nbytes = (b * h * (r + dr) * 2 + act_tok * (r + dr) * esize
+              + fz_tok * ((r + 1) // 2 + (dr + 1) // 2) + b * 4 + pages_read * 4
+              + (pages_read * 2 * (4 + 4) if fmt else 0) + b * h * r * 4)
+    flops = sum(lens) * h * (2 * (r + dr) + 2 * r)  # scores and the weighted latent sum
+    b_ms, by = bound(nbytes, flops, "f32")
+    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
+               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    log(f"    {what} ctx={lens}{f' ({sum(n_frozen)} frozen pages)' if frozen else ''}: kernel "
+        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(SDPA) "
+        f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {nbytes} B)  "
+        f"max|err| {err:.3g}")
+    return row
+
+
+MINICPM3_GEMMS = ((2560, 768), (768, 3840), (2560, 288), (2560, 2560), (2560, 6400),
+                  (2560, 6400), (6400, 2560))  # (K, N): wq_a wq_b wkv_a wo gate up down
+
+
 def phase_kernels(torch):
     log(f"[3 kernels] each CUDA kernel against its plain version on the card "
         f"(W4A8 tolerance {W4A8_TOL}, attention {ATTN_TOL}; times cold-L2, CUDA events)")
@@ -358,7 +542,24 @@ def phase_kernels(torch):
         err = _attn_frozen_check(torch, gen, hd=hd, window=window)[-1]
         frozen["max_abs_err"] = max(frozen["max_abs_err"], err)
         log(f"    paged_decode_attn frozen variant, hd {hd}, window {window}: max|err| {err:.3g}")
-    return gemm, attn, frozen
+    # slice 3: MiniCPM3-4B's shapes (row 1 at a decode step; rows 1b, 1c, 3)
+    for k, n in sorted(set(MINICPM3_GEMMS)):
+        gemm[(4, k, n)] = _w4a8_case(torch, timer, 4, k, n, gen)
+    batched = {tr: _batched_case(torch, timer, tr, gen) for tr in (False, True)}
+    for tr in (False, True):
+        for m, mode, rank in ((260, "m2", 8), (4, "none", 0), (260, "none", 8), (4, "m2", 0)):
+            err = _batched_check(torch, tr, m, gen, mode, rank)[-1]
+            batched[tr]["max_abs_err"] = max(batched[tr]["max_abs_err"], err)
+            log(f"    w4a8_fused batched {'transposed' if tr else 'normal'} E=40 M={m} "
+                f"scale_mode={mode} lorc_rank={rank}: max|err| {err:.3g}")
+    mla = {(fmt, fz): _mla_case(torch, timer, gen, fmt, fz)
+           for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False))}
+    for h, r, dr, page in ((3, 16, 8, 4), (3, 9, 5, 4)):  # tests/test_fp4_cache.py:268-272; odd widths
+        for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False)):
+            *_, err, what = _mla_check(torch, gen, fmt, fz, 2, h, r, dr, page, [4 * page - 3, 2])
+            mla[(fmt, fz)]["max_abs_err"] = max(mla[(fmt, fz)]["max_abs_err"], err)
+            log(f"    {what}: max|err| {err:.3g}")
+    return gemm, attn, frozen, batched, mla
 
 
 def _opt_125m():
@@ -377,8 +578,6 @@ def _opt_125m():
 def phase_serve(torch, cfg, packed):
     import numpy as np
 
-    from repro_torch.kernels.decode_attn import paged_decode_attn_cuda
-    from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda
     from repro_torch.runtime import serve
 
     config = serve.ServerConfig(slots=4, max_seq=640, page_size=64, a_fmt="fp8_e4m3",
@@ -390,8 +589,7 @@ def phase_serve(torch, cfg, packed):
     for i, n in enumerate(prompt_lens):
         srv.submit(serve.Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, n).tolist(),
                                  max_new=32))
-    w4a8_fused_matmul_cuda.launches = 0
-    paged_decode_attn_cuda.launches = 0
+    _set_counts(dict.fromkeys(_counts(), 0))
     decode_ms = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -406,16 +604,16 @@ def phase_serve(torch, cfg, packed):
         if srv.stats["prefill_tokens"] == prefilled:  # a step with no admission
             decode_ms.append((time.perf_counter() - s0) * 1e3)
     wall = time.perf_counter() - t0
-    launches = {"w4a8_fused": w4a8_fused_matmul_cuda.launches,
-                "paged_decode_attn": paged_decode_attn_cuda.launches}
+    launches = _counts()
     results = [r.result() for r in srv.finished]
     if len(results) != len(prompt_lens) or not all(r.ok for r in results):
         fail(f"not every request ended ok: {[(r.rid, r.status) for r in results]}")
     n_tok = sum(len(r.tokens) for r in results)
     steps, programs = srv.stats["steps"], srv.stats["programs"]
     n_layers = cfg.n_layers
-    want = {"w4a8_fused": 6 * n_layers * programs, "paged_decode_attn": n_layers * steps}
-    if launches != want or min(launches.values()) <= 0:
+    want = {**dict.fromkeys(launches, 0), "w4a8_fused": 6 * n_layers * programs,
+            "paged_decode_attn": n_layers * steps}
+    if launches != want or min(launches["w4a8_fused"], launches["paged_decode_attn"]) <= 0:
         fail(f"kernel launches {launches}, want {want} ({programs} programs, {steps} decode steps)")
     busy = _profile_decode(torch, srv, rng, cfg.vocab_size)
     log(f"[4 serve] opt-125m W4A8 (fp4_e2m1 + M2 + LoRC r8, fp8_e4m3 acts), fp8 pages, "
@@ -466,8 +664,12 @@ def _profiled(torch, srv, n_steps, what):
             f"top: " + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n_steps:.2f} ms" for e in top))
 
 
-def _routes(torch, packed):
-    """name -> (params, device, attributes of ``ops`` replaced for the run)."""
+def _routes(torch, packed, mla=False):
+    """name -> (params, device, attributes of ``ops`` replaced for the run).
+    The faults: ``no_lorc`` drops the LoRC correction (from every linear,
+    through the plain versions; with ``mla`` from ``wk_b`` only, through
+    the batched kernel), ``short_kv`` reads decode attention one token
+    short (the plain version; with ``mla`` the MLA decode kernel)."""
     import dataclasses
 
     from repro_torch.kernels import ops
@@ -476,26 +678,56 @@ def _routes(torch, packed):
 
     is_packed = lambda x: isinstance(x, PackedLinear)
     to_cpu = lambda t: t.apply(lambda x: x.cpu()) if is_packed(t) else t.cpu()
-    no_lorc = lambda t: dataclasses.replace(t, lorc_a=None, lorc_b=None) if is_packed(t) else t
-    attn = ops.paged_decode_attn
+    drop = lambda t: dataclasses.replace(t, lorc_a=None, lorc_b=None) if is_packed(t) else t
+    if mla:
+        no_lorc = {**packed, "segments": [
+            {**seg, "mixer": {**seg["mixer"], "attn": {**seg["mixer"]["attn"],
+                                                       "wk_b": drop(seg["mixer"]["attn"]["wk_b"])}}}
+            for seg in packed["segments"]]}
+    else:
+        no_lorc = tree_map(drop, packed, is_leaf=is_packed)
     plain = {"_route": lambda t: "cpu"}  # ops' route for CPU tensors: the plain versions
-    short_kv = lambda q, layer, pt, lens, window=0: attn(q, layer, pt, lens - 1, window=window)
+    if mla:
+        attn = ops.paged_mla_decode_attn
+        short = {"paged_mla_decode_attn": lambda ql, qr, layer, pt, lens, scale:
+                 attn(ql, qr, layer, pt, lens - 1, scale)}
+    else:
+        attn = ops.paged_decode_attn
+        short = {"paged_decode_attn": lambda q, layer, pt, lens, window=0:
+                 attn(q, layer, pt, lens - 1, window=window)}
+    fault = {} if mla else plain  # MLA's faults run through the kernels themselves
     return {
         "card": (packed, DEV, {}),
         "card_plain": (packed, DEV, plain),
         "cpu": (tree_map(to_cpu, packed, is_leaf=is_packed), "cpu", {}),
-        "no_lorc": (tree_map(no_lorc, packed, is_leaf=is_packed), DEV, plain),
-        "short_kv": (packed, DEV, {**plain, "paged_decode_attn": short_kv}),
+        "no_lorc": (no_lorc, DEV, fault),
+        "short_kv": (packed, DEV, {**fault, **short}),
     }
 
 
-def _compare(torch, cfg, routes, forced):
+def _pools(cfg, n_pages, page, device):
+    """One FP8 pool per segment: latent pages for MLA, K/V pages for GQA."""
+    from repro_torch.models.transformer import segments_for
+    from repro_torch.runtime import kv_cache as kvc
+
+    if cfg.attn_kind == "mla":
+        return [kvc.init_mla_pool(seg.count, n_pages, page, cfg.mla.kv_lora_rank,
+                                  cfg.mla.qk_rope_dim, "fp8_e4m3", device=device)
+                for seg in segments_for(cfg)]
+    return [kvc.init_gqa_pool(seg.count, n_pages, page, cfg.n_kv_heads, cfg.resolved_head_dim,
+                              "fp8_e4m3", device=device) for seg in segments_for(cfg)]
+
+
+def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
     """Two requests (one prefill chunk, then 4 decode steps) along every
     route, each with a pool of its own, all fed the card's greedy tokens.
     With ``forced``, every block of every route takes the card's input to
-    that block, so a difference cannot compound across layers. Returns the
-    readings {route: (logit share, block share)} and (agreeing greedy
-    tokens, decisive ones, tokens)."""
+    that block, so a difference cannot compound across layers. ``site``
+    "block" forces and reads whole blocks (the reading: the output's error
+    over the reference block's update); "mixer" forces and reads the MLA
+    attention block alone (its output is the update). Returns the readings
+    {route: (logit share, block share)} and (agreeing greedy tokens,
+    decisive ones, tokens)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -506,12 +738,11 @@ def _compare(torch, cfg, routes, forced):
     page, n_dec, pp = 64, 4, 4
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in (100, 37)]
-    pools = {name: [kvc.init_gqa_pool(cfg.n_layers, 2 * pp, page, cfg.n_kv_heads,
-                                      cfg.resolved_head_dim, "fp8_e4m3", device=d)]
-             for name, (_, d, _) in routes.items()}
+    pools = {name: _pools(cfg, 2 * pp, page, d) for name, (_, d, _) in routes.items()}
     table = np.arange(2 * pp, dtype=np.int32).reshape(2, pp)
     t = lambda a, d: torch.as_tensor(np.asarray(a, np.int32)).to(d)
-    block_apply = tf.block_apply
+    hooked = "mla_attention" if site == "mixer" else "block_apply"
+    original = getattr(tf, hooked)
     reading = {name: [0.0, 0.0] for name in routes}
     agree = [0, 0, 0]
 
@@ -519,20 +750,20 @@ def _compare(torch, cfg, routes, forced):
         params, d, patch = routes[name]
         trace = []  # (input, output) of every block, in order
 
-        def block(p, x, *args):
+        def block(p, x, *args, **kw):
             if forced and lead is not None:
                 x = lead[len(trace)][0].to(d)
-            y = block_apply(p, x, *args)
-            trace.append((x, y))
+            y = original(p, x, *args, **kw)
+            trace.append((x, y[0] if site == "mixer" else y))
             return y
 
         saved = {k: getattr(ops, k) for k in patch}
         for k, v in patch.items():
             setattr(ops, k, v)
-        tf.block_apply = block
+        setattr(tf, hooked, block)
         st = kvc.PagedState(t(pt, d), t(lengths, d), None if chunk_len is None else t([chunk_len], d))
         logits = api.decode_step(params, cfg, t(tokens, d), pools[name], st, a_fmt="fp8_e4m3")
-        tf.block_apply = block_apply
+        setattr(tf, hooked, original)
         for k, v in saved.items():
             setattr(ops, k, v)
         return logits.float().cpu(), trace
@@ -552,9 +783,10 @@ def _compare(torch, cfg, routes, forced):
             r = reading[name]
             r[0] = max(r[0], float((o - ref).abs().max()) / scale)
             for (_, y), (x0, y0) in zip(blocks if forced else (), ref_blocks):
-                r[1] = max(r[1], float((f64(y) - f64(y0)).norm() / (f64(y0) - f64(x0)).norm()))
+                update = f64(y0) if site == "mixer" else f64(y0) - f64(x0)
+                r[1] = max(r[1], float((f64(y) - f64(y0)).norm() / update.norm()))
         top2 = out["card"][0].topk(2, dim=-1).values
-        decisive = (top2[:, 0] - top2[:, 1]) > LOGIT_RTOL * scale
+        decisive = (top2[:, 0] - top2[:, 1]) > logit_rtol * scale
         same = out["card"][0].argmax(-1) == ref.argmax(-1)
         if bool((decisive & ~same).any()):
             fail("greedy tokens differ where the top-2 gap exceeds the tolerance")
@@ -627,21 +859,28 @@ def phase_cpu(torch, cfg, packed):
     return free, forced
 
 
-def _counts():
+def _counters():
+    """(name, wrapper, attribute) of every launch counter of the port."""
     from repro_torch.kernels.decode_attn import paged_decode_attn_cuda as attn
+    from repro_torch.kernels.decode_attn import paged_mla_decode_attn_cuda as mla
+    from repro_torch.kernels.w4a8_fused import w4a8_fused_batched_cuda as batched
     from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda as gemm
 
-    return {"w4a8_fused": gemm.launches, "paged_decode_attn": attn.launches,
-            "paged_decode_attn_frozen": attn.frozen_launches}
+    return (("w4a8_fused", gemm, "launches"), ("w4a8_fused_batched", batched, "launches"),
+            ("w4a8_fused_transposed", batched, "transposed_launches"),
+            ("paged_decode_attn", attn, "launches"),
+            ("paged_decode_attn_frozen", attn, "frozen_launches"),
+            ("paged_mla_decode_attn", mla, "launches"),
+            ("paged_mla_decode_attn_frozen", mla, "frozen_launches"))
+
+
+def _counts():
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
 
 
 def _set_counts(counts):
-    from repro_torch.kernels.decode_attn import paged_decode_attn_cuda as attn
-    from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda as gemm
-
-    gemm.launches = counts["w4a8_fused"]
-    attn.launches = counts["paged_decode_attn"]
-    attn.frozen_launches = counts["paged_decode_attn_frozen"]
+    for name, fn, attr in _counters():
+        setattr(fn, attr, counts[name])
 
 
 def _live_pool_check(torch, srv, gen):
@@ -683,21 +922,34 @@ def _live_pool_check(torch, srv, gen):
     return err, fault
 
 
-def phase_prefix(torch, cfg, packed, card):
-    """The reference Server's default path at full width: the mixed engine,
-    the prefix cache and FP8 pages with an FP4 frozen region."""
-    import numpy as np
-
+def _default_server(torch, cfg, packed):
+    """The reference Server's default path: mixed engine, prefix cache,
+    FP8 pages with an FP4 frozen region of 64 pages, 4 slots."""
     from repro_torch.runtime import serve
 
     config = serve.ServerConfig(
         slots=4, max_seq=1024, page_size=64, a_fmt="fp8_e4m3",
-        cache=serve.CachePolicy(active_fmt="fp8_e4m3", frozen_fmt="fp4_e2m1"), prefix_cache=True)
+        cache=serve.CachePolicy(active_fmt="fp8_e4m3", frozen_fmt="fp4_e2m1", frozen_pages=64),
+        prefix_cache=True)
     srv = serve.Server(packed, cfg, config)
     if srv.engine != "mixed":
         fail(f"the default engine is {srv.engine!r}, not the mixed engine")
+    return srv
+
+
+def _drive_waves(torch, srv, cfg, live_check):
+    """8 requests in two waves of 4 (the second submitted after the first
+    drains), each a shared 512-token system prompt plus a 16-200 token tail
+    from the seed, 32 new tokens, every launch counter set to 0 first. At
+    the first step where every slot decodes over a table holding frozen
+    ids, ``live_check(srv)`` runs once (its time is not served time).
+    Returns (wall s, {"decode": [ms], "mixed": [ms]}, live, results,
+    launches, the system prompt, the rng)."""
+    import numpy as np
+
+    from repro_torch.runtime import serve
+
     rng = np.random.default_rng(SEED + 2)
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     system = rng.integers(2, cfg.vocab_size, 512).tolist()  # 8 pages of 64
     tails = rng.integers(16, 201, size=8)
     waves = [[serve.Request(rid=4 * w + i, max_new=32, prompt=system + rng.integers(
@@ -724,7 +976,7 @@ def phase_prefix(torch, cfg, packed, card):
             if (live is None and len(active) == srv.slots and srv._pick_prefill_slot() is None
                     and all((srv.page_table[s] >= srv._frozen_base).any() for s in active)):
                 c0 = time.perf_counter()
-                live = _live_pool_check(torch, srv, gen)
+                live = live_check(srv)
                 t_live = time.perf_counter() - c0
     wall = time.perf_counter() - t0 - t_live
     launches = _counts()
@@ -734,23 +986,19 @@ def phase_prefix(torch, cfg, packed, card):
     if live is None:
         fail("no decode step had every row decoding over frozen pages: live check not run")
     st = srv.stats
-    steps, programs, n_layers = st["steps"], st["programs"], cfg.n_layers
-    # the mixed engine runs one program per step (decode rows plus at most
-    # one prefill chunk): 6 GEMMs a layer each, and one decode attention a
-    # layer each, always the frozen variant over a pool with a frozen region
-    want = {"w4a8_fused": 6 * n_layers * programs, "paged_decode_attn": 0,
-            "paged_decode_attn_frozen": n_layers * steps}
-    if launches != want or programs != steps or launches["paged_decode_attn_frozen"] <= 0:
-        fail(f"kernel launches {launches}, want {want} ({programs} programs, {steps} steps)")
+    if st["programs"] != st["steps"]:
+        fail(f"{st['programs']} programs in {st['steps']} steps: the mixed engine runs one a step")
     if st["fp4_frozen_pages"] < 8 or st["prefix_hit_pages"] <= 0:
         fail(f"the system prompt did not freeze and hit: {st}")
+    return wall, step_ms, live, results, launches, system, rng
+
+
+def _report_waves(srv, wall, step_ms, results, launches, want):
+    st = srv.stats
     res = srv.cache_residency()
     ratio = res["frozen_bytes_per_token"] / res["active_bytes_per_token"]
     n_tok = sum(len(r.tokens) for r in results)
-    log(f"[6 prefix] opt-125m W4A8, mixed engine, prefix cache, fp8 pages + fp4_e2m1 frozen "
-        f"pages, {config.slots} slots, 8 requests (512-token system prompt + 16-200 token "
-        f"tails, 32 new tokens) in 2 waves, on {card}:")
-    log(f"    {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s; {steps} steps: "
+    log(f"    {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s; {st['steps']} steps: "
         f"median pure decode step {statistics.median(step_ms['decode']):.2f} ms over "
         f"{len(step_ms['decode'])}, median mixed step {statistics.median(step_ms['mixed']):.2f} "
         f"ms over {len(step_ms['mixed'])}")
@@ -761,10 +1009,13 @@ def phase_prefix(torch, cfg, packed, card):
         f"per token {res['frozen_bytes_per_token']:.1f}/{res['active_bytes_per_token']:.1f} = "
         f"{ratio:.4f}")
     log(f"    launches {launches} (want {want})")
-    log(f"    live pool, {n_layers} layers: frozen variant vs plain max|err| {live[0]:.3g} "
-        f"(tolerance {ATTN_TOL}); injected fault k_fz_shift + 1 reads {live[1]:.3g} "
-        f"(>= {10 * ATTN_TOL} required)")
-    for i in range(srv.slots):  # busy share: 4 hits on the system prompt, all decoding
+
+
+def _profile_hits(torch, srv, cfg, system, rng):
+    """Busy share: 4 requests hit the system prompt and all decode."""
+    from repro_torch.runtime import serve
+
+    for i in range(srv.slots):
         srv.submit(serve.Request(rid=100 + i, max_new=8, prompt=system + rng.integers(
             2, cfg.vocab_size, 100).tolist()))
     for _ in range(4 * srv.slots):
@@ -774,7 +1025,170 @@ def phase_prefix(torch, cfg, packed, card):
     else:
         fail("the profiled requests never all reached decode")
     log(_profiled(torch, srv, 3, "4 rows over 9 frozen + 1 fp8 pages"))
+
+
+def phase_prefix(torch, cfg, packed, card):
+    """The reference Server's default path at full width: the mixed engine,
+    the prefix cache and FP8 pages with an FP4 frozen region."""
+    srv = _default_server(torch, cfg, packed)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    wall, step_ms, live, results, launches, system, rng = _drive_waves(
+        torch, srv, cfg, lambda srv: _live_pool_check(torch, srv, gen))
+    steps, n_layers = srv.stats["steps"], cfg.n_layers
+    # the mixed engine runs one program per step (decode rows plus at most
+    # one prefill chunk): 6 GEMMs a layer each, and one decode attention a
+    # layer each, always the frozen variant over a pool with a frozen region
+    want = {**dict.fromkeys(launches, 0), "w4a8_fused": 6 * n_layers * steps,
+            "paged_decode_attn_frozen": n_layers * steps}
+    if launches != want or launches["paged_decode_attn_frozen"] <= 0:
+        fail(f"kernel launches {launches}, want {want} ({steps} steps)")
+    log(f"[6 prefix] opt-125m W4A8, mixed engine, prefix cache, fp8 pages + fp4_e2m1 frozen "
+        f"pages, {srv.slots} slots, 8 requests (512-token system prompt + 16-200 token "
+        f"tails, 32 new tokens) in 2 waves, on {card}:")
+    _report_waves(srv, wall, step_ms, results, launches, want)
+    log(f"    live pool, {n_layers} layers: frozen variant vs plain max|err| {live[0]:.3g} "
+        f"(tolerance {ATTN_TOL}); injected fault k_fz_shift + 1 reads {live[1]:.3g} "
+        f"(>= {10 * ATTN_TOL} required)")
+    _profile_hits(torch, srv, cfg, system, rng)
     return launches, live
+
+
+def _minicpm3(torch, n_layers=None):
+    """MiniCPM3-4B at its published widths (``n_layers`` cuts the depth),
+    random weights from the seed, initialized on the card and packed there
+    by the port's ``pack_params``. Returns (cfg, packed, seconds)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.ptq import pack_params
+    from repro_torch.models import api
+
+    cfg = get_config("minicpm3-4b")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256, scale_mode="m2",
+                         lorc_rank=8)
+    t0 = time.perf_counter()
+    packed = pack_params(api.init_params(cfg, seed=SEED), cfg, policy)
+    torch.cuda.synchronize()
+    return cfg, packed, time.perf_counter() - t0
+
+
+def _live_mla_check(torch, srv, gen):
+    """Every layer of the live latent pool, at a step where every active
+    row decodes over a table that holds frozen ids: the frozen MLA kernel
+    and its plain version on the same queries must agree to ATTN_TOL, and
+    the same call with ``ckv_fz_shift + 1`` (every frozen latent halved)
+    must read at least 10x above it. The queries are scaled to the layer's
+    latents so the scores are O(1). Returns (largest error, smallest fault
+    reading); the counts are restored."""
+    from repro_torch.runtime import kv_cache as kvc
+
+    saved = _counts()
+    cfg = srv.cfg
+    rows = [s for s, r in enumerate(srv.active) if r is not None]
+    table = torch.as_tensor(srv.page_table[rows]).to(DEV)
+    kv_lens = torch.as_tensor(srv.lengths[rows]).to(DEV)
+    scale = 1.0 / math.sqrt(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim)
+    err, fault = 0.0, math.inf
+    for pool in srv.pools:
+        for i in range(pool["ckv"].shape[0]):
+            layer = {name: leaf[i] for name, leaf in pool.items()}
+            st = kvc.PagedState(table, kv_lens)
+            q = []
+            for name, d in (("ckv", cfg.mla.kv_lora_rank), ("krope", cfg.mla.qk_rope_dim)):
+                rms = float(kvc.gather_pages(layer, name, st).pow(2).mean().sqrt())
+                q.append((torch.randn((len(rows), cfg.n_heads, d), generator=gen, device=DEV)
+                          * (2.0 / max(rms, 1e-6))).to(torch.bfloat16))
+            kernel, plain = _mla_calls(layer, table, kv_lens, *q, scale)
+            o_p = plain()
+            err = max(err, float((kernel() - o_p).abs().max()))
+            layer["ckv_fz_shift"] = layer["ckv_fz_shift"] + 1
+            kernel, _ = _mla_calls(layer, table, kv_lens, *q, scale)
+            fault = min(fault, float((kernel() - o_p).abs().max()))
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    if err > ATTN_TOL:
+        fail(f"live latent pool: the frozen MLA kernel differs from its plain version by "
+             f"{err:.3g} > {ATTN_TOL}")
+    if fault < 10 * ATTN_TOL:
+        fail(f"live latent pool: the injected fault (ckv_fz_shift + 1) reads {fault:.3g} < "
+             f"10 x {ATTN_TOL}")
+    return err, fault
+
+
+def phase_mla(torch, card):
+    """MiniCPM3-4B (MLA) at full width on the reference Server's default
+    path, served by the GEMM (7 linears a layer), the batched and
+    transposed GEMM (wv_b, wk_b) and the frozen MLA decode kernel."""
+    cfg, packed, t_pack = _minicpm3(torch)
+    log(f"[7 mla] MiniCPM3-4B ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, kv_lora {cfg.mla.kv_lora_rank}, q_lora "
+        f"{cfg.mla.q_lora_rank}): random init + W4A8 pack on the card {t_pack:.1f} s, "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak")
+    srv = _default_server(torch, cfg, packed)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    wall, step_ms, live, results, launches, system, rng = _drive_waves(
+        torch, srv, cfg, lambda srv: _live_mla_check(torch, srv, gen))
+    steps, n_layers = srv.stats["steps"], cfg.n_layers
+    # one program a step: per layer 7 GEMMs (wq_a, wq_b, wkv_a, wo, gate,
+    # up, down), wv_b's batched and wk_b's transposed GEMM once each over
+    # the whole fused row, and one latent decode launch, always the frozen
+    # variant over a pool with a frozen region; no GQA attention
+    want = {**dict.fromkeys(launches, 0), "w4a8_fused": 7 * n_layers * steps,
+            "w4a8_fused_batched": n_layers * steps, "w4a8_fused_transposed": n_layers * steps,
+            "paged_mla_decode_attn_frozen": n_layers * steps}
+    if launches != want or min(launches[k] for k in want if want[k]) <= 0:
+        fail(f"kernel launches {launches}, want {want} ({steps} steps)")
+    log(f"    mixed engine, prefix cache, fp8 latent pages + fp4_e2m1 frozen pages, {srv.slots} "
+        f"slots, 8 requests (512-token system prompt + 16-200 token tails, 32 new tokens) in "
+        f"2 waves, on {card}:")
+    _report_waves(srv, wall, step_ms, results, launches, want)
+    log(f"    live latent pool, {n_layers} layers: frozen MLA kernel vs plain max|err| "
+        f"{live[0]:.3g} (tolerance {ATTN_TOL}); injected fault ckv_fz_shift + 1 reads "
+        f"{live[1]:.3g} (>= {10 * ATTN_TOL} required)")
+    _profile_hits(torch, srv, cfg, system, rng)
+    return launches, live
+
+
+def phase_mla_cpu(torch):
+    """MiniCPM3 at full width, depth cut to 2 layers, along five routes
+    against the CPU plain path (see phase_cpu): the kernels, the plain
+    versions on the card, the CPU, and two faults through the kernels --
+    ``no_lorc`` drops wk_b's LoRC correction in the batched kernel,
+    ``short_kv`` reads the MLA decode one token short. Free-running, the
+    sound routes' logits must stay within MLA_LOGIT_RTOL; teacher-forced at
+    each attention block's input, the sound routes must read at most
+    MLA_BLOCK_RTOL of the reference block's output and the faults more
+    (the whole-block reading of phase 5 dilutes a fault of wk_b in the
+    MLP's update: on an H100 the kernels read 0.073 there and no_lorc
+    0.083)."""
+    cfg, packed, _ = _minicpm3(torch, n_layers=2)
+    routes = _routes(torch, packed, mla=True)
+    free, agree = _compare(torch, cfg, routes, forced=False, logit_rtol=MLA_LOGIT_RTOL)
+    forced, _ = _compare(torch, cfg, routes, forced=True, site="mixer",
+                         logit_rtol=MLA_LOGIT_RTOL)
+    show = lambda rd, i: ", ".join(f"{n} {rd[n][i]:.4g}" for n in routes if n != "cpu")
+    log(f"[8 mla cpu] MiniCPM3 at full width, 2 layers: 2 requests (1 prefill chunk + 4 "
+        f"decode steps) against the CPU plain path")
+    log(f"    free-running, largest |logit err| / largest |logit| (tolerance {MLA_LOGIT_RTOL}): "
+        f"{show(free, 0)}; greedy tokens agree {agree[0]}/{agree[2]}, all {agree[1]} "
+        f"decisive ones")
+    log(f"    teacher-forced attention blocks, largest |output err| / |output| "
+        f"(tolerance {MLA_BLOCK_RTOL}): {show(forced, 1)}")
+    for name in ("card", "card_plain"):
+        if free[name][0] > MLA_LOGIT_RTOL:
+            fail(f"free-running logits of route {name} differ from the CPU plain path by "
+                 f"{free[name][0]:.4g} of the largest |logit| > {MLA_LOGIT_RTOL}")
+        if forced[name][1] > MLA_BLOCK_RTOL:
+            fail(f"the blocks of route {name} differ from the CPU plain path by "
+                 f"{forced[name][1]:.4g} of their update > {MLA_BLOCK_RTOL}")
+    for name in ("no_lorc", "short_kv"):
+        if forced[name][1] <= MLA_BLOCK_RTOL:
+            fail(f"injected fault {name} reads {forced[name][1]:.4g} <= {MLA_BLOCK_RTOL}: the "
+                 f"comparison cannot tell it from a sound card path")
+    return free, forced
 
 
 def main():
@@ -792,31 +1206,55 @@ def main():
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
-    gemm, attn, frozen = phase_kernels(torch)
+    gemm, attn, frozen, batched, mla = phase_kernels(torch)
     cfg, packed, t_pack = _opt_125m()
     log(f"    opt-125m init + W4A8 pack on the card: {t_pack:.1f} s")
     launches = phase_serve(torch, cfg, packed)
     phase_cpu(torch, cfg, packed)
     launches_6, live = phase_prefix(torch, cfg, packed, card)
+    del packed
+    launches_7, live_7 = phase_mla(torch, card)
+    phase_mla_cpu(torch)
 
-    # one decode step of opt-125m at 4 slots: per layer q, k, v, o (768->768),
-    # up (768->3072) and down (3072->768) at M=4, and one attention launch
-    per_layer = [(4, 768, 768)] * 4 + [(4, 768, 3072), (4, 3072, 768)]
+    def step_sum(rows, n_layers, key):
+        """One decode step's sum of a kernel's per-launch rows."""
+        if key == "bound_ms":  # the bound of the whole step's bytes and operations
+            t_b = n_layers * sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
+            t_o = n_layers * sum(r["flops"] for r in rows) / PEAK_FLOPS[rows[0]["kind"]] * 1e3
+            return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+        return n_layers * sum(r[key] for r in rows)
 
-    def step_sum(key):
-        return 12 * sum(gemm[s][key] for s in per_layer)
+    def entry(rows, n_layers, **kw):
+        b_ms, by = step_sum(rows, n_layers, "bound_ms")
+        return {**kw, "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": step_sum(rows, n_layers, "ms"), "plain_ms": step_sum(rows, n_layers, "plain_ms"),
+                "bound_ms": b_ms, "bound_by": by,
+                "library_ms": step_sum(rows, n_layers, "library_ms")}
 
-    t_bytes = 12 * sum(gemm[s]["bytes"] for s in per_layer) / HBM_BYTES_PER_S * 1e3
-    t_ops = 12 * sum(gemm[s]["flops"] for s in per_layer) / PEAK_FLOPS["bf16"] * 1e3
+    for r in gemm.values():
+        r["kind"] = "bf16"
+    for r in (*attn.values(), frozen, *mla.values()):
+        r["kind"] = "f32"
+    for r in batched.values():
+        r["kind"] = "bf16"
+    # one decode step at 4 slots. opt-125m: per layer q, k, v, o (768->768),
+    # up (768->3072) and down (3072->768) at M=4, and one attention launch.
+    # MiniCPM3: per layer the 7 GEMMs of MINICPM3_GEMMS at M=4, wv_b and wk_b
+    # once each, and one latent decode launch (the frozen variant, as served)
+    opt_layer = [gemm[s] for s in [(4, 768, 768)] * 4 + [(4, 768, 3072), (4, 3072, 768)]]
+    cpm_layer = [gemm[(4, k, n)] for k, n in MINICPM3_GEMMS]
     a = attn["fp8_e4m3"]
     kernels = [
-        {"name": "w4a8_fused", "route": "cuda", "source": "src/repro_torch/csrc/w4a8_fused.cu",
-         "replaces": "src/repro/kernels/w4a8_fused.py:169", "launches": launches["w4a8_fused"],
+        {**entry(opt_layer, 12, name="w4a8_fused", route="cuda",
+                 source="src/repro_torch/csrc/w4a8_fused.cu",
+                 replaces="src/repro/kernels/w4a8_fused.py:169",
+                 launches=launches["w4a8_fused"],
+                 per="one opt-125m decode step: 72 launches at M=4; launches from phase 4"),
          "max_abs_err": max(r["max_abs_err"] for r in gemm.values()),
-         "ms": step_sum("ms"), "plain_ms": step_sum("plain_ms"),
-         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-         "library_ms": step_sum("library_ms"),
-         "per": "one opt-125m decode step: 72 launches at M=4"},
+         "minicpm3": {**{k: v for k, v in entry(cpm_layer, 62).items()},
+                      "launches": launches_7["w4a8_fused"],
+                      "per": "one MiniCPM3-4B decode step: 434 launches at M=4; launches "
+                             "from phase 7"}},
         {"name": "paged_decode_attn", "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131",
          "launches": launches["paged_decode_attn"],
@@ -834,6 +1272,29 @@ def main():
          "library_ms": 12 * frozen["library_ms"],
          "per": "12 launches (one per layer), fp8 pages with half of each row's full pages "
                 "in the fp4 frozen region, B=4, contexts 2048/1337/300/1; launches from phase 6"},
+        entry([batched[False]], 62, name="w4a8_fused_batched", route="cuda",
+              source="src/repro_torch/csrc/w4a8_fused.cu",
+              replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt=None)",
+              launches=launches_7["w4a8_fused_batched"],
+              per="one MiniCPM3-4B decode step: 62 launches of wv_b (E=40, M=4, 256->64); "
+                  "launches from phase 7"),
+        entry([batched[True]], 62, name="w4a8_fused_transposed", route="cuda",
+              source="src/repro_torch/csrc/w4a8_fused.cu",
+              replaces="src/repro/kernels/w4a8_fused.py:169 (transpose_w=True, a_fmt=None)",
+              launches=launches_7["w4a8_fused_transposed"],
+              per="one MiniCPM3-4B decode step: 62 launches of wk_b (E=40, M=4, 64->256); "
+                  "launches from phase 7"),
+        {**entry([mla[("fp8_e4m3", True)]], 62, name="paged_mla_decode_attn", route="cuda",
+                 source="src/repro_torch/csrc/mla_decode_attn.cu",
+                 replaces="src/repro/kernels/decode_attn.py:287",
+                 launches=launches_7["paged_mla_decode_attn"]
+                 + launches_7["paged_mla_decode_attn_frozen"],
+                 per="one MiniCPM3-4B decode step: 62 launches of the frozen variant, B=4, "
+                     "H=40, r=256, dr=32, page 64, contexts 2048/1337/300/1 with half of each "
+                     "row's full pages frozen; launches (all variants) from phase 7"),
+         "max_abs_err": max(max(r["max_abs_err"] for r in mla.values()), live_7[0]),
+         "variants_ms": {f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''}": r["ms"]
+                         for (fmt, fz), r in mla.items()}},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

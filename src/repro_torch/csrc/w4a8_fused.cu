@@ -1,23 +1,36 @@
-// Fused W4A8 GEMM for Hopper (sm_90a): y = q8(x) . deq(W)^T [+ (q8(x) . B^T) . A^T]
+// Fused W4A8 GEMM for Hopper (sm_90a): y = q8(x) . deq(W)^T [+ (q8(x) . B^T) . A^T],
+// plus its batched and transposed orientations.
 //
 // Replaces the TPU kernel repro/kernels/w4a8_fused.py:169
-// (w4a8_fused_batched_pallas, 2-D normal orientation, reached through
-// w4a8_fused_matmul_pallas at :272). Computes what that kernel computes:
-//   * token-wise activation quantization of the full K row: per-row
-//     scale = max(absmax * (1 / fmt_max), 1e-12), value = bf16(RNE-grid(x / s) * s);
-//   * packed FP4 E2M1 weights (two nibbles per byte, low nibble = even k),
-//     decoded by the closed form; with M2 the per-group scale
-//     is the exact power of two 2^-shift (built from the f32 bit pattern)
-//     and s_max multiplies each output column once after the K loop;
-//     without M2 the f32 group scale multiplies the decoded value;
+// (w4a8_fused_batched_pallas): its 2-D normal orientation, reached through
+// w4a8_fused_matmul_pallas at :272, and its batched orientations over E
+// stacked weights with a_fmt=None, normal and transposed (the MLA absorbed
+// wv_b and wk_b projections, repro/models/mla.py:190-202, :266-270).
+// Computes what that kernel computes:
+//   * QUANT_ACTS: token-wise activation quantization of the full K row:
+//     per-row scale = max(absmax * (1 / fmt_max), 1e-12), value =
+//     bf16(RNE-grid(x / s) * s); without it x is taken as bf16 as it is
+//     (w4a8_fused.py:93-94);
+//   * packed FP4 E2M1 weights (two nibbles per byte, low nibble = even
+//     column), decoded by the closed form. Normal orientation
+//     (y[e] = x[e] W[e]^T, contracting W's in columns): with M2 the
+//     per-group scale is the exact power of two 2^-shift (built from the
+//     f32 bit pattern) and s_max multiplies each output column once after
+//     the K loop; without M2 the f32 group scale multiplies the decoded
+//     value. TRANSPOSE (y[e] = x[e] W[e], contracting W's out rows, the
+//     output spanning W's in columns): each decoded row is scaled by
+//     2^-shift[n, g] * s_max[n] before it enters the sum, since s_max
+//     varies along the contraction (w4a8_fused.py:121-127);
 //   * bf16 products accumulated in f32 (tensor cores through WMMA);
-//   * the LoRC epilogue: xr = bf16(xq . B^T) (f32 sums), then + xr . A^T,
-//     then one write.
+//   * the LoRC epilogue: xr = bf16(xq . B^T) then + xr . A^T (normal), or
+//     xr = bf16(xq . A) then + xr . B (transposed), then one write.
 //
 // What bounds it on the H100: at decode (M = slots, a handful of rows) the
 // packed weight read, N*K/2 bytes, is all the traffic; at prefill (M of
 // 64..256) the tensor-core work is still far below the card's 989 TFLOP/s,
-// so the kernel is bound by bytes and by its own latency.
+// so the kernel is bound by bytes and by its own latency. The MLA head
+// projections are tiny (40 heads of 64 x 256 codes: 0.33 MB), so their
+// launches are latency bound.
 // What the design does about it: weights stay packed in device memory (4
 // bits per value) and are decoded into shared memory right before use, so
 // no dequantized copy ever exists in device memory; activations are read
@@ -27,11 +40,14 @@
 // TPU grid; CUDA blocks run concurrently and K can reach 73728, so here
 // every block computes the absmax of its own rows over the full K first
 // (a read of BM*K activations, cheap next to the weights) and then streams
-// K in BK chunks, quantizing each chunk as it is staged. Simple first:
-// no TMA, no wgmma, no pipelining — those come with the performance work.
-// Only what the serving path runs is compiled: bf16 activations and
-// output, FP8 activation quantization always on, E2M1 weights (the Python
-// wrapper refuses the rest).
+// K in BK chunks, quantizing each chunk as it is staged. blockIdx.z picks
+// the slice e; every operand has its own slice stride, and lorc_b may come
+// with stride 0 (one factor broadcast over the MLA heads, never copied).
+// Simple first: no TMA, no wgmma, no pipelining — those come with the
+// performance work. Only what the serving path runs is compiled: bf16
+// activations, E2M1 weights; the 2-D GEMM quantizes its activations onto
+// FP8 E4M3 and writes bf16, the batched ones take bf16 activations and
+// write f32 (the Python wrappers refuse the rest).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -91,12 +107,30 @@ __device__ __forceinline__ float decode_e2m1(int c) {
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__global__ void __launch_bounds__(THREADS)
-w4a8_fused_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
-                  const float* __restrict__ scale, const int8_t* __restrict__ shifts,
-                  const float* __restrict__ smax, const __nv_bfloat16* __restrict__ lorc_a,
-                  const __nv_bfloat16* __restrict__ lorc_b, __nv_bfloat16* __restrict__ out,
-                  int M, int N, int K, int gs, int r, Grid grid) {
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Operands of one launch. K is the contraction length, N_out the output
+// width: normal, K = in columns of W and N_out = its out rows; transposed,
+// K = out rows of W and N_out = its in columns. G groups of gs columns per
+// W row in both. The s_* are per-slice strides in elements (s_lb may be 0).
+template <typename OutT>
+struct Args {
+  const __nv_bfloat16* x;    // (E, M, K)
+  const uint8_t* codes;      // (E, W rows, W cols / 2)
+  const float* scale;        // (E, W rows, G), read without M2
+  const int8_t* shifts;      // (E, W rows, G) with M2, else null
+  const float* smax;         // (E, W rows) with M2, else null
+  const __nv_bfloat16* lorc_a;  // (E, W rows, r)
+  const __nv_bfloat16* lorc_b;  // (E, r, W cols)
+  OutT* out;                 // (E, M, N_out)
+  int M, K, N_out, gs, G, r;
+  long long s_x, s_codes, s_scale, s_smax, s_la, s_lb;
+  Grid grid;
+};
+
+template <bool QUANT_ACTS, bool TRANSPOSE, typename OutT>
+__global__ void __launch_bounds__(THREADS) w4a8_fused_kernel(Args<OutT> a) {
   __shared__ __align__(32) __nv_bfloat16 As[BM * LDS];
   __shared__ __align__(32) __nv_bfloat16 Bs[BN * LDS];
   __shared__ __align__(32) float Cs[BM * LDC];
@@ -104,27 +138,39 @@ w4a8_fused_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
   __shared__ float xr[BM * MAX_R];
   __shared__ float row_scale[BM];
 
+  const int e = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int G = K / gs;
-  const int row_bytes = K / 2;  // packed codes per weight row
+  const int M = a.M, K = a.K, N = a.N_out, G = a.G, gs = a.gs, r = a.r;
+  const Grid grid = a.grid;
+  const __nv_bfloat16* x = a.x + e * a.s_x;
+  const uint8_t* codes = a.codes + e * a.s_codes;
+  const float* scale = a.scale + e * a.s_scale;
+  const int8_t* shifts = a.shifts ? a.shifts + e * a.s_scale : nullptr;
+  const float* smax = a.smax ? a.smax + e * a.s_smax : nullptr;
+  const __nv_bfloat16* lorc_a = r ? a.lorc_a + e * a.s_la : nullptr;
+  const __nv_bfloat16* lorc_b = r ? a.lorc_b + e * a.s_lb : nullptr;
+  OutT* out = a.out + (long long)e * M * N;
+  const int row_bytes = (TRANSPOSE ? N : K) / 2;  // packed codes per W row
 
   // 1. per-row activation scale over the full K row
-  for (int rr = warp; rr < BM; rr += THREADS / 32) {
-    const int m = m0 + rr;
-    float mx = 0.f;
-    if (m < M) {
-      const __nv_bfloat16* row = x + (size_t)m * K;
-      int k = lane;
-      for (; k + 96 < K; k += 128) {  // four loads in flight per lane
-        const float a0 = fabsf(to_f32(row[k])), a1 = fabsf(to_f32(row[k + 32]));
-        const float a2 = fabsf(to_f32(row[k + 64])), a3 = fabsf(to_f32(row[k + 96]));
-        mx = nan_max(nan_max(nan_max(nan_max(a0, mx), a1), a2), a3);
+  if (QUANT_ACTS) {
+    for (int rr = warp; rr < BM; rr += THREADS / 32) {
+      const int m = m0 + rr;
+      float mx = 0.f;
+      if (m < M) {
+        const __nv_bfloat16* row = x + (size_t)m * K;
+        int k = lane;
+        for (; k + 96 < K; k += 128) {  // four loads in flight per lane
+          const float a0 = fabsf(to_f32(row[k])), a1 = fabsf(to_f32(row[k + 32]));
+          const float a2 = fabsf(to_f32(row[k + 64])), a3 = fabsf(to_f32(row[k + 96]));
+          mx = nan_max(nan_max(nan_max(nan_max(a0, mx), a1), a2), a3);
+        }
+        for (; k < K; k += 32) mx = nan_max(fabsf(to_f32(row[k])), mx);
       }
-      for (; k < K; k += 32) mx = nan_max(fabsf(to_f32(row[k])), mx);
+      for (int o = 16; o; o >>= 1) mx = nan_max(__shfl_xor_sync(0xffffffffu, mx, o), mx);
+      if (lane == 0) row_scale[rr] = nan_max(mx * grid.inv_max, 1e-12f);
     }
-    for (int o = 16; o; o >>= 1) mx = nan_max(__shfl_xor_sync(0xffffffffu, mx, o), mx);
-    if (lane == 0) row_scale[rr] = nan_max(mx * grid.inv_max, 1e-12f);
   }
   for (int i = tid; i < BM * MAX_R; i += THREADS) xr[i] = 0.f;
   __syncthreads();
@@ -149,43 +195,70 @@ w4a8_fused_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     }
 #pragma unroll
     for (int it = 0; it < WB; ++it) {
-      const int i = tid + it * THREADS, n = n0 + i / (BK / 2), k = k0 + 2 * (i % (BK / 2));
+      const int i = tid + it * THREADS;
+      // one packed byte: W row wrow, W columns wcol and wcol + 1 (wcol even)
+      int wrow, wcol;
+      bool ok;
+      if (TRANSPOSE) {  // rows along the contraction, columns along the output
+        wrow = k0 + i / (BN / 2);
+        wcol = n0 + 2 * (i % (BN / 2));
+        ok = wrow < K && wcol < N;  // N is even, so wcol + 1 < N too
+      } else {          // rows along the output, columns along the contraction
+        wrow = n0 + i / (BK / 2);
+        wcol = k0 + 2 * (i % (BK / 2));
+        ok = wrow < N && wcol < K;  // K is even, so wcol + 1 < K too
+      }
       cw[it] = 0;
       s0[it] = s1[it] = 0.f;
-      if (n < N && k < K) {  // K is even, so k + 1 < K too
-        cw[it] = codes[(size_t)n * row_bytes + k / 2];
-        const int g0 = k / gs, g1 = (k + 1) / gs;
+      if (ok) {
+        cw[it] = codes[(size_t)wrow * row_bytes + wcol / 2];
+        const int g0 = wcol / gs, g1 = (wcol + 1) / gs;
         if (shifts) {
-          s0[it] = pow2i(-(int)shifts[(size_t)n * G + g0]);
-          s1[it] = pow2i(-(int)shifts[(size_t)n * G + g1]);
+          s0[it] = pow2i(-(int)shifts[(size_t)wrow * G + g0]);
+          s1[it] = pow2i(-(int)shifts[(size_t)wrow * G + g1]);
+          if (TRANSPOSE) {  // s_max varies along the contraction: fold it in here
+            s0[it] *= smax[wrow];
+            s1[it] *= smax[wrow];
+          }
         } else {
-          s0[it] = scale[(size_t)n * G + g0];
-          s1[it] = scale[(size_t)n * G + g1];
+          s0[it] = scale[(size_t)wrow * G + g0];
+          s1[it] = scale[(size_t)wrow * G + g1];
         }
       }
     }
 #pragma unroll
-    for (int it = 0; it < LB; ++it) {
-      const int i = tid + it * THREADS, k = k0 + i % BK;
-      lb[it] = i < r * BK && k < K ? lorc_b[(size_t)(i / BK) * K + k] : __float2bfloat16_rn(0.f);
+    for (int it = 0; it < LB; ++it) {  // the LoRC projection factor, (j, kk)
+      const int i = tid + it * THREADS, j = i / BK, k = k0 + i % BK;
+      lb[it] = __float2bfloat16_rn(0.f);
+      if (j < r && k < K)
+        lb[it] = TRANSPOSE ? lorc_a[(size_t)k * r + j] : lorc_b[(size_t)j * K + k];
     }
-    // the quantized activation chunk (BM x BK) as bf16
+    // the activation chunk (BM x BK) as bf16, quantized when QUANT_ACTS
 #pragma unroll
     for (int it = 0; it < XA; ++it) {
       const int i = tid + it * THREADS, rr = i / BK;
       float v = xv[it];
-      if (m0 + rr < M) {
+      if (QUANT_ACTS && m0 + rr < M) {
         const float sc = row_scale[rr];
         v = round_to_grid(v / sc, grid) * sc;
       }
       As[rr * LDS + i % BK] = __float2bfloat16_rn(v);
     }
-    // the weight chunk (BN x BK), decoded from packed nibbles
+    // the weight chunk as B[col][kk] (BN x BK), decoded from packed nibbles
 #pragma unroll
     for (int it = 0; it < WB; ++it) {
-      const int i = tid + it * THREADS, nn = i / (BK / 2), kb = i % (BK / 2);
-      Bs[nn * LDS + 2 * kb] = __float2bfloat16_rn(decode_e2m1(cw[it] & 15) * s0[it]);
-      Bs[nn * LDS + 2 * kb + 1] = __float2bfloat16_rn(decode_e2m1(cw[it] >> 4) * s1[it]);
+      const int i = tid + it * THREADS;
+      const __nv_bfloat16 lo = __float2bfloat16_rn(decode_e2m1(cw[it] & 15) * s0[it]);
+      const __nv_bfloat16 hi = __float2bfloat16_rn(decode_e2m1(cw[it] >> 4) * s1[it]);
+      if (TRANSPOSE) {
+        const int kk = i / (BN / 2), cb = i % (BN / 2);
+        Bs[(2 * cb) * LDS + kk] = lo;
+        Bs[(2 * cb + 1) * LDS + kk] = hi;
+      } else {
+        const int nn = i / (BK / 2), kb = i % (BK / 2);
+        Bs[nn * LDS + 2 * kb] = lo;
+        Bs[nn * LDS + 2 * kb + 1] = hi;
+      }
     }
 #pragma unroll
     for (int it = 0; it < LB; ++it) Ls[tid + it * THREADS] = lb[it];
@@ -201,18 +274,18 @@ w4a8_fused_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     }
     // 5. tensor-core products, f32 accumulation
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, As + (wr * 16) * LDS + kk, LDS);
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, As + (wr * 16) * LDS + kk, LDS);
       for (int t = 0; t < 2; ++t) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, Bs + (wc * 32 + t * 16) * LDS + kk, LDS);
-        wmma::mma_sync(acc[t], a, b, acc[t]);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+        wmma::load_matrix_sync(fb, Bs + (wc * 32 + t * 16) * LDS + kk, LDS);
+        wmma::mma_sync(acc[t], fa, fb, acc[t]);
       }
     }
     __syncthreads();
   }
 
-  // 6. epilogue: s_max per column, LoRC correction, one write
+  // 6. epilogue: s_max per column (normal orientation), LoRC correction, one write
   for (int t = 0; t < 2; ++t)
     wmma::store_matrix_sync(Cs + (wr * 16) * LDC + wc * 32 + t * 16, acc[t], LDC,
                             wmma::mem_row_major);
@@ -221,16 +294,24 @@ w4a8_fused_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     const int rr = i / BN, nn = i % BN, m = m0 + rr, n = n0 + nn;
     if (m >= M || n >= N) continue;
     float v = Cs[rr * LDC + nn];
-    if (smax) v *= smax[n];
+    if (!TRANSPOSE && smax) v *= smax[n];
     if (r > 0) {
       float c = 0.f;
-      for (int j = 0; j < r; ++j)
-        c += __bfloat162float(__float2bfloat16_rn(xr[rr * MAX_R + j])) *
-             __bfloat162float(lorc_a[(size_t)n * r + j]);
+      for (int j = 0; j < r; ++j) {
+        const __nv_bfloat16 f = TRANSPOSE ? lorc_b[(size_t)j * N + n] : lorc_a[(size_t)n * r + j];
+        c += __bfloat162float(__float2bfloat16_rn(xr[rr * MAX_R + j])) * __bfloat162float(f);
+      }
       v += c;
     }
-    out[(size_t)m * N + n] = __float2bfloat16_rn(v);
+    store_out(out + (size_t)m * N + n, v);
   }
+}
+
+template <bool QUANT_ACTS, bool TRANSPOSE, typename OutT>
+int launch(const Args<OutT>& a, int E, cudaStream_t stream) {
+  dim3 blocks((a.N_out + BN - 1) / BN, (a.M + BM - 1) / BM, E);
+  w4a8_fused_kernel<QUANT_ACTS, TRANSPOSE, OutT><<<blocks, THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -248,11 +329,36 @@ extern "C" int w4a8_fused_launch(const void* x, const void* codes, const void* s
                                  float a_max_value, float a_inv_max, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   if (r > MAX_R || K % 2 || gs <= 0 || K % gs) return (int)cudaErrorInvalidValue;
-  Grid grid{a_man_bits, a_min_exp, a_max_exp, a_max_value, a_inv_max};
-  dim3 blocks((N + BN - 1) / BN, (M + BM - 1) / BM);
-  w4a8_fused_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)codes, (const float*)scale,
-      (const int8_t*)shifts, (const float*)smax, (const __nv_bfloat16*)lorc_a,
-      (const __nv_bfloat16*)lorc_b, (__nv_bfloat16*)out, M, N, K, gs, r, grid);
-  return (int)cudaGetLastError();
+  Args<__nv_bfloat16> a{(const __nv_bfloat16*)x, (const uint8_t*)codes, (const float*)scale,
+                        (const int8_t*)shifts, (const float*)smax,
+                        (const __nv_bfloat16*)lorc_a, (const __nv_bfloat16*)lorc_b,
+                        (__nv_bfloat16*)out, M, K, N, gs, K / gs, r, 0, 0, 0, 0, 0, 0,
+                        Grid{a_man_bits, a_min_exp, a_max_exp, a_max_value, a_inv_max}};
+  return launch<true, false>(a, 1, (cudaStream_t)stream);
+}
+
+// The batched orientations over E slices, bf16 activations taken as they
+// are (no quantization), f32 out. W: codes (E, N, In/2) uint8 E2M1,
+// scale / shifts (E, N, In/gs), smax (E, N) (M2: shifts and smax, else both
+// null), lorc_a (E, N, r) and lorc_b (E, r, In) bf16 when r > 0, with
+// per-slice strides s_la and s_lb (s_lb 0: one factor for every slice).
+// transpose = 0: x (E, M, In), out (E, M, N) = x W^T.
+// transpose = 1: x (E, M, N), out (E, M, In) = x W.
+// Every operand but lorc_b is contiguous. Returns cudaGetLastError().
+extern "C" int w4a8_batched_launch(const void* x, const void* codes, const void* scale,
+                                   const void* shifts, const void* smax, const void* lorc_a,
+                                   const void* lorc_b, void* out, int E, int M, int N, int In,
+                                   int gs, int r, long long s_la, long long s_lb, int transpose,
+                                   void* stream) {
+  if (E <= 0 || M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (r > MAX_R || In % 2 || gs <= 0 || In % gs) return (int)cudaErrorInvalidValue;
+  const int G = In / gs;
+  const int K = transpose ? N : In, N_out = transpose ? In : N;
+  Args<float> a{(const __nv_bfloat16*)x, (const uint8_t*)codes, (const float*)scale,
+                (const int8_t*)shifts, (const float*)smax, (const __nv_bfloat16*)lorc_a,
+                (const __nv_bfloat16*)lorc_b, (float*)out, M, K, N_out, gs, G, r,
+                (long long)M * K, (long long)N * (In / 2), (long long)N * G, (long long)N,
+                s_la, s_lb, Grid{0, 0, 0, 1.f, 1.f}};
+  cudaStream_t s = (cudaStream_t)stream;
+  return transpose ? launch<false, true>(a, E, s) : launch<false, false>(a, E, s);
 }

@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "FLAGS", "nvcc_path", "build_all", "load", "build_logs"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("w4a8_fused", "decode_attn")
+SOURCES = ("w4a8_fused", "decode_attn", "mla_decode_attn")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -47,8 +47,9 @@ def _library(name: str) -> Path:
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile every library of ``names`` that is missing, one nvcc each,
-    in parallel. Returns the wall seconds of the build (0.0 when nothing was
-    missing); raises with nvcc's output if a build fails."""
+    in parallel. Returns {source: wall seconds until its nvcc finished}
+    (empty when nothing was missing); raises with nvcc's output if a build
+    fails."""
     todo = [n for n in names if not _library(n).exists()]
     if not todo:
         return {}
@@ -61,7 +62,12 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         cmd = [nvcc, *FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
-    failed = []
+    failed, done = [], {}
+    while len(done) < len(procs):  # each source's own build time
+        for name, (_, proc) in procs.items():
+            if name not in done and proc.poll() is not None:
+                done[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         build_logs[name] = out
@@ -72,7 +78,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             os.replace(tmp, _library(name))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return {name: time.perf_counter() - t0 for name in todo}
+    return done
 
 
 def load(name: str) -> ctypes.CDLL:

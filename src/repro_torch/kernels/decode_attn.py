@@ -1,4 +1,6 @@
-"""Python binding of the paged decode attention kernel (``csrc/decode_attn.cu``).
+"""Python bindings of the paged decode attention kernels: GQA
+(``csrc/decode_attn.cu``) and MLA's latent decode (``csrc/mla_decode_attn.cu``,
+``paged_mla_decode_attn_cuda`` at the end of this module).
 
 ``paged_decode_attn_cuda`` checks its operands, allocates the output and
 launches the kernel on the current stream. It counts its launches by
@@ -20,7 +22,7 @@ from . import build
 from .common import page_format
 from .w4a8_fused import _check
 
-__all__ = ["paged_decode_attn_cuda"]
+__all__ = ["paged_decode_attn_cuda", "paged_mla_decode_attn_cuda"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -111,3 +113,96 @@ def paged_decode_attn_cuda(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift
 
 paged_decode_attn_cuda.launches = 0
 paged_decode_attn_cuda.frozen_launches = 0
+
+
+def _mla_lib():
+    fn = build.load("mla_decode_attn").mla_decode_attn_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _F, _I, _I, _I, _I] + [_P] * 6 + [_I] * 5 + [_P])
+        fn.restype = _I
+    return fn
+
+
+def paged_mla_decode_attn_cuda(q_lat, q_rope, ckv, krope, ckv_smax, ckv_shift, krope_smax,
+                               krope_shift, page_table, kv_lens, scale: float, fmt=None,
+                               frozen=None, ckv_fz=None, krope_fz=None, ckv_fz_smax=None,
+                               ckv_fz_shift=None, krope_fz_smax=None, krope_fz_shift=None):
+    """MLA latent decode attention. q_lat: (B, H, r) bf16; q_rope: (B, H,
+    dr) bf16; ckv (P+1, page, r) / krope (P+1, page, dr): uint8 FP8 codes
+    (``fmt`` 'fp8_e4m3') or bf16 (``fmt`` None); their smax (P+1,) f32 and
+    shift (P+1, 1) int32 (FP8 only); page_table (B, PP) int32; kv_lens (B,)
+    int32; ``scale`` the softmax scale. With ``frozen`` 'fp4_e2m1' (behind
+    FP8 pages): ckv/krope_fz (F+1, page, ceil(d/2)) uint8 packed codes,
+    their smax (F+1,) f32 and shift (F+1, 1) int32, and table ids >= P+1
+    address them. Returns (B, H, r) f32. Counts its launches apart:
+    ``.launches`` over FP8 or bf16 pages, ``.frozen_launches`` with the
+    frozen region."""
+    pf = page_format(fmt)
+    fz = page_format(frozen) if frozen is not None else None
+    fz_ops = (ckv_fz, krope_fz, ckv_fz_smax, ckv_fz_shift, krope_fz_smax, krope_fz_shift)
+    if pf.packed:
+        raise NotImplementedError("packed FP4 active pages are not a writable pool format")
+    if fz is not None and (fz.name != "fp4_e2m1" or pf.name != "fp8_e4m3"):
+        raise NotImplementedError(
+            f"frozen region {fz.name!r} behind {pf.name!r} pages: the kernel reads only "
+            "packed fp4_e2m1 frozen pages behind fp8_e4m3 pages")
+    if fz is None and any(t is not None for t in fz_ops):
+        raise ValueError("frozen-region operands given without frozen='fp4_e2m1'")
+    dev = q_lat.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_mla_decode_attn_cuda takes CUDA tensors, got {dev}")
+    for t, name in ((q_lat, "q_lat"), (q_rope, "q_rope")):
+        if t.dim() != 3 or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous (B, H, d) bf16, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    b, h, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    if tuple(q_rope.shape[:2]) != (b, h):
+        raise ValueError(f"q_rope {tuple(q_rope.shape)} does not match q_lat {(b, h, r)}")
+    p1, page = ckv.shape[:2]
+    pp = page_table.shape[1]
+    store = torch.uint8 if pf.quantized else torch.bfloat16
+    _check(ckv, "ckv", store, (p1, page, r), dev)
+    _check(krope, "krope", store, (p1, page, dr), dev)
+    _check(page_table, "page_table", torch.int32, (b, pp), dev)
+    _check(kv_lens, "kv_lens", torch.int32, (b,), dev)
+    if pf.quantized:
+        for t, name in ((ckv_smax, "ckv_smax"), (krope_smax, "krope_smax")):
+            _check(t, name, torch.float32, (p1,), dev)
+        for t, name in ((ckv_shift, "ckv_shift"), (krope_shift, "krope_shift")):
+            _check(t, name, torch.int32, (p1, 1), dev)
+    nfz = 0
+    if fz is not None:
+        if any(t is None for t in fz_ops):
+            raise ValueError("frozen='fp4_e2m1' needs all six ckv/krope_fz operands")
+        f1 = ckv_fz.shape[0]
+        nfz = f1 - 1
+        _check(ckv_fz, "ckv_fz", torch.uint8, (f1, page, fz.width(r)), dev)
+        _check(krope_fz, "krope_fz", torch.uint8, (f1, page, fz.width(dr)), dev)
+        for t, name in ((ckv_fz_smax, "ckv_fz_smax"), (krope_fz_smax, "krope_fz_smax")):
+            _check(t, name, torch.float32, (f1,), dev)
+        for t, name in ((ckv_fz_shift, "ckv_fz_shift"), (krope_fz_shift, "krope_fz_shift")):
+            _check(t, name, torch.int32, (f1, 1), dev)
+    f, ff = pf.fmt, fz.fmt if fz is not None else None
+    out = torch.empty((b, h, r), dtype=torch.float32, device=dev)
+    ptr = lambda t, on: t.data_ptr() if on else None
+    rc = _mla_lib()(q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(), krope.data_ptr(),
+                    int(pf.quantized), ptr(ckv_smax, f), ptr(ckv_shift, f),
+                    ptr(krope_smax, f), ptr(krope_shift, f), page_table.data_ptr(),
+                    kv_lens.data_ptr(), out.data_ptr(), b, h, r, dr, page, pp, float(scale),
+                    f.exp_bits if f else 0, f.man_bits if f else 0, f.bias if f else 0,
+                    int(ff is not None), *(ptr(t, ff) for t in fz_ops), p1, nfz,
+                    ff.exp_bits if ff else 0, ff.man_bits if ff else 0, ff.bias if ff else 0,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"mla_decode_attn kernel launch failed: CUDA error {rc}")
+    if ff is not None:
+        paged_mla_decode_attn_cuda.frozen_launches += 1
+    else:
+        paged_mla_decode_attn_cuda.launches += 1
+    return out
+
+
+paged_mla_decode_attn_cuda.launches = 0
+paged_mla_decode_attn_cuda.frozen_launches = 0

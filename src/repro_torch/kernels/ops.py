@@ -10,7 +10,8 @@ import torch
 
 from . import ref
 
-__all__ = ["w4a8_matmul", "paged_decode_attn"]
+__all__ = ["w4a8_matmul", "w4a8_matmul_batched", "paged_decode_attn",
+           "paged_mla_decode_attn"]
 
 
 def _route(t: torch.Tensor) -> str:
@@ -36,21 +37,42 @@ def w4a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
     return y.reshape(*lead, -1)
 
 
-def _layer_formats(pool_layer):
+def w4a8_matmul_batched(x: torch.Tensor, w, transpose_w: bool = False,
+                        quantize_acts: bool = True) -> torch.Tensor:
+    """x: (E, M, D); w: a batched PackedLinear (codes (E, out, in/2), e.g.
+    ``layers.packed_head_view``). normal: D == in -> (E, M, out);
+    transposed: D == out (contracting the weight's out rows, the MLA
+    absorbed q path) -> (E, M, in). ``quantize_acts=False`` skips the FP8
+    activation quantization. Returns f32. On the card: the batched /
+    transposed variants of the fused W4A8 kernel."""
+    assert w.codes.dim() == 3, "a 2-D PackedLinear goes through w4a8_matmul"
+    a_fmt = w.a_fmt if quantize_acts else None
+    if _route(x) == "cpu":
+        return ref.w4a8_batched_matmul_ref(x, w.codes, w.scale, w.lorc_a, w.lorc_b,
+                                           w_fmt=w.w_fmt, a_fmt=a_fmt,
+                                           group_size=w.group_size, transpose_w=transpose_w)
+    from .w4a8_fused import w4a8_fused_batched_cuda
+
+    return w4a8_fused_batched_cuda(x.contiguous(), w.codes, w.scale, w.s_max, w.shifts,
+                                   w.lorc_a, w.lorc_b, w_fmt=w.w_fmt, a_fmt=a_fmt,
+                                   group_size=w.group_size, transpose_w=transpose_w)
+
+
+def _layer_formats(pool_layer, key: str = "k"):
     """The (active, frozen) page formats of a pool slice, from its leaves:
-    the dtype picks bf16 or codes, the zero-size ``_fp4`` marker packed FP4
-    over FP8, and a ``k_fz`` leaf the packed frozen region."""
-    if pool_layer["k"].dtype != torch.uint8:
+    the dtype of ``key`` picks bf16 or codes, the zero-size ``_fp4`` marker
+    packed FP4 over FP8, and a ``<key>_fz`` leaf the packed frozen region."""
+    if pool_layer[key].dtype != torch.uint8:
         name = None
     else:
         name = "fp4_e2m1" if "_fp4" in pool_layer else "fp8_e4m3"
-    return name, ("fp4_e2m1" if "k_fz" in pool_layer else None)
+    return name, ("fp4_e2m1" if key + "_fz" in pool_layer else None)
 
 
-def _fz_operands(pool_layer):
+def _fz_operands(pool_layer, names=("k", "v")):
     """The frozen-region operands (all None for a homogeneous pool)."""
     return {name + suffix: pool_layer.get(name + suffix)
-            for name in ("k", "v") for suffix in ("_fz", "_fz_smax", "_fz_shift")}
+            for name in names for suffix in ("_fz", "_fz_smax", "_fz_shift")}
 
 
 def paged_decode_attn(q: torch.Tensor, pool_layer, page_table, kv_lens,
@@ -73,3 +95,27 @@ def paged_decode_attn(q: torch.Tensor, pool_layer, page_table, kv_lens,
 
     return paged_decode_attn_cuda(q.contiguous(), kp, vp, *scales, page_table, kv_lens,
                                   fmt=fmt, window=window, frozen=frozen, **fz)
+
+
+def paged_mla_decode_attn(q_lat: torch.Tensor, q_rope: torch.Tensor, pool_layer, page_table,
+                          kv_lens, scale: float) -> torch.Tensor:
+    """MLA absorbed decode over one layer's latent pool slice ({'ckv',
+    'krope'}, their scale leaves when the pages are codes, and the ``*_fz``
+    leaves of a mixed-precision pool). q_lat: (B, H, r); q_rope: (B, H,
+    dr); page_table: (B, PP) int32; kv_lens: (B,) int32; ``scale`` the
+    softmax scale. KV is one head: k = concat(ckv, krope), v = ckv.
+    Returns the latent context (B, H, r) f32. On the card: the MLA latent
+    decode kernel, or its frozen-region variant for a mixed pool."""
+    cp, rp = pool_layer["ckv"], pool_layer["krope"]
+    fmt, frozen = _layer_formats(pool_layer, "ckv")
+    scales = ((pool_layer["ckv_smax"], pool_layer["ckv_shift"], pool_layer["krope_smax"],
+               pool_layer["krope_shift"]) if fmt else (None,) * 4)
+    fz = _fz_operands(pool_layer, ("ckv", "krope"))
+    if _route(q_lat) == "cpu":
+        return ref.paged_mla_decode_attn_ref(q_lat, q_rope, cp, rp, *scales, page_table,
+                                             kv_lens, scale, fmt=fmt, frozen=frozen, **fz)
+    from .decode_attn import paged_mla_decode_attn_cuda
+
+    return paged_mla_decode_attn_cuda(q_lat.contiguous(), q_rope.contiguous(), cp, rp,
+                                      *scales, page_table, kv_lens, scale, fmt=fmt,
+                                      frozen=frozen, **fz)

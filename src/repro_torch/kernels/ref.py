@@ -13,7 +13,8 @@ from repro_torch.core.quantize import quantize_act_tokenwise
 
 from .common import page_format
 
-__all__ = ["dequant_packed_ref", "w4a8_matmul_ref", "paged_decode_attn_ref"]
+__all__ = ["dequant_packed_ref", "w4a8_matmul_ref", "w4a8_batched_matmul_ref",
+           "paged_decode_attn_ref", "paged_mla_decode_attn_ref"]
 
 
 def dequant_packed_ref(codes, scale, fmt_name: str = "fp4_e2m1", group_size: int = 256):
@@ -48,6 +49,37 @@ def w4a8_matmul_ref(x, codes, scale, lorc_a=None, lorc_b=None,
         xr = torch.matmul(xf, lorc_b.float().t()).to(torch.bfloat16)
         y = y + torch.matmul(xr.float(), lorc_a.float().t())
     return y.to(x.dtype)
+
+
+def w4a8_batched_matmul_ref(x, codes, scale, lorc_a=None, lorc_b=None,
+                            w_fmt: str = "fp4_e2m1", a_fmt=None, group_size: int = 256,
+                            transpose_w: bool = False):
+    """The batched kernel's function (MLA absorbed heads, MoE expert
+    stacks). x: (E, M, D); codes: (E, N, In/2); scale: (E, N, G).
+
+    normal: D == In, y[e] = x[e] @ W[e]^T -> (E, M, N); transposed: D == N,
+    y[e] = x[e] @ W[e] -> (E, M, In) (the MLA absorbed q path contracts the
+    weight's out rows). LoRC is the same side path as the 2-D kernel's:
+    xr = bf16(x A) then xr B when transposed, xr = bf16(x B^T) then xr A^T
+    otherwise. Returns f32."""
+    if a_fmt:
+        qx, sx = quantize_act_tokenwise(x, a_fmt)
+        xq = (qx * sx).to(torch.bfloat16)
+    else:
+        xq = x.to(torch.bfloat16)
+    w = dequant_packed_ref(codes, scale, w_fmt, group_size).float()  # (E, N, In)
+    xf = xq.float()
+    if transpose_w:
+        y = torch.einsum("emn,eni->emi", xf, w)
+        if lorc_a is not None:
+            xr = torch.einsum("emn,enr->emr", xf, lorc_a.float()).to(torch.bfloat16)
+            y = y + torch.einsum("emr,eri->emi", xr.float(), lorc_b.float())
+    else:
+        y = torch.einsum("emk,enk->emn", xf, w)
+        if lorc_a is not None:
+            xr = torch.einsum("emk,erk->emr", xf, lorc_b.float()).to(torch.bfloat16)
+            y = y + torch.einsum("emr,enr->emn", xr.float(), lorc_a.float())
+    return y
 
 
 def paged_decode_attn_ref(q, k_pages, v_pages, k_smax, k_shift, v_smax,
@@ -106,3 +138,53 @@ def paged_decode_attn_ref(q, k_pages, v_pages, k_smax, k_shift, v_smax,
     vf = torch.where(valid[:, 0, 0, :, None, None], vf, torch.zeros_like(vf))
     o = torch.einsum("bkgt,btkd->bkgd", p, vf)
     return o.reshape(b, h, dv)
+
+
+def paged_mla_decode_attn_ref(q_lat, q_rope, ckv_pages, krope_pages, ckv_smax, ckv_shift,
+                              krope_smax, krope_shift, page_table, kv_lens, scale: float,
+                              fmt=None, frozen=None, ckv_fz=None, krope_fz=None,
+                              ckv_fz_smax=None, ckv_fz_shift=None, krope_fz_smax=None,
+                              krope_fz_shift=None):
+    """MLA latent decode attention, gathered and dequantized in full.
+
+    q_lat: (B, H, r) absorbed queries; q_rope: (B, H, dr); ckv_pages
+    (P+1, page, r) / krope_pages (P+1, page, dr): uint8 codes (``fmt``
+    quantized) or bf16; smax (P+1,) f32; shift (P+1, 1) int32 (the latent
+    has a single scale "head"); page_table (B, PP) int32; kv_lens (B,).
+    With ``frozen`` set the ``*_fz`` operands hold the packed FP4 latent
+    region and ids >= P+1 address it, as in ``paged_decode_attn_ref``.
+    Scores are the k = concat(ckv, krope) contraction times ``scale``, v is
+    ckv. Positions >= kv_lens[b] are masked with ``where``. Returns the
+    latent context (B, H, r) f32."""
+    fmt = page_format(fmt)
+    frozen = page_format(frozen) if frozen is not None else None
+    b, h, r = q_lat.shape
+    base, page, _ = ckv_pages.shape
+    pp = page_table.shape[1]
+    pt = page_table.long()
+
+    def dq(pages, smax, shift, fpages, fsmax, fshift):
+        apt = torch.clamp(pt, max=base - 1) if frozen is not None else pt
+        gathered = pages[apt]  # (B, PP, page, d)
+        if not fmt.quantized:
+            return gathered.float().reshape(b, pp * page, -1)
+        d = pages.shape[-1] * (2 if fmt.packed else 1)
+        vals = fmt.decode(gathered, shift[apt][..., None], d) * smax[apt][:, :, None, None]
+        if frozen is not None:
+            fpt = torch.clamp(pt - base, 0, fpages.shape[0] - 1)
+            fvals = frozen.decode(fpages[fpt], fshift[fpt][..., None], pages.shape[-1])
+            fvals = fvals * fsmax[fpt][:, :, None, None]
+            vals = torch.where((pt >= base)[:, :, None, None], fvals, vals)
+        return vals.reshape(b, pp * page, -1)
+
+    ckv = dq(ckv_pages, ckv_smax, ckv_shift, ckv_fz, ckv_fz_smax, ckv_fz_shift)
+    kr = dq(krope_pages, krope_smax, krope_shift, krope_fz, krope_fz_smax, krope_fz_shift)
+    s = (torch.einsum("bhr,btr->bht", q_lat.float(), ckv)
+         + torch.einsum("bhd,btd->bht", q_rope.float(), kr)) * scale
+    valid = (torch.arange(pp * page, device=q_lat.device)[None, None, :]
+             < kv_lens.to(q_lat.device).long()[:, None, None])
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.where(valid, torch.softmax(s, dim=-1), torch.zeros_like(s))
+    # masked positions never enter the sum, even as 0 * (stale NaN)
+    ckv = torch.where(valid[:, 0, :, None], ckv, torch.zeros_like(ckv))
+    return torch.einsum("bht,btr->bhr", p, ckv)

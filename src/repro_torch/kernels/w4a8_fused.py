@@ -1,12 +1,17 @@
-"""Python binding of the fused W4A8 GEMM (``csrc/w4a8_fused.cu``).
+"""Python bindings of the fused W4A8 GEMM (``csrc/w4a8_fused.cu``).
 
-``w4a8_fused_matmul_cuda`` checks its operands, allocates the output and
-launches the kernel on the current stream; ``w4a8_fused_matmul_cuda.launches``
-counts the launches. It takes CUDA tensors only: the plain version for
-the CPU is ``ref.w4a8_matmul_ref`` (``ops.w4a8_matmul`` dispatches).
-The kernel covers what the serving path runs: bf16 activations quantized
-to FP8 E4M3 in-kernel and FP4 E2M1 weights, with or without M2 and LoRC;
-the wrapper refuses any other variant.
+``w4a8_fused_matmul_cuda`` (the 2-D GEMM) and ``w4a8_fused_batched_cuda``
+(its batched orientations) check their operands, allocate the output and
+launch the kernel on the current stream. They count their launches:
+``w4a8_fused_matmul_cuda.launches``, and
+``w4a8_fused_batched_cuda.launches`` (normal) /
+``w4a8_fused_batched_cuda.transposed_launches``. They take CUDA tensors
+only: the plain versions for the CPU are ``ref.w4a8_matmul_ref`` and
+``ref.w4a8_batched_matmul_ref`` (``ops`` dispatches). The kernel covers
+what the serving path runs: FP4 E2M1 weights with or without M2 and LoRC,
+bf16 activations quantized to FP8 E4M3 in-kernel by the 2-D GEMM and taken
+as they are by the batched one (the MLA absorbed projections); the
+wrappers refuse any other variant.
 """
 from __future__ import annotations
 
@@ -19,9 +24,12 @@ from repro_torch.core.formats import FORMATS
 
 from . import build
 
-__all__ = ["w4a8_fused_matmul_cuda"]
+__all__ = ["w4a8_fused_matmul_cuda", "w4a8_fused_batched_cuda"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+_LL = ctypes.c_longlong
 
 
 def _lib():
@@ -30,6 +38,14 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _P]
+        fn.restype = _I
+    return fn
+
+
+def _batched_lib():
+    fn = build.load("w4a8_fused").w4a8_batched_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 8 + [_I] * 6 + [_LL, _LL, _I, _P]
         fn.restype = _I
     return fn
 
@@ -94,3 +110,71 @@ def w4a8_fused_matmul_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=None
 
 
 w4a8_fused_matmul_cuda.launches = 0
+
+
+def w4a8_fused_batched_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=None,
+                            lorc_b=None, *, w_fmt: str = "fp4_e2m1", a_fmt: Optional[str] = None,
+                            group_size: int = 256, transpose_w: bool = False):
+    """Batched W4A8 over E stacked weights, bf16 activations unquantized.
+    codes: (E, N, In/2) uint8 E2M1 nibbles; scale: (E, N, G) f32; optional
+    M2 split s_max (E, N, 1) f32 + shifts (E, N, G) int8, and LoRC lorc_a
+    (E, N, r) / lorc_b (E, r, In) bf16 (lorc_b may be a stride-0 broadcast
+    over E). Normal: x (E, M, In) -> (E, M, N) = x W^T; ``transpose_w``:
+    x (E, M, N) -> (E, M, In) = x W. Returns f32."""
+    if w_fmt != "fp4_e2m1" or a_fmt is not None:
+        raise NotImplementedError(
+            f"w_fmt={w_fmt!r}, a_fmt={a_fmt!r}: the batched CUDA kernel runs fp4_e2m1 weights "
+            "with unquantized bf16 activations only (FP8 activations, the MoE expert stacks: "
+            "ROADMAP queue 2, row 1d)")
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"w4a8_fused_batched_cuda takes CUDA tensors, got {dev}")
+    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"x: want contiguous 3-D bf16, got {x.dtype} {tuple(x.shape)}")
+    e, m, d = x.shape
+    if codes.dim() != 3:
+        raise ValueError(f"codes: want (E, N, In/2), got {tuple(codes.shape)}")
+    n, in_f = codes.shape[1], 2 * codes.shape[2]
+    g = in_f // group_size
+    if group_size <= 0 or in_f % group_size:
+        raise ValueError(f"In={in_f} must be a multiple of group_size={group_size}")
+    if d != (n if transpose_w else in_f):
+        raise ValueError(f"x: contraction width {d}, want {n if transpose_w else in_f} "
+                         f"({'transposed' if transpose_w else 'normal'} orientation)")
+    _check(codes, "codes", torch.uint8, (e, n, in_f // 2), dev)
+    _check(scale, "scale", torch.float32, (e, n, g), dev)
+    if (s_max is None) != (shifts is None):
+        raise ValueError("s_max and shifts come together (M2) or not at all")
+    if shifts is not None:
+        _check(shifts, "shifts", torch.int8, (e, n, g), dev)
+        _check(s_max, "s_max", torch.float32, (e, n, 1), dev)
+    r = 0 if lorc_a is None else lorc_a.shape[-1]
+    s_lb = 0
+    if r:
+        if r > 32:
+            raise ValueError(f"LoRC rank {r} > 32 (the kernel's epilogue bound)")
+        _check(lorc_a, "lorc_a", torch.bfloat16, (e, n, r), dev)
+        # lorc_b: every slice row-major, slices contiguous or one broadcast factor
+        s_lb = lorc_b.stride(0)
+        if (lorc_b.dtype != torch.bfloat16 or tuple(lorc_b.shape) != (e, r, in_f)
+                or lorc_b.device != dev or lorc_b.stride()[1:] != (in_f, 1)
+                or s_lb not in (0, r * in_f)):
+            raise ValueError(f"lorc_b: want bf16 (E, r, In) = {(e, r, in_f)} with row-major "
+                             f"slices of stride r*In or 0, got {lorc_b.dtype} "
+                             f"{tuple(lorc_b.shape)} strides {lorc_b.stride()}")
+    out = torch.empty((e, m, in_f if transpose_w else n), dtype=torch.float32, device=dev)
+    rc = _batched_lib()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(shifts),
+                        _ptr(s_max), _ptr(lorc_a) if r else None, _ptr(lorc_b) if r else None,
+                        out.data_ptr(), e, m, n, in_f, group_size, r, n * r, s_lb,
+                        int(transpose_w), torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"w4a8_fused batched kernel launch failed: CUDA error {rc}")
+    if transpose_w:
+        w4a8_fused_batched_cuda.transposed_launches += 1
+    else:
+        w4a8_fused_batched_cuda.launches += 1
+    return out
+
+
+w4a8_fused_batched_cuda.launches = 0
+w4a8_fused_batched_cuda.transposed_launches = 0

@@ -90,7 +90,8 @@ def attention(p, x: torch.Tensor, cfg, kv_cache, state: PagedState,
     k = linear(p["wk"], xq).reshape(b, s, kv, hd)
     v = linear(p["wv"], xq, p.get("bv")).reshape(b, s, kv, hd)
     if cfg.pos_embedding == "rope":
-        raise NotImplementedError("rope models come with a later slice (ROADMAP queue 1, item 4)")
+        raise NotImplementedError("GQA models with rope come with a later slice (ROADMAP "
+                                  "queue 1, item 4); MLA models apply rope in models/mla.py")
     if state.prefill is not None:
         # the mixed engine's fused batch-1 row: one decode token per slot,
         # then one request's bucketed prefill chunk. The decode lanes append

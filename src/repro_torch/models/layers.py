@@ -17,8 +17,9 @@ from repro_torch.core.quantize import fake_quantize_act
 
 from .params import ParamDef
 
-__all__ = ["PackedLinear", "linear", "quant_act", "norm", "norm_params",
-           "activation", "mlp_params", "mlp"]
+__all__ = ["PackedLinear", "linear", "batched_linear", "packed_head_view", "quant_act",
+           "norm", "norm_params", "activation", "mlp_params", "mlp", "rope_freqs",
+           "apply_rope"]
 
 
 @dataclasses.dataclass
@@ -31,7 +32,9 @@ class PackedLinear:
     lorc_a / lorc_b: (out, r) / (r, in) bf16 LoRC factors, or None
 
     Stacked per-segment weights carry a leading ``(L, ...)`` dim on every
-    field; ``layer(i)`` takes one layer's view.
+    field; ``layer(i)`` takes one layer's view. A batched view (per-head
+    ``(H, out, in)``, see ``packed_head_view``) has the same fields with a
+    leading head dim, ``lorc_b`` as a stride-0 broadcast over the heads.
     """
 
     codes: torch.Tensor
@@ -70,6 +73,39 @@ def linear(w, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Ten
     return y
 
 
+def batched_linear(w, x: torch.Tensor, transpose_w: bool = False,
+                   quantize_acts: bool = True) -> torch.Tensor:
+    """Per-head (or per-expert) linear over a leading batch axis. x:
+    (E, M, D); ``w`` a stacked dense (E, N, K) tensor or a batched
+    PackedLinear (codes (E, N, K/2)).
+      normal:     y[e] = x[e] @ w[e]^T  (D == K)  -> (E, M, N)
+      transposed: y[e] = x[e] @ w[e]    (D == N)  -> (E, M, K)
+    A packed weight runs the batched W4A8 kernel (routed by device through
+    ``kernels.ops``); ``quantize_acts=False`` skips the activation
+    quantization (the MLA absorbed latent paths). Returns x.dtype."""
+    if isinstance(w, PackedLinear):
+        from repro_torch.kernels import ops
+
+        return ops.w4a8_matmul_batched(x, w, transpose_w=transpose_w,
+                                       quantize_acts=quantize_acts).to(x.dtype)
+    eq = "emn,enk->emk" if transpose_w else "emk,enk->emn"
+    return torch.einsum(eq, x.float(), w.float()).to(x.dtype)
+
+
+def packed_head_view(w: PackedLinear, heads: int) -> PackedLinear:
+    """(H*out, in) PackedLinear -> (H, out, in) batched view for per-head
+    absorbed matmuls (MLA): reshapes of the packed fields, no copy;
+    ``lorc_b`` (r, in) has no head dim and is broadcast over the heads as
+    a stride-0 ``expand`` view."""
+    assert w.codes.dim() == 2 and w.codes.shape[0] % heads == 0, tuple(w.codes.shape)
+    resh = lambda a: None if a is None else a.reshape(heads, a.shape[0] // heads,
+                                                       *a.shape[1:])
+    lorc_b = None if w.lorc_b is None else w.lorc_b[None].expand(heads, *w.lorc_b.shape)
+    return dataclasses.replace(w, codes=resh(w.codes), scale=resh(w.scale),
+                               s_max=resh(w.s_max), shifts=resh(w.shifts),
+                               lorc_a=resh(w.lorc_a), lorc_b=lorc_b)
+
+
 def quant_act(x: torch.Tensor, a_fmt: Optional[str]) -> torch.Tensor:
     """Token-wise activation fake-quant used on the serving path."""
     return x if a_fmt is None else fake_quantize_act(x, a_fmt)
@@ -102,7 +138,9 @@ def norm(p, x: torch.Tensor, kind: str, eps: float = 1e-5) -> torch.Tensor:
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
-        return torch.nn.functional.silu(x)
+        # jax.nn.silu's op chain, each op rounded to x.dtype as the
+        # reference rounds it (torch's fused silu rounds once)
+        return x * (1 / (1 + torch.exp(-x)))
     if kind == "gelu":
         return torch.nn.functional.gelu(x, approximate="tanh")
     if kind == "relu":
@@ -134,3 +172,19 @@ def mlp(p, x: torch.Tensor, cfg, a_fmt=None) -> torch.Tensor:
     else:
         h = activation(up, cfg.act_kind)
     return linear(p["down"], quant_act(h, a_fmt), p.get("down_b"))
+
+
+def rope_freqs(positions: torch.Tensor, dim: int, theta: float) -> torch.Tensor:
+    """positions (...,) int -> (..., dim/2) f32 angles."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    return positions.float()[..., None] * inv
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding over split halves (not interleaved pairs), as the
+    reference: x (..., seq, heads, head_dim); positions (..., seq)."""
+    ang = rope_freqs(positions, x.shape[-1], theta)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

@@ -1,8 +1,9 @@
-"""Decoder-LM assembly, dense segments (port of ``repro.models.transformer``).
+"""Decoder-LM assembly, dense segments with a GQA or MLA mixer (port of
+``repro.models.transformer``).
 
 Parameters stack per segment with a leading ``(L, ...)`` dim as in the
 reference; a Python loop over the layers takes the place of ``lax.scan``.
-The MoE / MLA / recurrent mixers and the vision/audio front-ends come with
+The MoE and recurrent mixers and the vision/audio front-ends come with
 later slices (ROADMAP queue 1, item 12)."""
 from __future__ import annotations
 
@@ -11,10 +12,11 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.runtime.kv_cache import PagedState
+from repro_torch.runtime.kv_cache import PagedState, pool_keys
 
 from .attention import attention, attn_params
 from .layers import PackedLinear, ParamDef, mlp, mlp_params, norm, norm_params
+from .mla import mla_attention, mla_params
 from .params import tree_map
 
 __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_apply",
@@ -23,22 +25,24 @@ __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_app
 
 @dataclasses.dataclass(frozen=True)
 class SegmentSpec:
-    mixer: str  # 'gqa' in this slice
+    mixer: str  # 'gqa' | 'mla' in this slice
     ffn: str  # 'mlp' in this slice
     count: int
     d_ff: int = 0
 
 
 def segments_for(cfg) -> List[SegmentSpec]:
-    if (cfg.ssm is not None or cfg.moe is not None or cfg.attn_kind != "gqa"
+    if (cfg.ssm is not None or cfg.moe is not None or cfg.attn_kind not in ("gqa", "mla")
             or cfg.encoder_layers or cfg.frontend != "none" or cfg.mtp_depth):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported so far (ROADMAP queue 1, item 12)")
-    return [SegmentSpec("gqa", "mlp", cfg.n_layers)]
+            f"{cfg.name}: only dense GQA and MLA decoders are ported so far (ROADMAP queue 1, "
+            "item 12)")
+    return [SegmentSpec(cfg.attn_kind, "mlp", cfg.n_layers)]
 
 
 def block_params(cfg, seg: SegmentSpec):
-    return {"mixer": {"ln": norm_params(cfg), "attn": attn_params(cfg)},
+    attn = mla_params(cfg) if seg.mixer == "mla" else attn_params(cfg)
+    return {"mixer": {"ln": norm_params(cfg), "attn": attn},
             "ffn": {"ln": norm_params(cfg), "mlp": mlp_params(cfg, d_ff=seg.d_ff or cfg.d_ff)}}
 
 
@@ -68,12 +72,17 @@ def layer_view(stack, i: int):
                     is_leaf=lambda x: isinstance(x, PackedLinear))
 
 
-def block_apply(p, x, cfg, cache_layer, state: PagedState, a_fmt=None):
-    """One pre-norm block: x + attn(ln(x)), then x + mlp(ln(x))."""
+def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer, state: PagedState,
+                a_fmt=None):
+    """One pre-norm block: x + mixer(ln(x)), then x + mlp(ln(x)); the mixer
+    is GQA attention or MLA by ``seg.mixer``."""
     nk = cfg.norm_kind
     pm, pf = p["mixer"], p["ffn"]
-    h, _ = attention(pm["attn"], norm(pm["ln"], x, nk, cfg.norm_eps), cfg,
-                     cache_layer, state, a_fmt=a_fmt)
+    hn = norm(pm["ln"], x, nk, cfg.norm_eps)
+    if seg.mixer == "mla":
+        h, _ = mla_attention(pm["attn"], hn, cfg, positions, cache_layer, state, a_fmt=a_fmt)
+    else:
+        h, _ = attention(pm["attn"], hn, cfg, cache_layer, state, a_fmt=a_fmt)
     x = x + h
     return x + mlp(pf["mlp"], norm(pf["ln"], x, nk, cfg.norm_eps), cfg, a_fmt=a_fmt)
 
@@ -97,11 +106,11 @@ def lm_forward(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
         positions = state.lengths.long()[:, None] + steps[None]
     if cfg.pos_embedding == "learned":
         x = x + params["pos_embed"][positions].to(x.dtype)
-    for seg_params, pool in zip(params["segments"], caches):
-        n_layers = pool["k"].shape[0]
-        for i in range(n_layers):
+    for seg, seg_params, pool in zip(segments_for(cfg), params["segments"], caches):
+        for i in range(pool[pool_keys(pool)[0]].shape[0]):
             cache_layer = {name: leaf[i] for name, leaf in pool.items()}
-            x = block_apply(layer_view(seg_params, i), x, cfg, cache_layer, state, a_fmt)
+            x = block_apply(layer_view(seg_params, i), x, cfg, seg, positions, cache_layer,
+                            state, a_fmt)
     return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)
 
 

@@ -1,11 +1,15 @@
-"""Quantized paged KV pool, GQA slice, and the shared-prefix index (port of
+"""Quantized paged KV pool and the shared-prefix index (port of
 ``repro.runtime.kv_cache``).
 
 Layout (one pool dict per model segment, leading dim = stacked layers):
 
-  k/v        (L, P+1, page, KV, hd)  uint8 FP8 E4M3 codes | bf16 values
-  k/v_smax   (L, P+1)                f32   per-page full-precision S_max
-  k/v_shift  (L, P+1, KV)            int32 per-(page, head) M2 shifts
+  GQA:  k/v        (L, P+1, page, KV, hd)  uint8 FP8 E4M3 codes | bf16 values
+        k/v_smax   (L, P+1)                f32   per-page full-precision S_max
+        k/v_shift  (L, P+1, KV)            int32 per-(page, head) M2 shifts
+  MLA:  ckv        (L, P+1, page, r)       the compressed latent and the
+        krope      (L, P+1, page, dr)      shared rope key, no head axis;
+                                           their smax/shift have a single
+                                           scale "head": (L, P+1), (L, P+1, 1)
 
 Page ids are global across layers; the last id (P) is the reserved null
 page that idle rows write to. FP8 scales are amax / 480 per (page, head),
@@ -45,7 +49,7 @@ from repro_torch.core.scales import constrain_scales_m2
 from repro_torch.kernels.common import PageFormat, page_format
 
 __all__ = ["CachePolicy", "PagedState", "PrefixCache", "page_key", "init_gqa_pool",
-           "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
+           "init_mla_pool", "pool_keys", "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
            "dequantize_pages", "transcode_page", "append_paged", "append_prefill_chunk",
            "gather_pages", "gather_history", "pool_bytes_per_token", "page_bytes",
            "pages_needed"]
@@ -124,26 +128,44 @@ class PagedState(NamedTuple):
     prefill: Optional["PagedState"] = None
 
 
+def pool_keys(pool: Dict) -> Tuple[str, str]:
+    """The value-bearing leaf names of a pool: 'k'/'v' or 'ckv'/'krope'."""
+    return ("k", "v") if "k" in pool else ("ckv", "krope")
+
+
+def _has_heads(store: torch.Tensor, per_layer: bool = True) -> bool:
+    """GQA stores carry a head axis, MLA latent stores do not: (P+1, page,
+    KV, hd) vs (P+1, page, d) per layer, one more leading dim stacked."""
+    return store.dim() == (4 if per_layer else 5)
+
+
+def _with_head_axis(t: torch.Tensor, has_heads: bool) -> torch.Tensor:
+    return t if has_heads else t[..., None, :]
+
+
 def pool_format(pool: Dict) -> PageFormat:
     """The active store's format: bf16 values, FP8 codes, or packed FP4
     codes (marked by the zero-size ``_fp4`` leaf)."""
-    if pool["k"].dtype != torch.uint8:
+    if pool[pool_keys(pool)[0]].dtype != torch.uint8:
         return page_format(None)
     return page_format("fp4_e2m1" if "_fp4" in pool else "fp8_e4m3")
 
 
 def frozen_format(pool: Dict) -> Optional[PageFormat]:
     """The frozen region's format, or None for a homogeneous pool."""
-    return page_format("fp4_e2m1") if "k_fz" in pool else None
+    return page_format("fp4_e2m1") if pool_keys(pool)[0] + "_fz" in pool else None
 
 
 def n_frozen_pages(pool: Dict) -> int:
     """Frozen-region page count (0 when homogeneous), for full pools and
-    per-layer slices alike."""
-    if "k_fz" not in pool:
+    per-layer slices alike: the value leaf's rank tells them apart (GQA
+    5-D full / 4-D per layer; MLA 4-D / 3-D)."""
+    key = pool_keys(pool)[0]
+    if key + "_fz" not in pool:
         return 0
-    leaf = pool["k_fz"]
-    return leaf.shape[1 if leaf.dim() == 5 else 0] - 1
+    leaf = pool[key + "_fz"]
+    full_rank = 5 if key == "k" else 4
+    return leaf.shape[1 if leaf.dim() == full_rank else 0] - 1
 
 
 def _init_store(n_layers, n_pages, page_size, n_kv, head_dim, fmt: PageFormat, device):
@@ -155,32 +177,51 @@ def _init_store(n_layers, n_pages, page_size, n_kv, head_dim, fmt: PageFormat, d
             "_shift": torch.zeros(shape[:2] + (n_kv,), dtype=torch.int32, device=device)}
 
 
-def init_gqa_pool(n_layers: int, n_pages: int, page_size: int, n_kv: int, head_dim: int,
-                  fmt="fp8_e4m3", frozen_fmt=None, n_frozen: int = 0,
-                  device="cpu") -> Dict:
-    """Zeroed pool of ``n_pages`` pages plus the null page. A ``frozen_fmt``
-    other than ``fmt`` adds the frozen region: half-width packed stores of
-    ``n_frozen`` pages plus the dummy row."""
+def _init_pool(n_layers, n_pages, page_size, leaves, fmt, frozen_fmt, n_frozen,
+               device) -> Dict:
+    """``leaves``: (name, KV heads, width, keep the head axis) per value
+    leaf. The active stores, the ``_fp4`` marker of a packed active store,
+    and the frozen region when ``frozen_fmt`` differs from ``fmt``."""
     fmt = page_format(fmt)
-    pool = {}
-    for name in ("k", "v"):
-        for suffix, leaf in _init_store(n_layers, n_pages, page_size, n_kv, head_dim, fmt,
-                                        device).items():
-            pool[name + suffix] = leaf
-    if fmt.packed:  # zero-size marker: this uint8 store holds packed FP4, not FP8
-        pool["_fp4"] = torch.zeros((n_layers, 0), dtype=torch.uint8, device=device)
     frozen = page_format(frozen_fmt) if frozen_fmt is not None else None
+    regions = [("", fmt, n_pages)]
     if frozen is not None and frozen != fmt:
         if (fmt.name, frozen.name) != ("fp8_e4m3", "fp4_e2m1"):
             raise ValueError(f"unsupported frozen store {frozen.name!r} behind {fmt.name!r} "
                              "active pages (only fp4_e2m1 behind fp8_e4m3)")
         if n_frozen < 1:
             raise ValueError("a mixed-precision pool needs n_frozen >= 1")
-        for name in ("k", "v"):
-            for suffix, leaf in _init_store(n_layers, n_frozen, page_size, n_kv, head_dim,
-                                            frozen, device).items():
-                pool[name + "_fz" + suffix] = leaf
+        regions.append(("_fz", frozen, n_frozen))
+    pool = {}
+    for region, f, n in regions:
+        for name, n_kv, width, heads in leaves:
+            for suffix, leaf in _init_store(n_layers, n, page_size, n_kv, width, f,
+                                            device).items():
+                pool[name + region + suffix] = leaf if heads or suffix else leaf[..., 0, :]
+        if f is fmt and fmt.packed:  # zero-size marker: packed FP4, not FP8
+            pool["_fp4"] = torch.zeros((n_layers, 0), dtype=torch.uint8, device=device)
     return pool
+
+
+def init_gqa_pool(n_layers: int, n_pages: int, page_size: int, n_kv: int, head_dim: int,
+                  fmt="fp8_e4m3", frozen_fmt=None, n_frozen: int = 0,
+                  device="cpu") -> Dict:
+    """Zeroed pool of ``n_pages`` pages plus the null page. A ``frozen_fmt``
+    other than ``fmt`` adds the frozen region: half-width packed stores of
+    ``n_frozen`` pages plus the dummy row."""
+    return _init_pool(n_layers, n_pages, page_size,
+                      [("k", n_kv, head_dim, True), ("v", n_kv, head_dim, True)],
+                      fmt, frozen_fmt, n_frozen, device)
+
+
+def init_mla_pool(n_layers: int, n_pages: int, page_size: int, kv_lora_rank: int,
+                  qk_rope_dim: int, fmt="fp8_e4m3", frozen_fmt=None, n_frozen: int = 0,
+                  device="cpu") -> Dict:
+    """Latent pages: the compressed c_kv and the shared rope key, each with
+    a single scale "head" that is squeezed out of the value leaves."""
+    return _init_pool(n_layers, n_pages, page_size,
+                      [("ckv", 1, kv_lora_rank, False), ("krope", 1, qk_rope_dim, False)],
+                      fmt, frozen_fmt, n_frozen, device)
 
 
 def quantize_pages(vals: torch.Tensor, fmt="fp8_e4m3"):
@@ -220,11 +261,13 @@ def transcode_page(pool: Dict, src_pid: int, dst_fidx: int) -> Dict:
     fz = frozen_format(pool)
     if fz is None or pool_format(pool).name != "fp8_e4m3":
         raise ValueError("transcode_page needs an FP8 pool with a frozen FP4 region")
-    for name in ("k", "v"):
-        vals = dequantize_pages(pool[name][:, src_pid], pool[name + "_smax"][:, src_pid],
+    for name in pool_keys(pool):
+        heads = _has_heads(pool[name], per_layer=False)
+        vals = dequantize_pages(_with_head_axis(pool[name][:, src_pid], heads),
+                                pool[name + "_smax"][:, src_pid],
                                 pool[name + "_shift"][:, src_pid])
         codes, smax, shift = quantize_pages(vals, fz)
-        pool[name + "_fz"][:, dst_fidx] = codes
+        pool[name + "_fz"][:, dst_fidx] = codes if heads else codes[..., 0, :]
         pool[name + "_fz_smax"][:, dst_fidx] = smax
         pool[name + "_fz_shift"][:, dst_fidx] = shift
     return pool
@@ -232,10 +275,11 @@ def transcode_page(pool: Dict, src_pid: int, dst_fidx: int) -> Dict:
 
 def append_paged(pool_layer: Dict, new_vals: Dict, state: PagedState) -> Dict:
     """Write one token per row at its true position, in place. new_vals:
-    {"k": (B, 1, KV, hd), "v": ...}. Rows with lengths == 0 write to the
-    null page. FP8 pages are dequantized, the token written, positions past
-    it zeroed (a recycled page may hold a previous owner's stale codes) and
-    the page requantized with fresh scales."""
+    {"k": (B, 1, KV, hd), "v": ...} or {"ckv": (B, 1, r), "krope": ...}.
+    Rows with lengths == 0 write to the null page. FP8 pages are
+    dequantized, the token written, positions past it zeroed (a recycled
+    page may hold a previous owner's stale codes) and the page requantized
+    with fresh scales."""
     pf = pool_format(pool_layer)
     if pf.packed:  # frozen pages are transcoded once and never written again
         raise AssertionError(
@@ -243,8 +287,9 @@ def append_paged(pool_layer: Dict, new_vals: Dict, state: PagedState) -> Dict:
     lengths = state.lengths.long()
     b = lengths.shape[0]
     rows = torch.arange(b, device=lengths.device)
-    for name in ("k", "v"):
+    for name in pool_keys(pool_layer):
         store = pool_layer[name]
+        heads = _has_heads(store)
         page, null = store.shape[1], store.shape[0] - 1
         slot = torch.clamp(lengths // page, max=state.page_table.shape[1] - 1)
         off = lengths % page
@@ -252,18 +297,18 @@ def append_paged(pool_layer: Dict, new_vals: Dict, state: PagedState) -> Dict:
         # a row's tail page is private (boundary pages never freeze), so pid
         # is an active id; the clamp keeps a violation inside the store
         pid = torch.clamp(torch.where(lengths > 0, pid, torch.full_like(pid, null)), max=null)
-        new = new_vals[name].float()[:, 0]  # (B, KV, hd)
+        new = new_vals[name].float()[:, 0]  # (B, KV, hd) | (B, d)
         if not pf.quantized:
             store[pid, off] = new.to(store.dtype)
             continue
         smax, shift = pool_layer[name + "_smax"], pool_layer[name + "_shift"]
-        vals = dequantize_pages(store[pid], smax[pid], shift[pid])
-        vals[rows, off] = new
+        vals = dequantize_pages(_with_head_axis(store[pid], heads), smax[pid], shift[pid])
+        vals[rows, off] = _with_head_axis(new, heads)
         # where(), not a multiply: a stale non-finite code must not survive
         live = torch.arange(page, device=off.device)[None, :] <= off[:, None]
         vals = torch.where(live[:, :, None, None], vals, torch.zeros_like(vals))
         codes, nsmax, nshift = quantize_pages(vals)
-        store[pid] = codes
+        store[pid] = codes if heads else codes[..., 0, :]
         smax[pid] = nsmax
         shift[pid] = nshift
     return pool_layer
@@ -271,17 +316,18 @@ def append_paged(pool_layer: Dict, new_vals: Dict, state: PagedState) -> Dict:
 
 def append_prefill_chunk(pool_layer: Dict, new_vals: Dict, state: PagedState) -> Dict:
     """Write one page-aligned chunk of a batch-1 streaming prefill, in
-    place. new_vals: {"k": (1, S, KV, hd), ...} starting at position
-    ``state.lengths[0]`` (a page multiple). With ``chunk_len`` set,
-    positions >= chunk_len are pad and zeroed (with where(): pad K/V can be
-    NaN downstream of a non-finite chunk); pages the pad overhangs must
-    map to the null page in the table."""
+    place. new_vals: {"k": (1, S, KV, hd), ...} or {"ckv": (1, S, r), ...}
+    starting at position ``state.lengths[0]`` (a page multiple). With
+    ``chunk_len`` set, positions >= chunk_len are pad and zeroed (with
+    where(): pad K/V can be NaN downstream of a non-finite chunk); pages the
+    pad overhangs must map to the null page in the table."""
     pf = pool_format(pool_layer)
     start = int(state.lengths[0])
-    for name in ("k", "v"):
+    for name in pool_keys(pool_layer):
         store = pool_layer[name]
+        heads = _has_heads(store)
         page = store.shape[1]
-        new = new_vals[name].float()[0]  # (S, KV, hd)
+        new = _with_head_axis(new_vals[name].float()[0], heads)  # (S, KV|1, hd)
         s = new.shape[0]
         if state.chunk_len is not None:
             live = torch.arange(s, device=new.device) < state.chunk_len[0]
@@ -297,21 +343,23 @@ def append_prefill_chunk(pool_layer: Dict, new_vals: Dict, state: PagedState) ->
         pid = torch.clamp(pid, max=store.shape[0] - 1)
         if pf.quantized:
             codes, smax, shifts = quantize_pages(vals, pf)
-            store[pid] = codes
+            store[pid] = codes if heads else codes[..., 0, :]
             pool_layer[name + "_smax"][pid] = smax
             pool_layer[name + "_shift"][pid] = shifts
         else:
-            store[pid] = vals.to(store.dtype)
+            store[pid] = (vals if heads else vals[..., 0, :]).to(store.dtype)
     return pool_layer
 
 
 def gather_pages(pool_layer: Dict, name: str, state: PagedState) -> torch.Tensor:
-    """Dequantized gather (B, PP * page, KV, hd) f32 of each row's table.
-    In a mixed pool, ids >= P+1 are frozen logical ids: both regions are
-    gathered with clamped ids (frozen ids clamp to the null page in the
-    active store, active ids to row 0 of the frozen store) and a ``where``
-    on the id class picks each page."""
+    """Dequantized gather of each row's table: (B, PP * page, KV, hd) f32
+    for GQA leaves, (B, PP * page, d) for MLA latent leaves. In a mixed
+    pool, ids >= P+1 are frozen logical ids: both regions are gathered with
+    clamped ids (frozen ids clamp to the null page in the active store,
+    active ids to row 0 of the frozen store) and a ``where`` on the id
+    class picks each page."""
     store = pool_layer[name]
+    heads = _has_heads(store)
     pf = pool_format(pool_layer)
     fz = frozen_format(pool_layer)
     pt = state.page_table.long()
@@ -320,28 +368,32 @@ def gather_pages(pool_layer: Dict, name: str, state: PagedState) -> torch.Tensor
     apt = torch.clamp(pt, max=base - 1) if fz is not None else pt
     if pf.quantized:
         d = store.shape[-1] * (2 if pf.packed else 1)
-        vals = dequantize_pages(store[apt], pool_layer[name + "_smax"][apt],
+        vals = dequantize_pages(_with_head_axis(store[apt], heads),
+                                pool_layer[name + "_smax"][apt],
                                 pool_layer[name + "_shift"][apt], pf, d=d)
     else:
-        vals = store[apt].float()
+        vals = _with_head_axis(store[apt].float(), heads)
     if fz is not None:
         fstore = pool_layer[name + "_fz"]
         fpt = torch.clamp(pt - base, 0, fstore.shape[0] - 1)
-        fvals = dequantize_pages(fstore[fpt], pool_layer[name + "_fz_smax"][fpt],
+        fvals = dequantize_pages(_with_head_axis(fstore[fpt], heads),
+                                 pool_layer[name + "_fz_smax"][fpt],
                                  pool_layer[name + "_fz_shift"][fpt], fz, d=store.shape[-1])
         vals = torch.where((pt >= base)[:, :, None, None, None], fvals, vals)
+    vals = vals if heads else vals[..., 0, :]
     return vals.reshape(b, pp * store.shape[1], *vals.shape[3:])
 
 
 def gather_history(pool_layer: Dict, state: PagedState, chunk_len: int):
     """History gather for a streaming-prefill chunk: the whole table is
     gathered and the caller masks columns >= lengths[0] (the chunk's own
-    pages or null fill). Returns ({name: (B, W * page, KV, hd)}, W * page),
-    or ({}, 0) when the table is no wider than the chunk itself."""
-    page = pool_layer["k"].shape[1]
+    pages or null fill). Returns ({name: (B, W * page, ...)}, W * page), or
+    ({}, 0) when the table is no wider than the chunk itself."""
+    keys = pool_keys(pool_layer)
+    page = pool_layer[keys[0]].shape[1]
     if state.page_table.shape[1] <= -(-chunk_len // page):
         return {}, 0
-    return ({name: gather_pages(pool_layer, name, state) for name in ("k", "v")},
+    return ({name: gather_pages(pool_layer, name, state) for name in keys},
             state.page_table.shape[1] * page)
 
 
@@ -480,7 +532,7 @@ def pool_bytes_per_token(pool: Dict) -> float:
     """Bytes of active-store storage per token slot (values and scales,
     across the stacked layers), excluding the null page and the frozen
     region."""
-    n_layers, p1, page = pool["k"].shape[:3]
+    n_layers, p1, page = pool[pool_keys(pool)[0]].shape[:3]
     total = 0.0
     for name, leaf in pool.items():
         if "_fz" in name or leaf.numel() == 0:

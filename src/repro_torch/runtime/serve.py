@@ -33,12 +33,15 @@ The pool is written in place, so a write to a shared page would corrupt
 its other owners silently: every write set is checked with
 ``PrefixCache.assert_unfrozen`` where the reference checks it.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: preemption, steal and spill (queue 1, item 8; the fully
-backed pool never needs them, and the engine raises where the reference
-would steal), fault quarantine and audit (item 8), sampled decoding
-(item 9), the front-end (item 10), the other model families (item 12) and
-meshes (item 14).
+The model is a dense decoder with GQA attention over K/V pages or MLA
+over latent pages (``init_mla_pool``: c_kv and the rope key, no head
+axis); the engine is the same for both. Not ported yet, and refused with
+``NotImplementedError`` naming the ROADMAP item: preemption, steal and
+spill (queue 1, item 8; the fully backed pool never needs them, and the
+engine raises where the reference would steal), fault quarantine and
+audit (item 8), sampled decoding (item 9), the front-end (item 10), GQA
+with rope (item 4), the other model families (item 12) and meshes (item
+14).
 """
 from __future__ import annotations
 
@@ -172,11 +175,18 @@ class Server:
         self._mixed_precision = policy.mixed
         self._mixed_step = sched.engine == "mixed"
         self._n_frozen = (policy.frozen_pages or self._n_pages) if policy.mixed else 0
-        self.pools = [kvc.init_gqa_pool(seg.count, self._n_pages, page, cfg.n_kv_heads,
-                                        cfg.resolved_head_dim, policy.active,
-                                        frozen_fmt=policy.frozen if policy.mixed else None,
-                                        n_frozen=self._n_frozen, device=self.device)
-                      for seg in segments_for(cfg)]
+        frozen_fmt = policy.frozen if policy.mixed else None
+        self.pools = []
+        for seg in segments_for(cfg):
+            if seg.mixer == "mla":  # latent pages: c_kv and the shared rope key
+                pool = kvc.init_mla_pool(seg.count, self._n_pages, page, cfg.mla.kv_lora_rank,
+                                         cfg.mla.qk_rope_dim, policy.active, frozen_fmt,
+                                         self._n_frozen, device=self.device)
+            else:
+                pool = kvc.init_gqa_pool(seg.count, self._n_pages, page, cfg.n_kv_heads,
+                                         cfg.resolved_head_dim, policy.active, frozen_fmt,
+                                         self._n_frozen, device=self.device)
+            self.pools.append(pool)
         self.active: List[Optional[Request]] = [None] * self.slots
         self.queue: List[Request] = []
         self.finished: List[Request] = []

@@ -36,7 +36,15 @@ def flatten_jax(tree):
 
 
 def port_cfg(jcfg):
-    return TArchConfig(**dataclasses.asdict(jcfg))
+    """The port's ArchConfig of a reference one, nested specs included."""
+    from repro_torch.models import config as tconfig
+
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    for name, spec in (("moe", tconfig.MoESpec), ("mla", tconfig.MLASpec),
+                       ("ssm", tconfig.SSMSpec)):
+        if fields[name] is not None:
+            fields[name] = spec(**dataclasses.asdict(fields[name]))
+    return TArchConfig(**fields)
 
 
 def to_np(t: torch.Tensor) -> np.ndarray:

@@ -56,3 +56,65 @@ def test_unported_serving_options_raise(field, value, item):
     srv.submit(serve.Request(rid=0, prompt=[1, 2, 3], max_new=2))
     with pytest.raises(NotImplementedError, match=item):
         srv.run_until_drained()
+
+
+def _batched_operands(e=4, n=64, k=256, m=3):
+    codes = torch.zeros((e, n, k // 2), dtype=torch.uint8)
+    scale = torch.ones((e, n, k // 256))
+    return torch.zeros((e, m, k), dtype=torch.bfloat16), codes, scale
+
+
+@pytest.mark.parametrize("kw,err", [
+    ({}, ValueError),                                  # CPU tensors: the plain version's
+    ({"a_fmt": "fp8_e4m3"}, NotImplementedError),      # FP8 activations: the MoE slice, row 1d
+    ({"w_fmt": "fp4_e3m0"}, NotImplementedError),      # E3M0 weights are not built
+])
+def test_batched_w4a8_wrapper_refuses(kw, err):
+    from repro_torch.kernels.w4a8_fused import w4a8_fused_batched_cuda
+
+    x, codes, scale = _batched_operands()
+    with pytest.raises(err):
+        w4a8_fused_batched_cuda(x, codes, scale, group_size=256, **kw)
+    assert w4a8_fused_batched_cuda.launches == w4a8_fused_batched_cuda.transposed_launches == 0
+
+
+def _mla_operands(fmt):
+    b, h, r, dr, page, p1 = 2, 3, 16, 8, 4, 5
+    store = torch.uint8 if fmt else torch.bfloat16
+    return (torch.zeros((b, h, r), dtype=torch.bfloat16),
+            torch.zeros((b, h, dr), dtype=torch.bfloat16),
+            torch.zeros((p1, page, r), dtype=store), torch.zeros((p1, page, dr), dtype=store),
+            torch.ones(p1), torch.zeros((p1, 1), dtype=torch.int32), torch.ones(p1),
+            torch.zeros((p1, 1), dtype=torch.int32), torch.zeros((b, 2), dtype=torch.int32),
+            torch.ones(b, dtype=torch.int32), 0.2)
+
+
+@pytest.mark.parametrize("fmt,kw,err", [
+    ("fp8_e4m3", {}, ValueError),                             # CPU tensors
+    (None, {}, ValueError),
+    ("fp8_e4m3", {"frozen": "fp4_e2m1"}, ValueError),         # frozen without its operands
+    ("fp8_e4m3", {"ckv_fz": torch.zeros(1)}, ValueError),     # operands without frozen=
+    (None, {"frozen": "fp4_e2m1"}, NotImplementedError),      # a frozen region behind bf16
+    ("fp4_e2m1", {}, NotImplementedError),                    # packed active pages
+])
+def test_mla_decode_wrapper_refuses(fmt, kw, err):
+    from repro_torch.kernels.decode_attn import paged_mla_decode_attn_cuda
+
+    with pytest.raises(err):
+        paged_mla_decode_attn_cuda(*_mla_operands(fmt), fmt=fmt, **kw)
+    assert paged_mla_decode_attn_cuda.launches == paged_mla_decode_attn_cuda.frozen_launches == 0
+
+
+def test_mla_smoke_config_serves_on_the_cpu_only_when_asked(monkeypatch):
+    """MiniCPM3's smoke config builds a latent pool; without a GPU the
+    entry points still refuse to fall back."""
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke("minicpm3-4b")
+    params = api.init_params(cfg, seed=0, device="cpu")
+    srv = serve.Server(params, cfg, serve.ServerConfig(slots=1, max_seq=64, page_size=8),
+                       device="cpu")
+    assert set(srv.pools[0]) >= {"ckv", "krope"} and "k" not in srv.pools[0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.Server(params, cfg)
