@@ -45,9 +45,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               GQA attention), the live latent-pool check with an injected
               fault, and a profiled decode step;
 8. mla cpu -- MiniCPM3 at full width cut to 2 layers against the CPU plain
-              path, free-running and teacher-forced at each attention
-              block, with two injected faults (wk_b's LoRC dropped in the
-              batched kernel, the latent decode one token short).
+              path, free-running, teacher-forced at each attention block
+              and at each batched-GEMM and latent-decode call, with two
+              injected faults (wk_b's LoRC dropped in the batched kernel,
+              the latent decode one token short).
 
 Phase 3 also checks and times MiniCPM3's kernels: the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
@@ -79,13 +80,20 @@ ATTN_TOL = 1e-4  # rtol = atol: f32 sums in another order
 # PERF.md.
 LOGIT_RTOL = 0.1
 BLOCK_RTOL = 0.08
-# phase 8, MiniCPM3 (2 layers, full widths): free-running logits, a gross
-# bound (on an H100 the sound routes read 0.084 and 0.103, the faults 0.119
-# and 0.347), and the teacher-forced attention blocks, near the geometric
-# mean of the kernels' 0.0326 and the wk_b LoRC fault's 0.0418 (the plain
-# versions on the card read 0.0035, the short read 0.226); see PERF.md
+# phase 8, MiniCPM3 (2 layers, full widths; see phase_mla_cpu and PERF.md).
+# Free-running logits and teacher-forced attention blocks: gross bounds on
+# the sound routes, set from an H100's readings with a margin (the kernels
+# read 0.103 and 0.0326, the plain versions on the card 0.084 and 0.0035).
+# The kernel calls fed the card's operands: the sound kernels compute the
+# plain versions' products in another f32 order (phase 3: wk_b's within
+# 5e-7), an injected fault moves a share of the output (wk_b's LoRC term,
+# the newest token's attention weight); MLA_OP_RTOL was set between the two
+# before the first reading. wv_b applies M2 after its K loop, the plain
+# version rounds each scaled weight to bf16 (at most 2^-9 of it).
 MLA_LOGIT_RTOL = 0.15
-MLA_BLOCK_RTOL = 0.037
+MLA_BLOCK_RTOL = 0.06
+MLA_OP_RTOL = 1e-4
+MLA_WVB_RTOL = 1e-2
 SEED = 0
 DEV = "cuda"
 
@@ -721,13 +729,18 @@ def _pools(cfg, n_pages, page, device):
 def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
     """Two requests (one prefill chunk, then 4 decode steps) along every
     route, each with a pool of its own, all fed the card's greedy tokens.
-    With ``forced``, every block of every route takes the card's input to
-    that block, so a difference cannot compound across layers. ``site``
-    "block" forces and reads whole blocks (the reading: the output's error
-    over the reference block's update); "mixer" forces and reads the MLA
-    attention block alone (its output is the update). Returns the readings
-    {route: (logit share, block share)} and (agreeing greedy tokens,
-    decisive ones, tokens)."""
+    With ``forced``, every site of every route takes the card's input to
+    that site, so a difference cannot compound. ``site`` "block" forces and
+    reads whole blocks (the reading: the output's error over the reference
+    block's update); "mixer" the MLA attention blocks (their output is the
+    update); "ops" the MLA path's kernel calls -- ``w4a8_matmul_batched``
+    (read apart as ``wk_b``, transposed, and ``wv_b``) and
+    ``paged_mla_decode_attn`` (``attn``) -- each fed the card's operands
+    (its activation; for the attention also the card's pool, table and
+    lengths), the route's own weights (the reading: the output's error over
+    the reference output). Frobenius norms. Returns the readings {route:
+    {"logits": share of the largest |logit|, site key: largest share}} and
+    (agreeing greedy tokens, decisive ones, tokens)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -741,31 +754,55 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
     pools = {name: _pools(cfg, 2 * pp, page, d) for name, (_, d, _) in routes.items()}
     table = np.arange(2 * pp, dtype=np.int32).reshape(2, pp)
     t = lambda a, d: torch.as_tensor(np.asarray(a, np.int32)).to(d)
-    hooked = "mla_attention" if site == "mixer" else "block_apply"
-    original = getattr(tf, hooked)
-    reading = {name: [0.0, 0.0] for name in routes}
+    reading = {name: {"logits": 0.0} for name in routes}
     agree = [0, 0, 0]
+
+    def hooks(d, lead, trace):
+        """{module, attribute: wrapper} that forces and records each site."""
+        def fed(i, own):
+            return own if not forced or lead is None else \
+                tuple(_to_device(a, d) for a in lead[i][1])
+
+        if site != "ops":
+            hooked = "mla_attention" if site == "mixer" else "block_apply"
+            fn = getattr(tf, hooked)
+
+            def block(p, x, *args, **kw):
+                (x,) = fed(len(trace), (x,))
+                y = fn(p, x, *args, **kw)
+                trace.append(("block", (x,), y[0] if site == "mixer" else y))
+                return y
+            return {(tf, hooked): block}
+        gemm, attn = ops.w4a8_matmul_batched, ops.paged_mla_decode_attn
+
+        def batched(x, w, transpose_w=False, quantize_acts=True):
+            (x,) = fed(len(trace), (x,))
+            y = gemm(x, w, transpose_w=transpose_w, quantize_acts=quantize_acts)
+            trace.append(("wk_b" if transpose_w else "wv_b", (x,), y))
+            return y
+
+        def latent(q_lat, q_rope, layer, page_table, kv_lens, scale):
+            args = fed(len(trace), (q_lat, q_rope, layer, page_table, kv_lens))
+            y = attn(*args, scale)
+            trace.append(("attn", args, y))
+            return y
+        return {(ops, "w4a8_matmul_batched"): batched, (ops, "paged_mla_decode_attn"): latent}
 
     def run(name, tokens, pt, lengths, chunk_len, lead):
         params, d, patch = routes[name]
-        trace = []  # (input, output) of every block, in order
-
-        def block(p, x, *args, **kw):
-            if forced and lead is not None:
-                x = lead[len(trace)][0].to(d)
-            y = original(p, x, *args, **kw)
-            trace.append((x, y[0] if site == "mixer" else y))
-            return y
-
-        saved = {k: getattr(ops, k) for k in patch}
+        trace = []  # (site key, inputs, output) of every site, in order
+        saved = {(ops, k): getattr(ops, k) for k in patch}
         for k, v in patch.items():
             setattr(ops, k, v)
-        setattr(tf, hooked, block)
+        wrapped = hooks(d, lead, trace)  # around the route's own ops
+        for key in wrapped:
+            saved.setdefault(key, getattr(*key))
+        for (mod, attr), v in wrapped.items():
+            setattr(mod, attr, v)
         st = kvc.PagedState(t(pt, d), t(lengths, d), None if chunk_len is None else t([chunk_len], d))
         logits = api.decode_step(params, cfg, t(tokens, d), pools[name], st, a_fmt="fp8_e4m3")
-        setattr(tf, hooked, original)
-        for k, v in saved.items():
-            setattr(ops, k, v)
+        for (mod, attr), v in saved.items():
+            setattr(mod, attr, v)
         return logits.float().cpu(), trace
 
     def step(tokens, pt, lengths, chunk_len=None):
@@ -776,15 +813,15 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
         for name, (o, _) in out.items():
             if not bool(torch.isfinite(o).all()):
                 fail(f"non-finite logits on route {name}")
-        ref, ref_blocks = out["cpu"]
+        ref, ref_sites = out["cpu"]
         scale = float(ref.abs().max())
         f64 = lambda v: v.double().cpu()
-        for name, (o, blocks) in out.items():
+        for name, (o, sites) in out.items():
             r = reading[name]
-            r[0] = max(r[0], float((o - ref).abs().max()) / scale)
-            for (_, y), (x0, y0) in zip(blocks if forced else (), ref_blocks):
-                update = f64(y0) if site == "mixer" else f64(y0) - f64(x0)
-                r[1] = max(r[1], float((f64(y) - f64(y0)).norm() / update.norm()))
+            r["logits"] = max(r["logits"], float((o - ref).abs().max()) / scale)
+            for (key, _, y), (_, (x0, *_), y0) in zip(sites if forced else (), ref_sites):
+                base = f64(y0) - f64(x0) if site == "block" else f64(y0)
+                r[key] = max(r.get(key, 0.0), float((f64(y) - f64(y0)).norm() / base.norm()))
         top2 = out["card"][0].topk(2, dim=-1).values
         decisive = (top2[:, 0] - top2[:, 1]) > logit_rtol * scale
         same = out["card"][0].argmax(-1) == ref.argmax(-1)
@@ -805,6 +842,11 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
         nxt = step(np.array(nxt, np.int32)[:, None], table, lengths)
         lengths += 1
     return reading, agree
+
+
+def _to_device(a, d):
+    """A tensor, or a dict of tensors (a pool layer), on device ``d``."""
+    return {k: v.to(d) for k, v in a.items()} if isinstance(a, dict) else a.to(d)
 
 
 def phase_cpu(torch, cfg, packed):
@@ -838,24 +880,24 @@ def phase_cpu(torch, cfg, packed):
     routes = _routes(torch, packed)
     free, agree = _compare(torch, cfg, routes, forced=False)
     forced, _ = _compare(torch, cfg, routes, forced=True)
-    show = lambda rd, i: ", ".join(f"{n} {rd[n][i]:.4g}" for n in routes if n != "cpu")
+    show = lambda rd, key: ", ".join(f"{n} {rd[n][key]:.4g}" for n in routes if n != "cpu")
     log(f"[5 cpu] 2 requests (1 prefill chunk + 4 decode steps) against the CPU plain path")
     log(f"    free-running, largest |logit err| / largest |logit| (tolerance {LOGIT_RTOL}): "
-        f"{show(free, 0)}; greedy tokens agree {agree[0]}/{agree[2]}, all {agree[1]} "
+        f"{show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, all {agree[1]} "
         f"decisive ones")
     log(f"    teacher-forced blocks, largest |block output err| / |block update| "
-        f"(tolerance {BLOCK_RTOL}): {show(forced, 1)}")
+        f"(tolerance {BLOCK_RTOL}): {show(forced, 'block')}")
     for name in ("card", "card_plain"):
-        if free[name][0] > LOGIT_RTOL:
+        if free[name]["logits"] > LOGIT_RTOL:
             fail(f"free-running logits of route {name} differ from the CPU plain path by "
-                 f"{free[name][0]:.4g} of the largest |logit| > {LOGIT_RTOL}")
-        if forced[name][1] > BLOCK_RTOL:
+                 f"{free[name]['logits']:.4g} of the largest |logit| > {LOGIT_RTOL}")
+        if forced[name]["block"] > BLOCK_RTOL:
             fail(f"the blocks of route {name} differ from the CPU plain path by "
-                 f"{forced[name][1]:.4g} of their update > {BLOCK_RTOL}")
+                 f"{forced[name]['block']:.4g} of their update > {BLOCK_RTOL}")
     for name in ("no_lorc", "short_kv"):
-        if forced[name][1] <= BLOCK_RTOL:
-            fail(f"injected fault {name} reads {forced[name][1]:.4g} <= {BLOCK_RTOL}: the "
-                 f"comparison cannot tell it from a sound card path")
+        if forced[name]["block"] <= BLOCK_RTOL:
+            fail(f"injected fault {name} reads {forced[name]['block']:.4g} <= {BLOCK_RTOL}: "
+                 f"the comparison cannot tell it from a sound card path")
     return free, forced
 
 
@@ -1157,38 +1199,58 @@ def phase_mla_cpu(torch):
     against the CPU plain path (see phase_cpu): the kernels, the plain
     versions on the card, the CPU, and two faults through the kernels --
     ``no_lorc`` drops wk_b's LoRC correction in the batched kernel,
-    ``short_kv`` reads the MLA decode one token short. Free-running, the
-    sound routes' logits must stay within MLA_LOGIT_RTOL; teacher-forced at
-    each attention block's input, the sound routes must read at most
-    MLA_BLOCK_RTOL of the reference block's output and the faults more
-    (the whole-block reading of phase 5 dilutes a fault of wk_b in the
-    MLP's update: on an H100 the kernels read 0.073 there and no_lorc
-    0.083)."""
+    ``short_kv`` reads the MLA decode one token short. Three passes:
+
+    * free-running logits, a gross check of the whole path: the sound
+      routes must stay within MLA_LOGIT_RTOL; no fault has to exceed it;
+    * teacher-forced attention blocks (the whole-block reading of phase 5
+      dilutes a wk_b fault in the MLP's update): the sound routes within
+      MLA_BLOCK_RTOL, ``short_kv`` above it; the kernels' M2 arithmetic,
+      amplified by the next FP8 quantization, reads nearly as much as the
+      wk_b LoRC fault here, so this pass does not hold ``no_lorc``;
+    * teacher-forced kernel calls, each fed the card's operands: the
+      transposed GEMM (``wk_b``) and the latent decode (``attn``) compute
+      the plain versions' products in another f32 order, so the sound
+      routes must read at most MLA_OP_RTOL there and each fault more on
+      the call it breaks (``no_lorc`` on wk_b, ``short_kv`` on attn); the
+      normal GEMM (``wv_b``) applies M2 after its K loop where the plain
+      version rounds each scaled weight to bf16 (at most 2^-9 of it), and
+      must read at most MLA_WVB_RTOL."""
     cfg, packed, _ = _minicpm3(torch, n_layers=2)
     routes = _routes(torch, packed, mla=True)
     free, agree = _compare(torch, cfg, routes, forced=False, logit_rtol=MLA_LOGIT_RTOL)
     forced, _ = _compare(torch, cfg, routes, forced=True, site="mixer",
                          logit_rtol=MLA_LOGIT_RTOL)
-    show = lambda rd, i: ", ".join(f"{n} {rd[n][i]:.4g}" for n in routes if n != "cpu")
+    op, _ = _compare(torch, cfg, routes, forced=True, site="ops", logit_rtol=MLA_LOGIT_RTOL)
+    show = lambda rd, key: ", ".join(f"{n} {rd[n][key]:.4g}" for n in routes if n != "cpu")
     log(f"[8 mla cpu] MiniCPM3 at full width, 2 layers: 2 requests (1 prefill chunk + 4 "
         f"decode steps) against the CPU plain path")
     log(f"    free-running, largest |logit err| / largest |logit| (tolerance {MLA_LOGIT_RTOL}): "
-        f"{show(free, 0)}; greedy tokens agree {agree[0]}/{agree[2]}, all {agree[1]} "
+        f"{show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, all {agree[1]} "
         f"decisive ones")
     log(f"    teacher-forced attention blocks, largest |output err| / |output| "
-        f"(tolerance {MLA_BLOCK_RTOL}): {show(forced, 1)}")
+        f"(tolerance {MLA_BLOCK_RTOL}): {show(forced, 'block')}")
+    for key, tol in (("wk_b", MLA_OP_RTOL), ("attn", MLA_OP_RTOL), ("wv_b", MLA_WVB_RTOL)):
+        log(f"    teacher-forced kernel calls, {key}, largest |output err| / |output| "
+            f"(tolerance {tol}): {show(op, key)}")
     for name in ("card", "card_plain"):
-        if free[name][0] > MLA_LOGIT_RTOL:
+        if free[name]["logits"] > MLA_LOGIT_RTOL:
             fail(f"free-running logits of route {name} differ from the CPU plain path by "
-                 f"{free[name][0]:.4g} of the largest |logit| > {MLA_LOGIT_RTOL}")
-        if forced[name][1] > MLA_BLOCK_RTOL:
-            fail(f"the blocks of route {name} differ from the CPU plain path by "
-                 f"{forced[name][1]:.4g} of their update > {MLA_BLOCK_RTOL}")
-    for name in ("no_lorc", "short_kv"):
-        if forced[name][1] <= MLA_BLOCK_RTOL:
-            fail(f"injected fault {name} reads {forced[name][1]:.4g} <= {MLA_BLOCK_RTOL}: the "
+                 f"{free[name]['logits']:.4g} of the largest |logit| > {MLA_LOGIT_RTOL}")
+        if forced[name]["block"] > MLA_BLOCK_RTOL:
+            fail(f"the attention blocks of route {name} differ from the CPU plain path by "
+                 f"{forced[name]['block']:.4g} of their output > {MLA_BLOCK_RTOL}")
+        for key, tol in (("wk_b", MLA_OP_RTOL), ("attn", MLA_OP_RTOL), ("wv_b", MLA_WVB_RTOL)):
+            if op[name][key] > tol:
+                fail(f"the {key} calls of route {name} differ from the CPU plain path by "
+                     f"{op[name][key]:.4g} of their output > {tol}")
+    for name, rd, key, tol in (("short_kv", forced, "block", MLA_BLOCK_RTOL),
+                               ("no_lorc", op, "wk_b", MLA_OP_RTOL),
+                               ("short_kv", op, "attn", MLA_OP_RTOL)):
+        if rd[name][key] <= tol:
+            fail(f"injected fault {name} reads {rd[name][key]:.4g} <= {tol} on {key}: the "
                  f"comparison cannot tell it from a sound card path")
-    return free, forced
+    return free, forced, op
 
 
 def main():

@@ -47,9 +47,10 @@ def _library(name: str) -> Path:
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile every library of ``names`` that is missing, one nvcc each,
-    in parallel. Returns {source: wall seconds until its nvcc finished}
-    (empty when nothing was missing); raises with nvcc's output if a build
-    fails."""
+    in parallel. Returns {source: wall seconds from the start until its
+    nvcc's output was collected} (the sources are collected in order, so a
+    later one may have finished earlier; empty when nothing was missing);
+    raises with nvcc's output if a build fails."""
     todo = [n for n in names if not _library(n).exists()]
     if not todo:
         return {}
@@ -63,13 +64,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     failed, done = [], {}
-    while len(done) < len(procs):  # each source's own build time
-        for name, (_, proc) in procs.items():
-            if name not in done and proc.poll() is not None:
-                done[name] = time.perf_counter() - t0
-        time.sleep(0.05)
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
+        done[name] = time.perf_counter() - t0
         build_logs[name] = out
         if proc.returncode:
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{out}")

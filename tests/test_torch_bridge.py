@@ -3,6 +3,7 @@
 ``{"a/b/c": ndarray}`` form ``repro_torch.models.bridge.from_numpy`` reads,
 and converting configs and tensors across."""
 import dataclasses
+import gc
 
 import jax
 import numpy as np
@@ -21,6 +22,19 @@ from conftest import tiny_lm_cfg
 
 POLICY = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256,
                      scale_mode="m2", lorc_rank=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_compiled():
+    """Frees the XLA executables a module compiled when it ends; each
+    ``test_torch_*`` module that compiles the reference imports it. XLA
+    keeps an executable's JIT code mapped while a cache holds it, and one
+    process that runs several compile-heavy modules would otherwise reach
+    the kernel's limit on memory mappings (``vm.max_map_count``), where
+    XLA's next compile faults."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def flatten_jax(tree):

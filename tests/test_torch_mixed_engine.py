@@ -16,6 +16,7 @@ This module also holds the stream comparison the MLA suite
 (``test_torch_mla.py``) uses.
 """
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -44,12 +45,27 @@ _COMPILED = {}
 # A greedy token counts as tied when the reference's top-2 logit gap is
 # below GAP_TOL times the row's largest |logit|. Both packages compute the
 # same function; only the f32 summation order of a dot differs (XLA's CPU
-# dot against torch's), by at most one f32 ulp per score. One ulp can tip
-# a bf16 rounding, and the next token-wise FP8 E4M3 quantization turns that
-# into a whole FP8 step of one element: a relative change of 2^-3, E4M3's
-# largest relative step (3 mantissa bits). The tolerance is that step
-# carried to the logits: 2^-3 of the row's largest |logit|.
-GAP_TOL = 2.0 ** -3
+# dot against torch's). One f32 ulp can tip a bf16 rounding and, through
+# it, an FP8 one: one element moves by one E4M3 step (at most 2^-3 of it).
+# That alone does not bound the logits: a tipped page code in a shared
+# prefix page moves every later logit of every stream that reads it. So
+# the tolerance comes from the ties these tests meet: under key 1 the
+# FP8 cases diverge where the reference's gap is 1.9e-4, 4.7e-4, 7.0e-3,
+# 1.61e-2 and 2.71e-2 of the largest |logit|; keys 0, 2 and 3 and the MLA
+# suites meet none. 2^-4 is 2.3x the largest of them.
+GAP_TOL = 2.0 ** -4
+# Ties each key's served cases may meet: those measured above, no more.
+MAX_TIES = {0: 0, 1: 3, 2: 0, 3: 0}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_compiled():
+    """``test_torch_bridge.release_compiled``, and the reference steps that
+    ``StrictReference`` compiled; ``test_torch_mla_serve`` imports it."""
+    yield
+    _COMPILED.clear()
+    jax.clear_caches()
+    gc.collect()
 
 
 def _step_and_gap(params, caches, tokens, cache_index, poison, samp, cfg, a_fmt):
@@ -109,14 +125,14 @@ class StrictReference:
         return next(s for s, r in enumerate(jsrv.active) if r is req)
 
 
-def compare_streams(got, want, gaps, tol=GAP_TOL):
+def compare_streams(got, want, gaps):
     """``got`` (the port's) and ``want`` (the reference's): {rid: (tokens,
     status)}. Token by token; a stream's first difference must sit where
     the reference's top-2 gap (``gaps`` from ``StrictReference``) is below
-    ``tol``, and nothing of that stream after it is compared. Returns
-    (tokens compared equal, [(rid, index, gap)] of the accepted ties)."""
+    ``GAP_TOL``, and nothing of that stream after it is compared. Returns
+    [(rid, index, gap)] of the accepted ties."""
     assert set(got) == set(want)
-    same, ties = 0, []
+    ties = []
     for rid in sorted(want):
         (toks, status), (ref, ref_status) = got[rid], want[rid]
         assert status == ref_status, (rid, status, ref_status)
@@ -124,12 +140,11 @@ def compare_streams(got, want, gaps, tol=GAP_TOL):
         for i, (a, b) in enumerate(zip(toks, ref)):
             if a != b:
                 gap = gaps[(rid, i)]
-                assert gap < tol, (f"request {rid}: token {i} is {a}, the reference's {b} "
-                                   f"leads by {gap:.3g} of the largest |logit| >= {tol}")
+                assert gap < GAP_TOL, (f"request {rid}: token {i} is {a}, the reference's {b} "
+                                       f"leads by {gap:.3g} of the largest |logit| >= {GAP_TOL}")
                 ties.append((rid, i, gap))
                 break
-            same += 1
-    return same, ties
+    return ties
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,29 +188,27 @@ def _serve(mod, srv, waves):
     return out
 
 
-def serve_both(model, engine, cache, waves, slots=3, max_seq=64, page_size=8,
-               chunk_pages=2, a_fmt="fp8_e4m3"):
+def serve_both(model, engine, cache, waves, slots=3, max_seq=64):
     """``waves`` through the reference ``Server`` (strictly compiled, its
     ``ref`` kernels) and the port's on the CPU, with the prefix cache on.
     The streams must agree up to ties (``compare_streams``) and every
     counter, chunk shape, refcount and free list must be equal. Returns
     (the port's streams, the port's server, the accepted ties)."""
     jcfg, packed, tcfg, tparams = model
-    common = dict(slots=slots, max_seq=max_seq, page_size=page_size, a_fmt=a_fmt,
+    common = dict(slots=slots, max_seq=max_seq, page_size=8, a_fmt="fp8_e4m3",
                   prefix_cache=True)
     jsrv = jserve.Server(packed, jcfg, jserve.ServerConfig(
         **common, kernel_backend="ref", cache=jserve.CachePolicy(**cache),
-        scheduler=jserve.SchedulerConfig(engine=engine, prefill_chunk_pages=chunk_pages)))
-    strict = StrictReference(jsrv, jcfg, a_fmt)
+        scheduler=jserve.SchedulerConfig(engine=engine, prefill_chunk_pages=2)))
+    strict = StrictReference(jsrv, jcfg, common["a_fmt"])
     want = _serve(jserve, jsrv, waves)
     tsrv = tserve.Server(tparams, tcfg, tserve.ServerConfig(
         **common, cache=tserve.CachePolicy(**cache),
-        scheduler=tserve.SchedulerConfig(engine=engine, prefill_chunk_pages=chunk_pages)),
+        scheduler=tserve.SchedulerConfig(engine=engine, prefill_chunk_pages=2)),
         device="cpu")
     assert tsrv.engine == jsrv.engine == engine
     got = _serve(tserve, tsrv, waves)
-    same, ties = compare_streams(got, want, strict.gaps)
-    assert same >= sum(len(t) for t, _ in want.values()) // 2, (same, ties)
+    ties = compare_streams(got, want, strict.gaps)
     assert all(status == "ok" for _, status in got.values())
     assert {k: tsrv.stats[k] for k in STATS} == {k: jsrv.stats[k] for k in STATS}
     assert tsrv.prefill_traces == jsrv.prefill_traces
@@ -228,7 +241,7 @@ def test_shared_prefix_streams_identical_to_jax_server(key, engine, cache):
     # streams over 3 tokens), every other key's hold more than 3 tokens
     assert len({tuple(toks) for toks, _ in got.values()}) >= 3
     assert len({t for toks, _ in got.values() for t in toks}) >= (3 if key == 0 else 4)
-    assert len(ties) <= 3  # a tie ends one stream's comparison, never most of them
+    assert len(ties) <= MAX_TIES[key], ties
     assert srv.stats["prefix_hit_pages"] >= 3 * 5
     if cache.get("frozen_fmt"):
         assert srv.stats["fp4_frozen_pages"] >= 3
@@ -269,7 +282,7 @@ def test_homogeneous_pool_reclaims_parked_pages(tiny_packed):
 
 
 def test_engines_agree_where_the_reference_order_differs():
-    """Under key 1 two to four of the seven streams tie with the reference
+    """Under key 1 two or three of the seven streams tie with the reference
     at one token (``compare_streams``: one attention score one f32 ulp
     apart, which FP8 quantization turns into other codes in a shared
     prefix page; ROADMAP queue 3). The port's two engines still serve

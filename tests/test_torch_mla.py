@@ -42,7 +42,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.bridge import from_numpy
 from repro_torch.runtime import kv_cache as tkvc
 
-from test_torch_bridge import POLICY, flatten_jax, port_cfg, t, to_np
+from test_torch_bridge import POLICY, flatten_jax, port_cfg, release_compiled, t, to_np
 
 ATTN_TOL = 2e-5  # the kernel == oracle tolerance of tests/test_kv_cache.py
 

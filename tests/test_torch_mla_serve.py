@@ -8,7 +8,7 @@ random-init model whose streams vary (the logits are in
 import numpy as np
 import pytest
 
-from test_torch_mixed_engine import serve_both
+from test_torch_mixed_engine import release_compiled, serve_both
 from test_torch_mla import MLA_CFG, _model, bridge
 
 
@@ -45,7 +45,7 @@ def test_random_mla_streams_match_jax_server(random_mla, engine, cache):
     got, srv, ties = serve_both(random_mla, engine, CACHES[cache],
                                 _waves(MLA_CFG.vocab_size), slots=3, max_seq=64)
     assert len({tok for toks, _ in got.values() for tok in toks}) > 3  # streams vary
-    assert len(ties) <= 2
+    assert not ties
     assert srv.stats["prefix_hit_pages"] >= 2 * 4
     if cache.endswith("frozen"):
         assert srv.stats["fp4_frozen_pages"] >= 2
