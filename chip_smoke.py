@@ -48,11 +48,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               path, free-running, teacher-forced at each attention block
               and at each batched-GEMM and latent-decode call, with two
               injected faults (wk_b's LoRC dropped in the batched kernel,
-              the latent decode one token short).
+              the latent decode one token short);
+9. moe     -- OLMoE-1B-7B (64 experts top-8, 16 layers) at full width,
+              random weights initialized and packed on the card, on phase
+              6's server and traffic: every request ok, every route's
+              launches equal to their invariant (4 x 16 GEMMs, 3 x 16
+              batched expert GEMMs with FP8 activations and 16 frozen GQA
+              decode launches at hd 128 a step), the live-pool check with an
+              injected fault, and a profiled decode step;
+10. moe cpu -- phase 9's model cut to 2 layers against the CPU plain path,
+              free-running and teacher-forced at each MoE layer and each
+              expert GEMM call, with the router's experts compared and two
+              injected faults (wd's LoRC dropped, one expert of wu reading
+              its neighbour's weights).
 
-Phase 3 also checks and times MiniCPM3's kernels: the GEMM at its 7
+Phase 3 also checks and times MiniCPM3's kernels (the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
-kernel over bf16, FP8 and FP8 + FP4 frozen pages.
+kernel over bf16, FP8 and FP8 + FP4 frozen pages) and OLMoE's (the GEMM at
+2048 -> 2048, the batched GEMM with FP8 activations over 64 expert slabs
+at M=4, as served and dense, and at M=260, and both GQA decode variants at
+KV=16, hd 128).
 
 The last two lines are the card line and ``{"ok": true, "device": ...}``.
 The script imports nothing of jax and nothing of the JAX package.
@@ -94,6 +109,23 @@ MLA_LOGIT_RTOL = 0.15
 MLA_BLOCK_RTOL = 0.06
 MLA_OP_RTOL = 1e-4
 MLA_WVB_RTOL = 1e-2
+# phase 10, OLMoE-1B-7B (2 layers, full widths; see phase_moe_cpu and
+# PERF.md). Every expert GEMM call fed the card's operands: the kernel
+# applies M2 after its K loop where the plain version rounds each scaled
+# weight to bf16 (about 1e-3 of the output on random weights, CPU), and
+# wd's LoRC term is about 2.6e-2 of the output; MOE_OP_RTOL was set from
+# those before the first reading on the card, a decade above the one and
+# under the other. MOE_TIE: a router probability gap below which the
+# card and the CPU may pick another expert (one f32 ulp of a 2048-term
+# dot moves a probability by ~1e-7). MOE_LOGIT_RTOL: a gross bound only,
+# raised from 0.15 after two readings on an H100: over 2 layers of random
+# weights and FP8 quantization the sound routes read 0.12 and 0.17 of the
+# largest |logit| (the plain versions on the card 0.10 and 0.11), as much
+# as both injected faults (0.19-0.20), so free-running logits tell no
+# subtle fault from sound arithmetic; 0.3 still fails a broken path.
+MOE_OP_RTOL = 1.5e-2
+MOE_TIE = 1e-5
+MOE_LOGIT_RTOL = 0.3
 SEED = 0
 DEV = "cuda"
 
@@ -208,15 +240,15 @@ def _w4a8_case(torch, timer, m, k, n, gen):
     return row
 
 
-def _attn_check(torch, fmt, gen, window=0):
-    """A random pool at the decode shapes of opt-125m and the kernel's
-    output held against its plain version. Returns the operands, the two
-    callables and the error."""
+def _attn_check(torch, fmt, gen, window=0, kv=12, hd=64):
+    """A random pool at the decode shapes of opt-125m (``kv`` heads of width
+    ``hd``; OLMoE-1B-7B: 16 of 128) and the kernel's output held against its
+    plain version. Returns the operands, the two callables and the error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attn import paged_decode_attn_cuda
     from repro_torch.runtime import kv_cache as kvc
 
-    b, kv, hd, page = 4, 12, 64, 64
+    b, page = 4, 64
     lens = [2048, 1337, 300, 1]  # ragged contexts, up to 2048 tokens
     pp = 2048 // page
     n_pages = b * pp
@@ -247,17 +279,18 @@ def _attn_check(torch, fmt, gen, window=0):
     torch.cuda.synchronize()
     err = float((o_k - o_p).abs().max())
     if not torch.allclose(o_k, o_p, rtol=ATTN_TOL, atol=ATTN_TOL):
-        fail(f"paged_decode_attn ({fmt or 'bf16'} pages, window {window}) disagrees with its "
-             f"plain version: max |err| {err}")
+        fail(f"paged_decode_attn ({fmt or 'bf16'} pages, KV {kv}, hd {hd}, window {window}) "
+             f"disagrees with its plain version: max |err| {err}")
     return layer, table, kv_lens, lens, q, o_k, kernel, plain, err
 
 
-def _attn_case(torch, timer, fmt, gen):
+def _attn_case(torch, timer, fmt, gen, kv=12, hd=64):
     from repro_torch.runtime import kv_cache as kvc
 
-    b, kv, hd, page = 4, 12, 64, 64
+    b, page = 4, 64
     pp = 2048 // page
-    layer, table, kv_lens, lens, q, o_k, kernel, plain, err = _attn_check(torch, fmt, gen)
+    layer, table, kv_lens, lens, q, o_k, kernel, plain, err = _attn_check(torch, fmt, gen,
+                                                                         kv=kv, hd=hd)
     # the library yardstick: SDPA over the gathered, dequantized pages
     st = kvc.PagedState(table, kv_lens)
     kf, vf = (kvc.gather_pages(layer, n, st).to(torch.bfloat16).transpose(1, 2) for n in "kv")
@@ -279,15 +312,15 @@ def _attn_case(torch, timer, fmt, gen):
     return row
 
 
-def _frozen_layer(torch, gen, hd):
+def _frozen_layer(torch, gen, hd, kv=12):
     """A random mixed-precision pool layer at the decode shapes of opt-125m
-    (B=4, KV=12, page 64, contexts 2048/1337/300/1) and its table: the
-    first half of each row's full pages sit in the packed FP4 frozen
-    region (ids >= P+1), the rest are FP8 pages. Returns (layer, table,
-    kv_lens, lens, frozen pages per row)."""
+    (B=4, KV=12, page 64, contexts 2048/1337/300/1; OLMoE: KV=16, hd 128)
+    and its table: the first half of each row's full pages sit in the
+    packed FP4 frozen region (ids >= P+1), the rest are FP8 pages. Returns
+    (layer, table, kv_lens, lens, frozen pages per row)."""
     from repro_torch.runtime import kv_cache as kvc
 
-    b, kv, page = 4, 12, 64
+    b, page = 4, 64
     lens = [2048, 1337, 300, 1]
     pp = 2048 // page
     n_pages = b * pp
@@ -324,25 +357,25 @@ def _frozen_calls(layer, table, kv_lens, q, window=0):
             lambda: ref.paged_decode_attn_ref(*args, **kw, **fz))
 
 
-def _attn_frozen_check(torch, gen, hd=64, window=0):
-    layer, table, kv_lens, lens, n_frozen = _frozen_layer(torch, gen, hd)
-    q = torch.randn((4, 12, hd), generator=gen, device=DEV).to(torch.bfloat16)
+def _attn_frozen_check(torch, gen, hd=64, window=0, kv=12):
+    layer, table, kv_lens, lens, n_frozen = _frozen_layer(torch, gen, hd, kv)
+    q = torch.randn((4, kv, hd), generator=gen, device=DEV).to(torch.bfloat16)
     kernel, plain = _frozen_calls(layer, table, kv_lens, q, window)
     o_k, o_p = kernel(), plain()
     torch.cuda.synchronize()
     err = float((o_k - o_p).abs().max())
     if not torch.allclose(o_k, o_p, rtol=ATTN_TOL, atol=ATTN_TOL):
-        fail(f"paged_decode_attn frozen variant (hd {hd}, window {window}) disagrees with its "
-             f"plain version: max |err| {err}")
+        fail(f"paged_decode_attn frozen variant (KV {kv}, hd {hd}, window {window}) disagrees "
+             f"with its plain version: max |err| {err}")
     return layer, table, kv_lens, lens, n_frozen, q, o_k, kernel, plain, err
 
 
-def _attn_frozen_case(torch, timer, gen):
+def _attn_frozen_case(torch, timer, gen, kv=12, hd=64):
     from repro_torch.runtime import kv_cache as kvc
 
-    b, kv, hd, page = 4, 12, 64, 64
+    b, page = 4, 64
     layer, table, kv_lens, lens, n_frozen, q, o_k, kernel, plain, err = _attn_frozen_check(
-        torch, gen)
+        torch, gen, hd=hd, kv=kv)
     st = kvc.PagedState(table, kv_lens)
     kf, vf = (kvc.gather_pages(layer, n, st).to(torch.bfloat16).transpose(1, 2) for n in "kv")
     mask = (torch.arange(table.shape[1] * page, device=DEV)[None, :]
@@ -419,6 +452,78 @@ def _batched_case(torch, timer, transpose, gen):
     log(f"    w4a8_fused batched {name} E=40 M=4: kernel {row['ms']:.4f} ms  plain "
         f"{row['plain_ms']:.4f} ms  library(bf16 matmul per head) {row['library_ms']:.4f} ms  "
         f"bound {b_ms * 1e3:.3f} us ({by}; {nbytes} B)  max|err| {err:.3g}")
+    return row
+
+
+OLMOE_EXPERTS = (("wu", 2048, 1024), ("wd", 1024, 2048))  # (weight, In, N); wg is wu's shape
+
+
+def _moe_weights(torch, k, n, gen, scale_mode="m2", lorc_rank=8):
+    """64 random (n, k) expert weights, packed by the port's ``_pack_batched``."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.ptq import _pack_batched
+
+    policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256,
+                         scale_mode=scale_mode, lorc_rank=lorc_rank)
+    w = (torch.randn((64, n, k), generator=gen, device=DEV) / math.sqrt(k)).to(torch.bfloat16)
+    return _pack_batched(w, policy)
+
+
+def _moe_check(torch, p, m, gen, routed=False):
+    """Row 1d at OLMoE-1B-7B's expert stacks: ``p`` 64 packed (n, k) expert
+    weights (wu and wg 2048 -> 1024, wd 1024 -> 2048) and x (64, m, k) raw
+    N(0,1) bf16 activations, quantized to FP8 in-kernel; with ``routed``
+    they are as served: each of the m tokens' rows is nonzero in 8 of the
+    64 slabs (its top-8 experts) and zero in the rest. The kernel held
+    against its plain version. Returns (x, nonzero rows, kernel, plain,
+    err, what)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a8_fused import w4a8_fused_batched_cuda
+
+    e, n, k, top_k = p.codes.shape[0], p.codes.shape[1], 2 * p.codes.shape[2], 8
+    x = torch.randn((e, m, k), generator=gen, device=DEV).to(torch.bfloat16)
+    if routed:  # token j's experts: the top 8 of random scores
+        pick = torch.rand((m, e), generator=gen, device=DEV).topk(top_k, dim=-1).indices
+        keep = torch.zeros((m, e), dtype=torch.bool, device=DEV).scatter_(1, pick, True)
+        x = torch.where(keep.t()[..., None], x,
+                        torch.zeros((), dtype=x.dtype, device=DEV)).contiguous()
+    rows = m * top_k if routed else m * e
+    kw = dict(w_fmt=p.w_fmt, a_fmt="fp8_e4m3", group_size=p.group_size)
+    kernel = lambda: w4a8_fused_batched_cuda(x, p.codes, p.scale, p.s_max, p.shifts, p.lorc_a,
+                                             p.lorc_b, **kw)
+    plain = lambda: ref.w4a8_batched_matmul_ref(x, p.codes, p.scale, p.lorc_a, p.lorc_b, **kw)
+    y_k, y_p = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((y_k - y_p).abs().max())
+    what = (f"w4a8_fused batched fp8 (row 1d) E={e} M={m} {k}->{n}"
+            f"{' routed (8 of 64 slabs per token)' if routed else ''} scale_mode="
+            f"{'m2' if p.shifts is not None else 'none'} lorc_rank="
+            f"{0 if p.lorc_a is None else p.lorc_a.shape[-1]}")
+    if not torch.allclose(y_k, y_p, rtol=W4A8_TOL, atol=W4A8_TOL):
+        fail(f"{what} disagrees with its plain version: max |err| {err}")
+    if routed and bool((y_k.abs().sum(-1) > 0).sum() != rows):
+        fail(f"{what}: the zero rows do not come out zero")
+    return x, rows, kernel, plain, err, what
+
+
+def _moe_case(torch, timer, p, m, gen, routed):
+    """Row 1d with M2 and LoRC 8, timed. The bound counts the operations
+    this input needs: the nonzero rows' products (the zero rows' are 0)."""
+    from repro_torch.kernels import ref
+
+    x, rows, kernel, plain, err, what = _moe_check(torch, p, m, gen, routed)
+    w_deq = ref.dequant_packed_ref(p.codes, p.scale, p.w_fmt, p.group_size)  # (64, n, k)
+    library = lambda: torch.bmm(x, w_deq.transpose(1, 2))
+    (e, n, k), g, r = w_deq.shape, p.scale.shape[-1], p.lorc_a.shape[-1]
+    nbytes = (e * m * k * 2 + e * n * k // 2 + e * n * g + e * n * 4 + (e * n * r + e * r * k) * 2
+              + e * m * n * 4)
+    flops = 2 * rows * n * k + 2 * rows * r * (k + n)
+    b_ms, by = bound(nbytes, flops, "bf16")
+    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
+               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    log(f"    {what}: kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(bf16 "
+        f"bmm) {row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {nbytes} B, "
+        f"{flops} FLOP)  max|err| {err:.3g}")
     return row
 
 
@@ -567,7 +672,38 @@ def phase_kernels(torch):
             *_, err, what = _mla_check(torch, gen, fmt, fz, 2, h, r, dr, page, [4 * page - 3, 2])
             mla[(fmt, fz)]["max_abs_err"] = max(mla[(fmt, fz)]["max_abs_err"], err)
             log(f"    {what}: max|err| {err:.3g}")
-    return gemm, attn, frozen, batched, mla
+    gemm[(4, 2048, 2048)] = _w4a8_case(torch, timer, 4, 2048, 2048, gen)  # OLMoE's q, k, v, o
+    moe, olmoe_attn = _olmoe_kernels(torch, timer, gen)
+    return gemm, attn, frozen, batched, mla, moe, olmoe_attn
+
+
+def _olmoe_kernels(torch, timer, gen):
+    """Slice 4: OLMoE-1B-7B's shapes. Row 1d (E=64, wu 2048->1024 and wd
+    1024->2048) as served (M=4, each token's row nonzero in 8 of the 64
+    slabs) and on raw activations at M=4 and 260, timed; the other M2 and
+    LoRC variants checked at an M that is no multiple of the block rows.
+    Rows 2 and 2b at KV=H=16, hd 128 (67 KB of dynamic shared memory),
+    timed; row 2 over bf16 pages and row 2b with a window, checked."""
+    moe = {}
+    for name, k, n in OLMOE_EXPERTS:
+        p = _moe_weights(torch, k, n, gen)
+        moe[(name, "routed")] = _moe_case(torch, timer, p, 4, gen, routed=True)
+        for m in (4, 260):
+            moe[(name, m)] = _moe_case(torch, timer, p, m, gen, routed=False)
+    for mode, rank in (("none", 0), ("m2", 0), ("none", 8)):
+        p = _moe_weights(torch, 1024, 2048, gen, mode, rank)
+        for routed in (False, True):
+            *_, err, what = _moe_check(torch, p, 37, gen, routed)
+            log(f"    {what}: max|err| {err:.3g}")
+    attn = {"fp8_e4m3": _attn_case(torch, timer, "fp8_e4m3", gen, kv=16, hd=128),
+            "frozen": _attn_frozen_case(torch, timer, gen, kv=16, hd=128)}
+    err = _attn_check(torch, None, gen, kv=16, hd=128)[-1]
+    attn["fp8_e4m3"]["max_abs_err"] = max(attn["fp8_e4m3"]["max_abs_err"], err)
+    log(f"    paged_decode_attn bf16 pages KV=16 hd=128: max|err| {err:.3g}")
+    err = _attn_frozen_check(torch, gen, hd=128, window=300, kv=16)[-1]
+    attn["frozen"]["max_abs_err"] = max(attn["frozen"]["max_abs_err"], err)
+    log(f"    paged_decode_attn frozen variant KV=16 hd=128, window 300: max|err| {err:.3g}")
+    return moe, attn
 
 
 def _opt_125m():
@@ -672,12 +808,14 @@ def _profiled(torch, srv, n_steps, what):
             f"top: " + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n_steps:.2f} ms" for e in top))
 
 
-def _routes(torch, packed, mla=False):
+def _routes(torch, packed, family="dense"):
     """name -> (params, device, attributes of ``ops`` replaced for the run).
-    The faults: ``no_lorc`` drops the LoRC correction (from every linear,
-    through the plain versions; with ``mla`` from ``wk_b`` only, through
-    the batched kernel), ``short_kv`` reads decode attention one token
-    short (the plain version; with ``mla`` the MLA decode kernel)."""
+    The faults: ``no_lorc`` drops the LoRC correction (dense: from every
+    linear, through the plain versions; MLA: from ``wk_b`` only, MoE: from
+    ``wd`` only, through the batched kernel); ``short_kv`` reads decode
+    attention one token short (the plain version; MLA: the MLA decode
+    kernel); MoE has ``expert_swap`` instead: expert 0 of every ``wu``
+    stack reads expert 1's weights (through the kernel)."""
     import dataclasses
 
     from repro_torch.kernels import ops
@@ -687,30 +825,39 @@ def _routes(torch, packed, mla=False):
     is_packed = lambda x: isinstance(x, PackedLinear)
     to_cpu = lambda t: t.apply(lambda x: x.cpu()) if is_packed(t) else t.cpu()
     drop = lambda t: dataclasses.replace(t, lorc_a=None, lorc_b=None) if is_packed(t) else t
-    if mla:
-        no_lorc = {**packed, "segments": [
-            {**seg, "mixer": {**seg["mixer"], "attn": {**seg["mixer"]["attn"],
-                                                       "wk_b": drop(seg["mixer"]["attn"]["wk_b"])}}}
+
+    def swap(t):  # (L, E, ...) fields: expert 0 gets expert 1's slice
+        t = t.clone()
+        t[:, 0] = t[:, 1]
+        return t
+
+    def in_segments(part, name, fn):
+        return {**packed, "segments": [
+            {**seg, part: {**seg[part], **{k: {**v, name: fn(v[name])} for k, v in seg[part].items()
+                                             if isinstance(v, dict) and name in v}}}
             for seg in packed["segments"]]}
-    else:
-        no_lorc = tree_map(drop, packed, is_leaf=is_packed)
-    plain = {"_route": lambda t: "cpu"}  # ops' route for CPU tensors: the plain versions
-    if mla:
+
+    routes = {"card": (packed, DEV, {}),
+              "card_plain": (packed, DEV, {"_route": lambda t: "cpu"}),  # the plain versions
+              "cpu": (tree_map(to_cpu, packed, is_leaf=is_packed), "cpu", {})}
+    if family == "moe":  # its faults run through the kernels themselves
+        routes["no_lorc"] = (in_segments("ffn", "wd", drop), DEV, {})
+        routes["expert_swap"] = (in_segments("ffn", "wu", lambda t: t.apply(swap)), DEV, {})
+        return routes
+    if family == "mla":
         attn = ops.paged_mla_decode_attn
         short = {"paged_mla_decode_attn": lambda ql, qr, layer, pt, lens, scale:
                  attn(ql, qr, layer, pt, lens - 1, scale)}
-    else:
-        attn = ops.paged_decode_attn
-        short = {"paged_decode_attn": lambda q, layer, pt, lens, window=0:
-                 attn(q, layer, pt, lens - 1, window=window)}
-    fault = {} if mla else plain  # MLA's faults run through the kernels themselves
-    return {
-        "card": (packed, DEV, {}),
-        "card_plain": (packed, DEV, plain),
-        "cpu": (tree_map(to_cpu, packed, is_leaf=is_packed), "cpu", {}),
-        "no_lorc": (no_lorc, DEV, fault),
-        "short_kv": (packed, DEV, {**fault, **short}),
-    }
+        routes["no_lorc"] = (in_segments("mixer", "wk_b", drop), DEV, {})
+        routes["short_kv"] = (packed, DEV, short)
+        return routes
+    attn = ops.paged_decode_attn
+    short = {"paged_decode_attn": lambda q, layer, pt, lens, window=0:
+             attn(q, layer, pt, lens - 1, window=window)}
+    plain = routes["card_plain"][2]
+    routes["no_lorc"] = (tree_map(drop, packed, is_leaf=is_packed), DEV, plain)
+    routes["short_kv"] = (packed, DEV, {**plain, **short})
+    return routes
 
 
 def _pools(cfg, n_pages, page, device):
@@ -726,8 +873,10 @@ def _pools(cfg, n_pages, page, device):
                               "fp8_e4m3", device=device) for seg in segments_for(cfg)]
 
 
-def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
-    """Two requests (one prefill chunk, then 4 decode steps) along every
+def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_dec=4,
+             seed=SEED):
+    """Two requests (one prefill chunk, then ``n_dec`` decode steps; prompts
+    from ``seed``) along every
     route, each with a pool of its own, all fed the card's greedy tokens.
     With ``forced``, every site of every route takes the card's input to
     that site, so a difference cannot compound. ``site`` "block" forces and
@@ -738,7 +887,10 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
     ``paged_mla_decode_attn`` (``attn``) -- each fed the card's operands
     (its activation; for the attention also the card's pool, table and
     lengths), the route's own weights (the reading: the output's error over
-    the reference output). Frobenius norms. Returns the readings {route:
+    the reference output); "moe_ops" the MoE path's (``moe_hooks``: the
+    MoE layers, read as ``moe``, and their expert GEMMs, read as ``wu``,
+    ``wg`` and ``wd``, fed the card's operands; the router's choices
+    compared, ``routing``). Frobenius norms. Returns the readings {route:
     {"logits": share of the largest |logit|, site key: largest share}} and
     (agreeing greedy tokens, decisive ones, tokens)."""
     import numpy as np
@@ -748,8 +900,8 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import kv_cache as kvc
 
-    page, n_dec, pp = 64, 4, 4
-    rng = np.random.default_rng(SEED + 1)
+    page, pp = 64, 4
+    rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in (100, 37)]
     pools = {name: _pools(cfg, 2 * pp, page, d) for name, (_, d, _) in routes.items()}
     table = np.arange(2 * pp, dtype=np.int32).reshape(2, pp)
@@ -763,6 +915,8 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
             return own if not forced or lead is None else \
                 tuple(_to_device(a, d) for a in lead[i][1])
 
+        if site == "moe_ops":
+            return moe_hooks(fed, trace)
         if site != "ops":
             hooked = "mla_attention" if site == "mixer" else "block_apply"
             fn = getattr(tf, hooked)
@@ -787,6 +941,52 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
             trace.append(("attn", args, y))
             return y
         return {(ops, "w4a8_matmul_batched"): batched, (ops, "paged_mla_decode_attn"): latent}
+
+    def moe_hooks(fed, trace):
+        """The MoE path's sites: ``moe_layer`` (fed the card's input, so
+        each route's router sees the same hidden states; read as the
+        layer's output), the router's ``top_k`` (recorded: the experts each
+        token picks) and every batched expert GEMM (fed the card's operand,
+        read apart as ``wu``, ``wg`` and ``wd`` in their call order)."""
+        from repro_torch.models import moe
+
+        layer_fn, top_k, gemm = tf.moe_layer, moe.top_k, ops.w4a8_matmul_batched
+        n_gemm = [0]
+
+        def moe_layer(p, x, *args, **kw):
+            (x,) = fed(len(trace), (x,))
+            entry = ["moe", (x,), None]
+            trace.append(entry)
+            y = layer_fn(p, x, *args, **kw)
+            entry[2] = y[0]
+            return y
+
+        def router(probs, k):
+            out = top_k(probs, k)
+            trace.append(["router", (probs,), out])
+            return out
+
+        def batched(x, w, transpose_w=False, quantize_acts=True):
+            (x,) = fed(len(trace), (x,))
+            y = gemm(x, w, transpose_w=transpose_w, quantize_acts=quantize_acts)
+            trace.append([("wu", "wg", "wd")[n_gemm[0] % 3], (x,), y])
+            n_gemm[0] += 1
+            return y
+        return {(tf, "moe_layer"): moe_layer, (moe, "top_k"): router,
+                (ops, "w4a8_matmul_batched"): batched}
+
+    def routing(r, got, want, probs):
+        """Tokens whose set of experts differs from the reference's: their
+        count, and the largest of the reference's gaps between its last
+        picked and first unpicked probability among them."""
+        k = want[1].shape[-1]
+        idx, idx0 = got[1].cpu().sort(-1).values, want[1].cpu().sort(-1).values
+        flip = (idx != idx0).any(-1)
+        top = probs.cpu().sort(-1, descending=True).values
+        gap = (top[..., k - 1] - top[..., k])[flip]
+        r["router_flips"] = r.get("router_flips", 0) + int(flip.sum())
+        r["router_gap"] = max([r.get("router_gap", 0.0)] + gap.tolist())
+        r["router_tokens"] = r.get("router_tokens", 0) + flip.numel()
 
     def run(name, tokens, pt, lengths, chunk_len, lead):
         params, d, patch = routes[name]
@@ -820,6 +1020,9 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL):
             r = reading[name]
             r["logits"] = max(r["logits"], float((o - ref).abs().max()) / scale)
             for (key, _, y), (_, (x0, *_), y0) in zip(sites if forced else (), ref_sites):
+                if key == "router":
+                    routing(r, y, y0, x0)
+                    continue
                 base = f64(y0) - f64(x0) if site == "block" else f64(y0)
                 r[key] = max(r.get(key, 0.0), float((f64(y) - f64(y0)).norm() / base.norm()))
         top2 = out["card"][0].topk(2, dim=-1).values
@@ -909,6 +1112,7 @@ def _counters():
     from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda as gemm
 
     return (("w4a8_fused", gemm, "launches"), ("w4a8_fused_batched", batched, "launches"),
+            ("w4a8_fused_batched_fp8", batched, "quant_launches"),
             ("w4a8_fused_transposed", batched, "transposed_launches"),
             ("paged_decode_attn", attn, "launches"),
             ("paged_decode_attn_frozen", attn, "frozen_launches"),
@@ -1095,10 +1299,11 @@ def phase_prefix(torch, cfg, packed, card):
     return launches, live
 
 
-def _minicpm3(torch, n_layers=None):
-    """MiniCPM3-4B at its published widths (``n_layers`` cuts the depth),
-    random weights from the seed, initialized on the card and packed there
-    by the port's ``pack_params``. Returns (cfg, packed, seconds)."""
+def _random_packed(torch, name, n_layers=None, seed=SEED):
+    """A config of the port at its published widths (``n_layers`` cuts the
+    depth), random weights from ``seed``, initialized on the card and
+    packed there by the port's ``pack_params``. Returns (cfg, packed,
+    seconds)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1106,13 +1311,13 @@ def _minicpm3(torch, n_layers=None):
     from repro_torch.core.ptq import pack_params
     from repro_torch.models import api
 
-    cfg = get_config("minicpm3-4b")
+    cfg = get_config(name)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256, scale_mode="m2",
                          lorc_rank=8)
     t0 = time.perf_counter()
-    packed = pack_params(api.init_params(cfg, seed=SEED), cfg, policy)
+    packed = pack_params(api.init_params(cfg, seed=seed), cfg, policy)
     torch.cuda.synchronize()
     return cfg, packed, time.perf_counter() - t0
 
@@ -1164,7 +1369,7 @@ def phase_mla(torch, card):
     """MiniCPM3-4B (MLA) at full width on the reference Server's default
     path, served by the GEMM (7 linears a layer), the batched and
     transposed GEMM (wv_b, wk_b) and the frozen MLA decode kernel."""
-    cfg, packed, t_pack = _minicpm3(torch)
+    cfg, packed, t_pack = _random_packed(torch, "minicpm3-4b")
     log(f"[7 mla] MiniCPM3-4B ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, kv_lora {cfg.mla.kv_lora_rank}, q_lora "
         f"{cfg.mla.q_lora_rank}): random init + W4A8 pack on the card {t_pack:.1f} s, "
@@ -1216,8 +1421,8 @@ def phase_mla_cpu(torch):
       normal GEMM (``wv_b``) applies M2 after its K loop where the plain
       version rounds each scaled weight to bf16 (at most 2^-9 of it), and
       must read at most MLA_WVB_RTOL."""
-    cfg, packed, _ = _minicpm3(torch, n_layers=2)
-    routes = _routes(torch, packed, mla=True)
+    cfg, packed, _ = _random_packed(torch, "minicpm3-4b", n_layers=2)
+    routes = _routes(torch, packed, "mla")
     free, agree = _compare(torch, cfg, routes, forced=False, logit_rtol=MLA_LOGIT_RTOL)
     forced, _ = _compare(torch, cfg, routes, forced=True, site="mixer",
                          logit_rtol=MLA_LOGIT_RTOL)
@@ -1253,6 +1458,157 @@ def phase_mla_cpu(torch):
     return free, forced, op
 
 
+def _lorc_routes(torch, n=8):
+    """LoRC's rank-8 factors of ``n`` OLMoE expert slices (wu's 1024 x 2048
+    quantization errors), by the port's f64 Gram route and by
+    ``torch.linalg.svd`` with cuSOLVER's default driver and with gesvd:
+    each one's time a slice and its correction's distance from gesvd's.
+    Returns the line to print."""
+    from repro_torch.core.lorc import _truncated_svd_factors
+    from repro_torch.core.quantize import quantize_weight
+    from repro_torch.core.scales import apply_scale_constraint
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    w = (torch.randn((n, 1024, 2048), generator=gen, device=DEV) / math.sqrt(2048)
+         ).to(torch.bfloat16).float()
+    qt0 = quantize_weight(w, "fp4_e2m1", 256)
+    err = w - quantize_weight(w, "fp4_e2m1", 256,
+                              scale=apply_scale_constraint(qt0.scale, "m2")).dequantize()
+
+    def svd(driver):
+        u, s, vt = torch.linalg.svd(err, full_matrices=False, driver=driver)
+        sq = s[..., :8].sqrt()
+        return u[..., :8] * sq[..., None, :], sq[..., :, None] * vt[..., :8, :]
+
+    out = {}
+    for name, fn in (("gesvd", lambda: svd("gesvd")), ("svd default", lambda: svd(None)),
+                     ("f64 gram (the port)", lambda: _truncated_svd_factors(err, 8))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, b = fn()
+        torch.cuda.synchronize()
+        out[name] = ((time.perf_counter() - t0) * 1e3 / n, a @ b)
+    ref = out["gesvd"][1]
+    return ("    LoRC rank 8 on 1024 x 2048 expert errors, ms a slice and |AB - AB(gesvd)| / "
+            "|AB(gesvd)|: " + "; ".join(f"{k} {ms:.1f} ms, {float((ab - ref).norm() / ref.norm()):.3g}"
+                                        for k, (ms, ab) in out.items()))
+
+
+def phase_moe(torch, card):
+    """OLMoE-1B-7B (64 experts top-8) at full width on the reference
+    Server's default path, served by the GEMM (q, k, v, o), the batched
+    W4A8 kernel with FP8 activations (every expert GEMM: wu, wg, wd) and
+    the frozen GQA decode kernel at hd 128. Returns (cfg, packed, launches,
+    live)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, packed, t_pack = _random_packed(torch, "olmoe-1b-7b")
+    m = cfg.moe
+    log(f"[9 moe] OLMoE-1B-7B ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.resolved_head_dim}, {m.n_experts} experts top-{m.top_k} of d_ff {m.d_ff}, vocab "
+        f"{cfg.vocab_size}): random init + W4A8 pack on the card {t_pack:.1f} s, "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak")
+    log(_lorc_routes(torch))
+    srv = _default_server(torch, cfg, packed)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    wall, step_ms, live, results, launches, system, rng = _drive_waves(
+        torch, srv, cfg, lambda srv: _live_pool_check(torch, srv, gen))
+    steps, n_layers = srv.stats["steps"], cfg.n_layers
+    # one program a step: per layer 4 GEMMs (q, k, v, o), 3 batched expert
+    # GEMMs with FP8 activations over the whole fused row (wu, wg, wd; serving
+    # routes per token, so each slab has a row for every token), and one
+    # decode attention launch, always the frozen variant over a pool with a
+    # frozen region; no MLA kernel, no unquantized batched GEMM
+    want = {**dict.fromkeys(launches, 0), "w4a8_fused": 4 * n_layers * steps,
+            "w4a8_fused_batched_fp8": 3 * n_layers * steps,
+            "paged_decode_attn_frozen": n_layers * steps}
+    if launches != want or min(launches[k] for k in want if want[k]) <= 0:
+        fail(f"kernel launches {launches}, want {want} ({steps} steps)")
+    log(f"    mixed engine, prefix cache, fp8 pages + fp4_e2m1 frozen pages, {srv.slots} slots, "
+        f"8 requests (512-token system prompt + 16-200 token tails, 32 new tokens) in 2 waves, "
+        f"on {card}:")
+    _report_waves(srv, wall, step_ms, results, launches, want)
+    log(f"    live pool, {n_layers} layers, KV {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}: frozen "
+        f"variant vs plain max|err| {live[0]:.3g} (tolerance {ATTN_TOL}); injected fault "
+        f"k_fz_shift + 1 reads {live[1]:.3g} (>= {10 * ATTN_TOL} required)")
+    _profile_hits(torch, srv, cfg, system, rng)
+    return cfg, packed, launches, live
+
+
+def phase_moe_cpu(torch, cfg, packed):
+    """OLMoE at full width cut to 2 layers along five routes against the CPU
+    plain path (see phase_cpu): the kernels, the plain versions on the
+    card, the CPU, and two faults through the kernels -- ``no_lorc`` drops
+    wd's LoRC correction, ``expert_swap`` makes expert 0 of wu read expert
+    1's weights. Two seeds: phase 9's weights (its first 2 layers) with
+    prompts from SEED, and 2 layers packed anew from SEED + 1 with prompts
+    from it. Each is read teacher-forced at each MoE layer and each expert
+    GEMM call, fed the card's operands: every wu, wg and wd call of the
+    sound routes within MOE_OP_RTOL of the CPU's output, ``no_lorc`` above
+    it on wd and ``expert_swap`` on wu (the MoE layer's reading shows what
+    its last call and the combine add; the forcing hides wu's fault
+    there); the router, fed the card's hidden states, picks the CPU's
+    experts for every token but where the CPU's gap between its 8th and
+    9th probability is below MOE_TIE. The first seed is also read
+    free-running, a gross check of the whole path: the sound routes within
+    MOE_LOGIT_RTOL, which no fault has to exceed."""
+    import dataclasses
+
+    from repro_torch.models.layers import PackedLinear
+    from repro_torch.models.params import tree_map
+
+    n = 2
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    cut = lambda t: t.apply(lambda a: a[:n]) if isinstance(t, PackedLinear) else t[:n]
+    packed = {**packed, "segments": [tree_map(cut, seg, is_leaf=lambda x: isinstance(x, PackedLinear))
+                                     for seg in packed["segments"]]}
+    # 2 decode steps, not 4: the CPU's plain expert GEMMs (a dequantized f32
+    # copy of 64 experts a call) take most of this phase
+    kw = dict(logit_rtol=MOE_LOGIT_RTOL, n_dec=2)
+    routes = _routes(torch, packed, "moe")
+    show = lambda rd, key, f=".4g": ", ".join(f"{n} {rd[n][key]:{f}}" for n in routes if n != "cpu")
+    free, agree = _compare(torch, cfg, routes, forced=False, **kw)
+    log(f"[10 moe cpu] OLMoE at full width, 2 layers: 2 requests (1 prefill chunk + 2 decode "
+        f"steps) against the CPU plain path, on two seeds")
+    log(f"    free-running (seed {SEED}), largest |logit err| / largest |logit| (gross bound "
+        f"{MOE_LOGIT_RTOL}): {show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, "
+        f"all {agree[1]} decisive ones")
+    for name in ("card", "card_plain"):
+        if free[name]["logits"] > MOE_LOGIT_RTOL:
+            fail(f"free-running logits of route {name} differ from the CPU plain path by "
+                 f"{free[name]['logits']:.4g} of the largest |logit| > {MOE_LOGIT_RTOL}")
+    ops = {}
+    for seed in (SEED, SEED + 1):
+        if seed != SEED:
+            _, packed, _ = _random_packed(torch, "olmoe-1b-7b", n_layers=n, seed=seed)
+            routes = _routes(torch, packed, "moe")
+        op, _ = _compare(torch, cfg, routes, forced=True, site="moe_ops", seed=seed, **kw)
+        ops[seed] = op
+        for key in ("wu", "wg", "wd"):
+            log(f"    seed {seed}: teacher-forced expert GEMM calls (row 1d), {key}, largest |output "
+                f"err| / |output| (bound {MOE_OP_RTOL}): {show(op, key)}")
+        log(f"    seed {seed}: teacher-forced MoE layers, largest |output err| / |output|: "
+            f"{show(op, 'moe')}")
+        log(f"    seed {seed}: router, fed the card's hidden states: tokens whose experts differ "
+            f"from the CPU's {show(op, 'router_flips', 'd')} of {op['card']['router_tokens']} per "
+            f"route; largest CPU probability gap among them {show(op, 'router_gap', '.3g')} (tie "
+            f"below {MOE_TIE})")
+        for name in ("card", "card_plain"):
+            for key in ("wu", "wg", "wd"):
+                if op[name][key] > MOE_OP_RTOL:
+                    fail(f"seed {seed}: the {key} calls of route {name} differ from the CPU plain "
+                         f"path by {op[name][key]:.4g} of their output > {MOE_OP_RTOL}")
+            if op[name]["router_gap"] >= MOE_TIE:
+                fail(f"seed {seed}: route {name} picks other experts than the CPU where the CPU's "
+                     f"probability gap is {op[name]['router_gap']:.3g} >= {MOE_TIE}")
+        for name, key in (("no_lorc", "wd"), ("expert_swap", "wu")):
+            if op[name][key] <= MOE_OP_RTOL:
+                fail(f"seed {seed}: injected fault {name} reads {op[name][key]:.4g} <= "
+                     f"{MOE_OP_RTOL} on {key}: the comparison cannot tell it from a sound card path")
+    return free, ops
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -1268,7 +1624,7 @@ def main():
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
-    gemm, attn, frozen, batched, mla = phase_kernels(torch)
+    gemm, attn, frozen, batched, mla, moe, olmoe_attn = phase_kernels(torch)
     cfg, packed, t_pack = _opt_125m()
     log(f"    opt-125m init + W4A8 pack on the card: {t_pack:.1f} s")
     launches = phase_serve(torch, cfg, packed)
@@ -1277,6 +1633,9 @@ def main():
     del packed
     launches_7, live_7 = phase_mla(torch, card)
     phase_mla_cpu(torch)
+    olmoe, packed_9, launches_9, live_9 = phase_moe(torch, card)
+    phase_moe_cpu(torch, olmoe, packed_9)
+    del packed_9
 
     def step_sum(rows, n_layers, key):
         """One decode step's sum of a kernel's per-launch rows."""
@@ -1295,17 +1654,23 @@ def main():
 
     for r in gemm.values():
         r["kind"] = "bf16"
-    for r in (*attn.values(), frozen, *mla.values()):
+    for r in (*attn.values(), frozen, *mla.values(), *olmoe_attn.values()):
         r["kind"] = "f32"
-    for r in batched.values():
+    for r in (*batched.values(), *moe.values()):
         r["kind"] = "bf16"
     # one decode step at 4 slots. opt-125m: per layer q, k, v, o (768->768),
     # up (768->3072) and down (3072->768) at M=4, and one attention launch.
     # MiniCPM3: per layer the 7 GEMMs of MINICPM3_GEMMS at M=4, wv_b and wk_b
-    # once each, and one latent decode launch (the frozen variant, as served)
+    # once each, and one latent decode launch (the frozen variant, as served).
+    # OLMoE: per layer q, k, v, o (2048->2048) at M=4, wu, wg and wd over
+    # the 64 expert slabs of 4 rows (each token's row nonzero in 8), and one
+    # attention launch at KV=16, hd 128
     opt_layer = [gemm[s] for s in [(4, 768, 768)] * 4 + [(4, 768, 3072), (4, 3072, 768)]]
     cpm_layer = [gemm[(4, k, n)] for k, n in MINICPM3_GEMMS]
+    olmoe_layer = [gemm[(4, 2048, 2048)]] * 4
+    moe_layer = [moe[("wu", "routed")]] * 2 + [moe[("wd", "routed")]]
     a = attn["fp8_e4m3"]
+    per_olmoe_attn = lambda r, what: {**entry([r], 16), "per": what}
     kernels = [
         {**entry(opt_layer, 12, name="w4a8_fused", route="cuda",
                  source="src/repro_torch/csrc/w4a8_fused.cu",
@@ -1316,14 +1681,20 @@ def main():
          "minicpm3": {**{k: v for k, v in entry(cpm_layer, 62).items()},
                       "launches": launches_7["w4a8_fused"],
                       "per": "one MiniCPM3-4B decode step: 434 launches at M=4; launches "
-                             "from phase 7"}},
+                             "from phase 7"},
+         "olmoe": {**entry(olmoe_layer, 16), "launches": launches_9["w4a8_fused"],
+                   "per": "one OLMoE-1B-7B decode step: 64 launches at M=4, 2048->2048; "
+                          "launches from phase 9"}},
         {"name": "paged_decode_attn", "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131",
          "launches": launches["paged_decode_attn"],
          "max_abs_err": max(r["max_abs_err"] for r in attn.values()),
          "ms": 12 * a["ms"], "plain_ms": 12 * a["plain_ms"], "bound_ms": 12 * a["bound_ms"],
          "bound_by": a["bound_by"], "library_ms": 12 * a["library_ms"],
-         "per": "12 launches (one per layer), fp8 pages, B=4, contexts 2048/1337/300/1"},
+         "per": "12 launches (one per layer), fp8 pages, B=4, contexts 2048/1337/300/1",
+         "olmoe": per_olmoe_attn(olmoe_attn["fp8_e4m3"],
+                                 "16 launches (one per layer), fp8 pages, KV=H=16, hd 128, B=4, "
+                                 "contexts 2048/1337/300/1; phase 9 serves the frozen variant")},
         {"name": "paged_decode_attn_frozen", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131 (frozen)",
@@ -1333,7 +1704,11 @@ def main():
          "bound_ms": 12 * frozen["bound_ms"], "bound_by": frozen["bound_by"],
          "library_ms": 12 * frozen["library_ms"],
          "per": "12 launches (one per layer), fp8 pages with half of each row's full pages "
-                "in the fp4 frozen region, B=4, contexts 2048/1337/300/1; launches from phase 6"},
+                "in the fp4 frozen region, B=4, contexts 2048/1337/300/1; launches from phase 6",
+         "olmoe": {**per_olmoe_attn(olmoe_attn["frozen"],
+                                    "16 launches (one per layer), KV=H=16, hd 128, otherwise as "
+                                    "above; launches from phase 9"),
+                   "launches": launches_9["paged_decode_attn_frozen"]}},
         entry([batched[False]], 62, name="w4a8_fused_batched", route="cuda",
               source="src/repro_torch/csrc/w4a8_fused.cu",
               replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt=None)",
@@ -1346,6 +1721,15 @@ def main():
               launches=launches_7["w4a8_fused_transposed"],
               per="one MiniCPM3-4B decode step: 62 launches of wk_b (E=40, M=4, 64->256); "
                   "launches from phase 7"),
+        {**entry(moe_layer, 16, name="w4a8_fused_batched_fp8", route="cuda",
+                 source="src/repro_torch/csrc/w4a8_fused.cu",
+                 replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt='fp8_e4m3')",
+                 launches=launches_9["w4a8_fused_batched_fp8"],
+                 per="one OLMoE-1B-7B decode step: 48 launches (wu, wg 2048->1024, wd "
+                     "1024->2048) over E=64 slabs of M=4 rows, each token's row nonzero in 8 "
+                     "slabs; launches from phase 9"),
+         "max_abs_err": max(r["max_abs_err"] for r in moe.values()),
+         "per_launch_ms": {f"{w} {m}": r["ms"] for (w, m), r in moe.items()}},
         {**entry([mla[("fp8_e4m3", True)]], 62, name="paged_mla_decode_attn", route="cuda",
                  source="src/repro_torch/csrc/mla_decode_attn.cu",
                  replaces="src/repro/kernels/decode_attn.py:287",

@@ -6,9 +6,10 @@ import importlib
 
 __all__ = ["ARCHS", "get_config", "get_smoke"]
 
-ARCHS = ["minicpm3_4b", "opt_125m"]
+ARCHS = ["minicpm3_4b", "olmoe_1b_7b", "opt_125m"]
 
-_ALIASES = {"minicpm3-4b": "minicpm3_4b", "opt-125m": "opt_125m"}
+_ALIASES = {"minicpm3-4b": "minicpm3_4b", "olmoe-1b-7b": "olmoe_1b_7b",
+            "opt-125m": "opt_125m"}
 
 
 def _module(name: str):

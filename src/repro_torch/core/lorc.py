@@ -1,8 +1,19 @@
 """LoRC — low-rank compensation of the quantization error (port of
 ``repro.core.lorc``): E = W - W_q ~= (U_r sqrt(s_r)) (sqrt(s_r) V_r^T) = A B,
-applied at inference as the side path y = W_q x + A (B x). The SVD's signs
-are implementation-defined, so A and B may differ from the reference's in
-sign; the correction A·B is what the tests compare."""
+applied at inference as the side path y = W_q x + A (B x). The factors'
+signs are implementation-defined, so A and B may differ from the
+reference's in sign; the correction A·B is what the tests compare.
+
+The reference takes a full SVD. Only the top ``rank`` singular triplets
+are needed, so the port takes them from the eigendecomposition of the
+smaller Gram matrix (E E^T or E^T E) in f64, whose top eigenvectors give
+the truncated SVD to far below f32's resolution. On an NVIDIA H100 80GB
+HBM3 at 700 W this is both faster and closer to the exact correction than
+``torch.linalg.svd``, whose default CUDA driver (Jacobi, gesvdj) took
+57 ms per 1024 x 2048 slice for a rank-8 correction 0.28 % from gesvd's
+(154-172 ms a slice); the Gram route took 11.3-11.5 ms, 0.014 % from
+gesvd's (``chip_smoke.py`` phase 9 prints the three).
+"""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -19,18 +30,34 @@ class LorcFactors(NamedTuple):
     b: torch.Tensor  # (r, in)
 
 
+def _truncated_svd_factors(err: torch.Tensor, rank: int):
+    """(U_r sqrt(s_r), sqrt(s_r) V_r^T) of ``err`` (..., out, in), from the
+    top eigenpairs of its smaller f64 Gram matrix; a component whose
+    singular value is 0 gets zero factors."""
+    e = err.to(torch.float64)
+    wide = e.shape[-2] <= e.shape[-1]
+    lam, vec = torch.linalg.eigh(e @ e.mT if wide else e.mT @ e)  # ascending
+    r = min(rank, lam.shape[-1])
+    vec = vec[..., -r:].flip(-1)  # the top r, largest first, as the SVD orders them
+    s = lam[..., -r:].flip(-1).clamp(min=0).sqrt()
+    sq = s.sqrt()
+    inv = torch.where(s > 0, 1 / sq, torch.zeros((), dtype=sq.dtype, device=sq.device))
+    if wide:  # vec = U_r: B = S^-1/2 U_r^T E = S^1/2 V_r^T
+        a, b = vec * sq[..., None, :], inv[..., :, None] * (vec.mT @ e)
+    else:  # vec = V_r: A = E V_r S^-1/2 = U_r S^1/2
+        a, b = (e @ vec) * inv[..., None, :], sq[..., :, None] * vec.mT
+    return a.to(torch.float32), b.to(torch.float32)
+
+
 def lorc_compensate(w: torch.Tensor, w_q: torch.Tensor, rank: int,
                     quantize_factors: Optional[str] = None,
                     factor_group: int = 0) -> LorcFactors:
-    """Rank-``rank`` SVD compensation of W - W_q."""
-    err = (w - w_q).to(torch.float32)
-    u, s, vt = torch.linalg.svd(err, full_matrices=False)
-    r = min(rank, s.shape[0])
-    sq = torch.sqrt(s[:r])
-    a = u[:, :r] * sq[None, :]
-    b = sq[:, None] * vt[:r, :]
+    """Rank-``rank`` compensation of W - W_q, for one (out, in) weight or a
+    stack (..., out, in) of them (one batched eigendecomposition, each
+    slice as on its own)."""
+    a, b = _truncated_svd_factors((w - w_q).to(torch.float32), rank)
     if quantize_factors:
-        a = fake_quantize_weight(a, quantize_factors, group_size=factor_group or a.shape[1])
-        b = fake_quantize_weight(b, quantize_factors, group_size=factor_group or b.shape[1])
-    # the SVD's factors come back column-major: the kernels take row-major
+        a = fake_quantize_weight(a, quantize_factors, group_size=factor_group or a.shape[-1])
+        b = fake_quantize_weight(b, quantize_factors, group_size=factor_group or b.shape[-1])
+    # the kernels take row-major factors
     return LorcFactors(a=a.contiguous(), b=b.contiguous())

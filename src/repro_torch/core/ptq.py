@@ -52,8 +52,9 @@ def effective_group(in_features: int, group: int) -> int:
 
 
 def pack_linear(w: torch.Tensor, policy: QuantPolicy) -> Optional[PackedLinear]:
-    """RTN-quantize and nibble-pack one (out, in) FP4 weight (non-FP4
-    policies return None: they stay dense, fake-quantized)."""
+    """RTN-quantize and nibble-pack one (out, in) FP4 weight, or a stack
+    (..., out, in) of them, each slice as on its own (non-FP4 policies
+    return None: they stay dense, fake-quantized)."""
     w32 = w.to(torch.float32)
     gs = effective_group(w.shape[-1], policy.group_size)
     qt0 = quantize_weight(w32, policy.w_fmt, gs)
@@ -77,17 +78,23 @@ def pack_linear(w: torch.Tensor, policy: QuantPolicy) -> Optional[PackedLinear]:
         w_fmt=policy.w_fmt, a_fmt=policy.a_fmt, group_size=qt.group_size)
 
 
-def _pack_batched(w: torch.Tensor, policy: QuantPolicy) -> PackedLinear:
-    """Pack a (..., out, in) stacked weight slice by slice and restack."""
+def _pack_batched(w: torch.Tensor, policy: QuantPolicy, chunk: Optional[int] = None
+                  ) -> PackedLinear:
+    """Pack a (..., out, in) stacked weight: every slice as ``pack_linear``
+    packs it on its own, ``chunk`` slices per batched call (by default as
+    many as hold 2^26 weights, whose f32 and f64 working copies take a few
+    GB: 32 of OLMoE's 1024 x 2048 experts, 4 of MiniCPM3's 6400 x 2560
+    MLP slices), and restack."""
     lead = w.shape[:-2]
     flat = w.reshape((-1,) + tuple(w.shape[-2:]))
-    packed = [pack_linear(flat[i], policy) for i in range(flat.shape[0])]
+    chunk = chunk or max(1, (1 << 26) // (flat.shape[-2] * flat.shape[-1]))
+    packed = [pack_linear(flat[i:i + chunk], policy) for i in range(0, flat.shape[0], chunk)]
 
     def stack(field):
         vals = [getattr(p, field) for p in packed]
         if vals[0] is None:
             return None
-        return torch.stack(vals).reshape(tuple(lead) + tuple(vals[0].shape))
+        return torch.cat(vals).reshape(tuple(lead) + tuple(vals[0].shape[1:]))
 
     return PackedLinear(**{f: stack(f) for f in PackedLinear._FIELDS},
                         w_fmt=packed[0].w_fmt, a_fmt=packed[0].a_fmt,

@@ -63,41 +63,42 @@ def compute_scales(w_groups: torch.Tensor, fmt, symmetric: bool = True):
 
 def quantize_weight(w: torch.Tensor, fmt_name: str, group_size: int = 256,
                     scale: Optional[torch.Tensor] = None) -> QuantizedTensor:
-    """FGQ quantization of a ``(out, in)`` weight; ``scale`` (out, n_groups)
-    injects pre-constrained (M1/M2) scales."""
+    """FGQ quantization of a ``(out, in)`` weight, or of a stack ``(...,
+    out, in)`` of them, each slice as on its own; ``scale`` (..., out,
+    n_groups) injects pre-constrained (M1/M2) scales."""
     fmt = get_format(fmt_name)
-    out_f, in_f = w.shape
+    *lead, out_f, in_f = w.shape
     if group_size <= 0 or group_size > in_f:
         group_size = in_f
     assert in_f % group_size == 0, (in_f, group_size)
     n_groups = in_f // group_size
-    wg = w.reshape(out_f, n_groups, group_size).to(torch.float32)
+    wg = w.reshape(*lead, out_f, n_groups, group_size).to(torch.float32)
     symmetric = not (isinstance(fmt, IntFormat) and not fmt.symmetric)
     if scale is None:
         s, z = compute_scales(wg, fmt, symmetric=symmetric)
     else:
-        s = torch.clamp(scale.reshape(out_f, n_groups, 1).to(torch.float32), min=_EPS)
+        s = torch.clamp(scale.reshape(*lead, out_f, n_groups, 1).to(torch.float32), min=_EPS)
         z = None if symmetric else compute_scales(wg, fmt, symmetric=False)[1]
     if symmetric:
         q = _round_to_fmt(wg / s, fmt)
     else:
         q = torch.clamp(torch.round(wg / s) + z, fmt.qmin, fmt.qmax)
     return QuantizedTensor(
-        values=q.reshape(out_f, in_f),
-        scale=s.reshape(out_f, n_groups),
-        zero_point=None if z is None else z.reshape(out_f, n_groups),
+        values=q.reshape(*lead, out_f, in_f),
+        scale=s.reshape(*lead, out_f, n_groups),
+        zero_point=None if z is None else z.reshape(*lead, out_f, n_groups),
         group_size=group_size,
         fmt_name=fmt_name,
     )
 
 
 def dequantize_weight(qt: QuantizedTensor) -> torch.Tensor:
-    out_f, in_f = qt.values.shape
+    *lead, out_f, in_f = qt.values.shape
     n_groups = in_f // qt.group_size
-    q = qt.values.reshape(out_f, n_groups, qt.group_size)
+    q = qt.values.reshape(*lead, out_f, n_groups, qt.group_size)
     if qt.zero_point is not None:
-        q = q - qt.zero_point.reshape(out_f, n_groups, 1)
-    return (q * qt.scale.reshape(out_f, n_groups, 1)).reshape(out_f, in_f)
+        q = q - qt.zero_point.reshape(*lead, out_f, n_groups, 1)
+    return (q * qt.scale.reshape(*lead, out_f, n_groups, 1)).reshape(*lead, out_f, in_f)
 
 
 def fake_quantize_weight(w, fmt_name: str, group_size: int = 256, scale=None):

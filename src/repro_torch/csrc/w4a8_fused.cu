@@ -2,15 +2,24 @@
 // plus its batched and transposed orientations.
 //
 // Replaces the TPU kernel repro/kernels/w4a8_fused.py:169
-// (w4a8_fused_batched_pallas): its 2-D normal orientation, reached through
-// w4a8_fused_matmul_pallas at :272, and its batched orientations over E
-// stacked weights with a_fmt=None, normal and transposed (the MLA absorbed
-// wv_b and wk_b projections, repro/models/mla.py:190-202, :266-270).
+// (w4a8_fused_batched_pallas) in every orientation the served models run:
+//   * the 2-D normal orientation, reached through w4a8_fused_matmul_pallas
+//     at :272 (every dense linear), FP8 activations, bf16 out;
+//   * the batched normal orientation over E stacked weights, f32 out, with
+//     a_fmt=None (MLA's absorbed wv_b, repro/models/mla.py:266-270) or with
+//     the FP8 activation quantization of :87-94 (the MoE expert stacks,
+//     repro/models/moe.py:105,107,111: wu, wg and wd of E experts, each
+//     slab of M rows one row per token of the program, zero where the token
+//     did not pick the expert);
+//   * the batched transposed orientation with a_fmt=None (MLA's absorbed
+//     wk_b, repro/models/mla.py:190-202).
 // Computes what that kernel computes:
 //   * QUANT_ACTS: token-wise activation quantization of the full K row:
 //     per-row scale = max(absmax * (1 / fmt_max), 1e-12), value =
 //     bf16(RNE-grid(x / s) * s); without it x is taken as bf16 as it is
-//     (w4a8_fused.py:93-94);
+//     (w4a8_fused.py:93-94). A row of zeros (an expert slab's row for a
+//     token that did not pick the expert) has absmax 0, scale 1e-12 and
+//     quantizes to zeros: nothing is masked by a multiply;
 //   * packed FP4 E2M1 weights (two nibbles per byte, low nibble = even
 //     column), decoded by the closed form. Normal orientation
 //     (y[e] = x[e] W[e]^T, contracting W's in columns): with M2 the
@@ -30,7 +39,13 @@
 // 64..256) the tensor-core work is still far below the card's 989 TFLOP/s,
 // so the kernel is bound by bytes and by its own latency. The MLA head
 // projections are tiny (40 heads of 64 x 256 codes: 0.33 MB), so their
-// launches are latency bound.
+// launches are latency bound. An MoE expert launch at OLMoE-1B-7B (E = 64,
+// 2048 -> 1024 or 1024 -> 2048) reads 67 MB of codes and 3.1 MB of LoRC
+// factors: about 22 us at 3.35 TB/s at decode (M = 4, each token's row zero
+// in 56 of the 64 slabs); at M = 260 (a mixed step) its 70 GFLOP take about
+// 71 us at the bf16 peak, so bytes bound it at decode and operations at
+// prefill. Zero rows are computed like any other (skipping them is later
+// performance work).
 // What the design does about it: weights stay packed in device memory (4
 // bits per value) and are decoded into shared memory right before use, so
 // no dequantized copy ever exists in device memory; activations are read
@@ -46,8 +61,9 @@
 // Simple first: no TMA, no wgmma, no pipelining — those come with the
 // performance work. Only what the serving path runs is compiled: bf16
 // activations, E2M1 weights; the 2-D GEMM quantizes its activations onto
-// FP8 E4M3 and writes bf16, the batched ones take bf16 activations and
-// write f32 (the Python wrappers refuse the rest).
+// FP8 E4M3 and writes bf16; the batched normal one quantizes them or takes
+// them as they are and writes f32; the transposed one takes them as they
+// are and writes f32 (the Python wrappers refuse the rest).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -337,8 +353,10 @@ extern "C" int w4a8_fused_launch(const void* x, const void* codes, const void* s
   return launch<true, false>(a, 1, (cudaStream_t)stream);
 }
 
-// The batched orientations over E slices, bf16 activations taken as they
-// are (no quantization), f32 out. W: codes (E, N, In/2) uint8 E2M1,
+// The batched orientations over E slices, f32 out. quant_acts = 1 (normal
+// orientation only): each x row is quantized onto the activation grid
+// (a_*) over its full In, as w4a8_fused_launch does; quant_acts = 0: the
+// bf16 activations are taken as they are. W: codes (E, N, In/2) uint8 E2M1,
 // scale / shifts (E, N, In/gs), smax (E, N) (M2: shifts and smax, else both
 // null), lorc_a (E, N, r) and lorc_b (E, r, In) bf16 when r > 0, with
 // per-slice strides s_la and s_lb (s_lb 0: one factor for every slice).
@@ -349,16 +367,20 @@ extern "C" int w4a8_batched_launch(const void* x, const void* codes, const void*
                                    const void* shifts, const void* smax, const void* lorc_a,
                                    const void* lorc_b, void* out, int E, int M, int N, int In,
                                    int gs, int r, long long s_la, long long s_lb, int transpose,
+                                   int quant_acts, int a_man_bits, int a_min_exp,
+                                   int a_max_exp, float a_max_value, float a_inv_max,
                                    void* stream) {
   if (E <= 0 || M <= 0 || N <= 0) return (int)cudaGetLastError();
-  if (r > MAX_R || In % 2 || gs <= 0 || In % gs) return (int)cudaErrorInvalidValue;
+  if (r > MAX_R || In % 2 || gs <= 0 || In % gs || (quant_acts && transpose))
+    return (int)cudaErrorInvalidValue;
   const int G = In / gs;
   const int K = transpose ? N : In, N_out = transpose ? In : N;
   Args<float> a{(const __nv_bfloat16*)x, (const uint8_t*)codes, (const float*)scale,
                 (const int8_t*)shifts, (const float*)smax, (const __nv_bfloat16*)lorc_a,
                 (const __nv_bfloat16*)lorc_b, (float*)out, M, K, N_out, gs, G, r,
                 (long long)M * K, (long long)N * (In / 2), (long long)N * G, (long long)N,
-                s_la, s_lb, Grid{0, 0, 0, 1.f, 1.f}};
+                s_la, s_lb, Grid{a_man_bits, a_min_exp, a_max_exp, a_max_value, a_inv_max}};
   cudaStream_t s = (cudaStream_t)stream;
-  return transpose ? launch<false, true>(a, E, s) : launch<false, false>(a, E, s);
+  if (transpose) return launch<false, true>(a, E, s);
+  return quant_acts ? launch<true, false>(a, E, s) : launch<false, false>(a, E, s);
 }

@@ -44,7 +44,8 @@ def w4a8_matmul_batched(x: torch.Tensor, w, transpose_w: bool = False,
     transposed: D == out (contracting the weight's out rows, the MLA
     absorbed q path) -> (E, M, in). ``quantize_acts=False`` skips the FP8
     activation quantization. Returns f32. On the card: the batched /
-    transposed variants of the fused W4A8 kernel."""
+    transposed variants of the fused W4A8 kernel (the batched one with
+    in-kernel FP8 activation quantization for the MoE expert stacks)."""
     assert w.codes.dim() == 3, "a 2-D PackedLinear goes through w4a8_matmul"
     a_fmt = w.a_fmt if quantize_acts else None
     if _route(x) == "cpu":

@@ -4,14 +4,16 @@
 (its batched orientations) check their operands, allocate the output and
 launch the kernel on the current stream. They count their launches:
 ``w4a8_fused_matmul_cuda.launches``, and
-``w4a8_fused_batched_cuda.launches`` (normal) /
+``w4a8_fused_batched_cuda.launches`` (normal, activations as they are) /
+``w4a8_fused_batched_cuda.quant_launches`` (normal, FP8 activations) /
 ``w4a8_fused_batched_cuda.transposed_launches``. They take CUDA tensors
 only: the plain versions for the CPU are ``ref.w4a8_matmul_ref`` and
 ``ref.w4a8_batched_matmul_ref`` (``ops`` dispatches). The kernel covers
-what the serving path runs: FP4 E2M1 weights with or without M2 and LoRC,
-bf16 activations quantized to FP8 E4M3 in-kernel by the 2-D GEMM and taken
-as they are by the batched one (the MLA absorbed projections); the
-wrappers refuse any other variant.
+what the serving path runs: FP4 E2M1 weights with or without M2 and LoRC;
+bf16 activations quantized to FP8 E4M3 in-kernel by the 2-D GEMM and by
+the batched normal orientation with ``a_fmt`` set (the MoE expert stacks),
+taken as they are by the batched orientations without it (the MLA absorbed
+projections); the wrappers refuse any other variant.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ def _lib():
 def _batched_lib():
     fn = build.load("w4a8_fused").w4a8_batched_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 6 + [_LL, _LL, _I, _P]
+        fn.argtypes = [_P] * 8 + [_I] * 6 + [_LL, _LL, _I, _I, _I, _I, _I, _F, _F, _P]
         fn.restype = _I
     return fn
 
@@ -115,17 +117,22 @@ w4a8_fused_matmul_cuda.launches = 0
 def w4a8_fused_batched_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=None,
                             lorc_b=None, *, w_fmt: str = "fp4_e2m1", a_fmt: Optional[str] = None,
                             group_size: int = 256, transpose_w: bool = False):
-    """Batched W4A8 over E stacked weights, bf16 activations unquantized.
-    codes: (E, N, In/2) uint8 E2M1 nibbles; scale: (E, N, G) f32; optional
-    M2 split s_max (E, N, 1) f32 + shifts (E, N, G) int8, and LoRC lorc_a
-    (E, N, r) / lorc_b (E, r, In) bf16 (lorc_b may be a stride-0 broadcast
-    over E). Normal: x (E, M, In) -> (E, M, N) = x W^T; ``transpose_w``:
-    x (E, M, N) -> (E, M, In) = x W. Returns f32."""
-    if w_fmt != "fp4_e2m1" or a_fmt is not None:
+    """Batched W4A8 over E stacked weights, bf16 activations, quantized
+    token-wise onto ``a_fmt`` (FP8 E4M3, normal orientation only) in-kernel
+    or taken as they are (``a_fmt=None``). codes: (E, N, In/2) uint8 E2M1
+    nibbles; scale: (E, N, G) f32; optional M2 split s_max (E, N, 1) f32 +
+    shifts (E, N, G) int8, and LoRC lorc_a (E, N, r) / lorc_b (E, r, In)
+    bf16 (lorc_b may be a stride-0 broadcast over E). Normal: x (E, M, In)
+    -> (E, M, N) = x W^T; ``transpose_w``: x (E, M, N) -> (E, M, In) = x W.
+    Returns f32."""
+    if w_fmt != "fp4_e2m1" or a_fmt not in (None, "fp8_e4m3"):
         raise NotImplementedError(
             f"w_fmt={w_fmt!r}, a_fmt={a_fmt!r}: the batched CUDA kernel runs fp4_e2m1 weights "
-            "with unquantized bf16 activations only (FP8 activations, the MoE expert stacks: "
-            "ROADMAP queue 2, row 1d)")
+            "with bf16 activations, quantized to fp8_e4m3 or taken as they are")
+    if a_fmt is not None and transpose_w:
+        raise NotImplementedError(
+            "the transposed orientation takes its activations as they are (a_fmt=None): no "
+            "served path quantizes them there")
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"w4a8_fused_batched_cuda takes CUDA tensors, got {dev}")
@@ -163,18 +170,24 @@ def w4a8_fused_batched_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=Non
                              f"slices of stride r*In or 0, got {lorc_b.dtype} "
                              f"{tuple(lorc_b.shape)} strides {lorc_b.stride()}")
     out = torch.empty((e, m, in_f if transpose_w else n), dtype=torch.float32, device=dev)
+    grid = FORMATS[a_fmt or "fp8_e4m3"]
     rc = _batched_lib()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(shifts),
                         _ptr(s_max), _ptr(lorc_a) if r else None, _ptr(lorc_b) if r else None,
                         out.data_ptr(), e, m, n, in_f, group_size, r, n * r, s_lb,
-                        int(transpose_w), torch.cuda.current_stream(dev).cuda_stream)
+                        int(transpose_w), int(a_fmt is not None), grid.man_bits, grid.min_exp,
+                        grid.max_exp, grid.max_value, 1.0 / grid.max_value,
+                        torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"w4a8_fused batched kernel launch failed: CUDA error {rc}")
     if transpose_w:
         w4a8_fused_batched_cuda.transposed_launches += 1
+    elif a_fmt is not None:
+        w4a8_fused_batched_cuda.quant_launches += 1
     else:
         w4a8_fused_batched_cuda.launches += 1
     return out
 
 
 w4a8_fused_batched_cuda.launches = 0
+w4a8_fused_batched_cuda.quant_launches = 0
 w4a8_fused_batched_cuda.transposed_launches = 0

@@ -16,7 +16,7 @@ from repro_torch.kernels import ops
 from repro_torch.runtime.kv_cache import (PagedState, append_paged,
                                           append_prefill_chunk, gather_history)
 
-from .layers import ParamDef, linear, quant_act
+from .layers import ParamDef, apply_rope, linear, quant_act
 
 __all__ = ["attn_params", "attention"]
 
@@ -76,22 +76,24 @@ def _paged_chunk_attn(q, k, v, pool_layer, state: PagedState, g: int, window: in
     return _sdpa_full(q, _repeat_kv(kc, g), _repeat_kv(vc, g), mask)
 
 
-def attention(p, x: torch.Tensor, cfg, kv_cache, state: PagedState,
+def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache, state: PagedState,
               a_fmt: Optional[str] = None):
     """Returns (out, kv_cache). ``kv_cache`` is one layer's pool slice,
-    written in place. A state with ``prefill`` is a mixed step (x is the
-    fused (1, slots + S) row); one with ``chunk_len`` a prefill chunk (even
-    a 1-token one); otherwise x is one decode token per row."""
+    written in place; ``positions`` (B, S) are the rows' token positions
+    (rope). A state with ``prefill`` is a mixed step (x is the fused (1,
+    slots + S) row); one with ``chunk_len`` a prefill chunk (even a 1-token
+    one); otherwise x is one decode token per row."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = h // kv
     b, s, _ = x.shape
     xq = quant_act(x, a_fmt)
     q = linear(p["wq"], xq, p.get("bq")).reshape(b, s, h, hd)
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
     k = linear(p["wk"], xq).reshape(b, s, kv, hd)
     v = linear(p["wv"], xq, p.get("bv")).reshape(b, s, kv, hd)
     if cfg.pos_embedding == "rope":
-        raise NotImplementedError("GQA models with rope come with a later slice (ROADMAP "
-                                  "queue 1, item 4); MLA models apply rope in models/mla.py")
+        k = apply_rope(k, positions, cfg.rope_theta)
     if state.prefill is not None:
         # the mixed engine's fused batch-1 row: one decode token per slot,
         # then one request's bucketed prefill chunk. The decode lanes append

@@ -1,10 +1,12 @@
-"""Decoder-LM assembly, dense segments with a GQA or MLA mixer (port of
-``repro.models.transformer``).
+"""Decoder-LM assembly (port of ``repro.models.transformer``): segments of
+(mixer x ffn) blocks, the mixer GQA or MLA attention, the ffn a dense MLP or
+an MoE layer (with DeepSeek-style leading dense layers).
 
 Parameters stack per segment with a leading ``(L, ...)`` dim as in the
 reference; a Python loop over the layers takes the place of ``lax.scan``.
-The MoE and recurrent mixers and the vision/audio front-ends come with
-later slices (ROADMAP queue 1, item 12)."""
+The recurrent and enc-dec families, the vision/audio front-ends and
+multi-token prediction come with later slices (ROADMAP queue 1, item
+12)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +19,7 @@ from repro_torch.runtime.kv_cache import PagedState, pool_keys
 from .attention import attention, attn_params
 from .layers import PackedLinear, ParamDef, mlp, mlp_params, norm, norm_params
 from .mla import mla_attention, mla_params
+from .moe import moe_layer, moe_params
 from .params import tree_map
 
 __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_apply",
@@ -25,25 +28,40 @@ __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_app
 
 @dataclasses.dataclass(frozen=True)
 class SegmentSpec:
-    mixer: str  # 'gqa' | 'mla' in this slice
-    ffn: str  # 'mlp' in this slice
+    mixer: str  # 'gqa' | 'mla' in the port so far
+    ffn: str  # 'mlp' | 'moe'
     count: int
-    d_ff: int = 0
+    d_ff: int = 0  # override cfg.d_ff (deepseek dense layers)
 
 
 def segments_for(cfg) -> List[SegmentSpec]:
-    if (cfg.ssm is not None or cfg.moe is not None or cfg.attn_kind not in ("gqa", "mla")
-            or cfg.encoder_layers or cfg.frontend != "none" or cfg.mtp_depth):
+    if (cfg.ssm is not None or cfg.attn_kind not in ("gqa", "mla") or cfg.encoder_layers
+            or cfg.frontend != "none" or cfg.mtp_depth):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA and MLA decoders are ported so far (ROADMAP queue 1, "
-            "item 12)")
+            f"{cfg.name}: only GQA and MLA decoders, with an MLP or MoE ffn, are ported so far "
+            "(ROADMAP queue 1, item 12)")
+    if cfg.moe is not None:
+        segs = []
+        if cfg.moe.n_dense_layers:
+            segs.append(SegmentSpec(cfg.attn_kind, "mlp", cfg.moe.n_dense_layers,
+                                    d_ff=cfg.moe.dense_d_ff or cfg.d_ff))
+        segs.append(SegmentSpec(cfg.attn_kind, "moe", cfg.n_layers - cfg.moe.n_dense_layers))
+        return segs
     return [SegmentSpec(cfg.attn_kind, "mlp", cfg.n_layers)]
+
+
+def _ffn_params(cfg, kind: str, d_ff: int = 0):
+    if kind == "mlp":
+        return {"ln": norm_params(cfg), "mlp": mlp_params(cfg, d_ff=d_ff or cfg.d_ff)}
+    if kind == "moe":
+        return {"ln": norm_params(cfg), "moe": moe_params(cfg)}
+    raise ValueError(kind)
 
 
 def block_params(cfg, seg: SegmentSpec):
     attn = mla_params(cfg) if seg.mixer == "mla" else attn_params(cfg)
     return {"mixer": {"ln": norm_params(cfg), "attn": attn},
-            "ffn": {"ln": norm_params(cfg), "mlp": mlp_params(cfg, d_ff=seg.d_ff or cfg.d_ff)}}
+            "ffn": _ffn_params(cfg, seg.ffn, seg.d_ff)}
 
 
 def _stack_defs(tree, n: int):
@@ -74,17 +92,29 @@ def layer_view(stack, i: int):
 
 def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer, state: PagedState,
                 a_fmt=None):
-    """One pre-norm block: x + mixer(ln(x)), then x + mlp(ln(x)); the mixer
-    is GQA attention or MLA by ``seg.mixer``."""
+    """One pre-norm block: x + mixer(ln(x)), then x + ffn(ln(x)); the mixer
+    is GQA attention or MLA by ``seg.mixer``, the ffn an MLP or an MoE layer
+    by ``seg.ffn``."""
     nk = cfg.norm_kind
     pm, pf = p["mixer"], p["ffn"]
     hn = norm(pm["ln"], x, nk, cfg.norm_eps)
     if seg.mixer == "mla":
         h, _ = mla_attention(pm["attn"], hn, cfg, positions, cache_layer, state, a_fmt=a_fmt)
     else:
-        h, _ = attention(pm["attn"], hn, cfg, cache_layer, state, a_fmt=a_fmt)
+        h, _ = attention(pm["attn"], hn, cfg, positions, cache_layer, state, a_fmt=a_fmt)
     x = x + h
-    return x + mlp(pf["mlp"], norm(pf["ln"], x, nk, cfg.norm_eps), cfg, a_fmt=a_fmt)
+    x_ln = norm(pf["ln"], x, nk, cfg.norm_eps)
+    if seg.ffn == "mlp":
+        return x + mlp(pf["mlp"], x_ln, cfg, a_fmt=a_fmt)
+    # Serving (paged) routes per-token: group_size=1 puts every token in its
+    # own dispatch group, so capacity never drops an assignment and each
+    # token's experts depend only on its own hidden state. Batch
+    # composition -- which rows share the program, decode lanes vs a
+    # piggybacked prefill chunk, chunk bucketing -- can then never change a
+    # token's routing, which is what makes serving outputs independent of
+    # batchmates and the mixed engine bit-identical to the alternating one.
+    h, _ = moe_layer(pf["moe"], x_ln, cfg, a_fmt=a_fmt, group_size=1)
+    return x + h
 
 
 def lm_forward(params, cfg, tokens: torch.Tensor, caches, state: PagedState,

@@ -33,15 +33,15 @@ The pool is written in place, so a write to a shared page would corrupt
 its other owners silently: every write set is checked with
 ``PrefixCache.assert_unfrozen`` where the reference checks it.
 
-The model is a dense decoder with GQA attention over K/V pages or MLA
-over latent pages (``init_mla_pool``: c_kv and the rope key, no head
-axis); the engine is the same for both. Not ported yet, and refused with
+The model is a decoder with GQA attention over K/V pages (learned
+positions or rope) or MLA over latent pages (``init_mla_pool``: c_kv and
+the rope key, no head axis), its ffn an MLP or an MoE layer that routes
+per token; the engine is the same for all. Not ported yet, and refused with
 ``NotImplementedError`` naming the ROADMAP item: preemption, steal and
 spill (queue 1, item 8; the fully backed pool never needs them, and the
 engine raises where the reference would steal), fault quarantine and
-audit (item 8), sampled decoding (item 9), the front-end (item 10), GQA
-with rope (item 4), the other model families (item 12) and meshes (item
-14).
+audit (item 8), sampled decoding (item 9), the front-end (item 10), the
+recurrent and enc-dec families (item 12) and meshes (item 14).
 """
 from __future__ import annotations
 

@@ -42,19 +42,20 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("pos_embedding", "rope", "item 4"), ("temperature", 0.7, "item 9")])
+    ("encoder_layers", 2, "item 12"), ("temperature", 0.7, "item 9")])
 def test_unported_serving_options_raise(field, value, item):
-    """What the port still refuses names its ROADMAP item: rope models
-    (queue 1, item 4) and sampled decoding (item 9)."""
+    """What the port still refuses names its ROADMAP item: the enc-dec
+    family (queue 1, item 12; refused as its params are built) and sampled
+    decoding (item 9)."""
     if field == "temperature":
         with pytest.raises(NotImplementedError, match=item):
             serve.SamplingParams(temperature=value).validate()
         return
     cfg = dataclasses.replace(SMOKE, **{field: value})
-    srv = serve.Server(api.init_params(cfg, seed=0, device="cpu"), cfg,
-                       serve.ServerConfig(slots=1, max_seq=64, page_size=8), device="cpu")
-    srv.submit(serve.Request(rid=0, prompt=[1, 2, 3], max_new=2))
     with pytest.raises(NotImplementedError, match=item):
+        srv = serve.Server(api.init_params(cfg, seed=0, device="cpu"), cfg,
+                           serve.ServerConfig(slots=1, max_seq=64, page_size=8), device="cpu")
+        srv.submit(serve.Request(rid=0, prompt=[1, 2, 3], max_new=2))
         srv.run_until_drained()
 
 
@@ -66,8 +67,10 @@ def _batched_operands(e=4, n=64, k=256, m=3):
 
 @pytest.mark.parametrize("kw,err", [
     ({}, ValueError),                                  # CPU tensors: the plain version's
-    ({"a_fmt": "fp8_e4m3"}, NotImplementedError),      # FP8 activations: the MoE slice, row 1d
+    ({"a_fmt": "fp8_e4m3", "transpose_w": True},       # FP8 activations, transposed: no
+     NotImplementedError),                             # served path runs them
     ({"w_fmt": "fp4_e3m0"}, NotImplementedError),      # E3M0 weights are not built
+    ({"a_fmt": "fp8_e4m3"}, ValueError),               # CPU tensors, FP8 activations (row 1d)
 ])
 def test_batched_w4a8_wrapper_refuses(kw, err):
     from repro_torch.kernels.w4a8_fused import w4a8_fused_batched_cuda
@@ -76,6 +79,7 @@ def test_batched_w4a8_wrapper_refuses(kw, err):
     with pytest.raises(err):
         w4a8_fused_batched_cuda(x, codes, scale, group_size=256, **kw)
     assert w4a8_fused_batched_cuda.launches == w4a8_fused_batched_cuda.transposed_launches == 0
+    assert w4a8_fused_batched_cuda.quant_launches == 0
 
 
 def _mla_operands(fmt):

@@ -282,4 +282,4 @@ def test_smoke_config_copies_reference():
         assert dataclasses.asdict(tget_config(name)) == dataclasses.asdict(get_config(name))
         assert dataclasses.asdict(tget_smoke(name)) == dataclasses.asdict(get_smoke(name))
     with pytest.raises(KeyError):
-        tget_config("olmoe-1b-7b")
+        tget_config("deepseek-v3-671b")

@@ -24,13 +24,17 @@ import torch
 
 import repro.core.quantize as jquant
 import repro.kernels.ref as jref
+import repro.models.attention as jattn
 import repro.models.layers as jlayers
 import repro.models.mla as jmla
+import repro.models.moe as jmoe
 import repro.models.transformer as jtf
 import repro_torch.core.quantize as tquant
 import repro_torch.kernels.ref as tref
+import repro_torch.models.attention as tattn
 import repro_torch.models.layers as tlayers
 import repro_torch.models.mla as tmla
+import repro_torch.models.moe as tmoe
 import repro_torch.models.transformer as ttf
 from repro import models as jmodels
 from repro.runtime import kv_cache as jkvc
@@ -46,6 +50,9 @@ TOL = 1e-5  # logits, against the strictly compiled reference
 # Elements a step's roundings may tip, over all its sites: the steps below
 # tip 0 to 4 (bf16 outputs of the linears and norms, and FP8 activations)
 MAX_TIPPED = 8
+# An MoE layer's f32 sites (its routing and its combine), which the two
+# packages sum in another order: a few f32 ulps
+F32_RTOL = 1e-6
 
 
 class Roundings:
@@ -53,9 +60,15 @@ class Roundings:
     in program order: the token-wise FP8 activation quantizations
     (``quantize_act_tokenwise``: the ``quant_act`` sites and the plain W4A8
     GEMMs), the page quantizations (``quantize_pages``: appends and
-    transcodes) and the bf16 outputs of the linears and of the blocks' and
-    the final norms (a tipped linear output reaches the residual stream,
-    which no quantization rounds again). The
+    transcodes) and the bf16 outputs of the linears (the GQA and MLA
+    attention's and the MLP's; the MoE experts' ``batched_linear``) and of
+    the blocks' and the final norms (a tipped linear output reaches the
+    residual stream, which no quantization rounds again). An MoE layer adds
+    two f32 sites: its routing (``_dispatch_masks``: the dispatch must be
+    identical, i.e. both packages pick the same experts, and the combine
+    weights and probabilities within ``F32_RTOL``; the router's f32 logits
+    sum in another order) and its combine (the f32 sum over the experts,
+    within ``F32_RTOL``, before its bf16 cast). The
     reference reports each result through an ordered debug callback from
     inside its compiled step; the port's same call, in the same order,
     checks its own result against the reference's and returns the
@@ -66,6 +79,8 @@ class Roundings:
     of the test, so no program traced without the callbacks runs here and
     none traced with them outlives it."""
 
+    COMBINE = "gsec,gecd->gsd"  # the MoE combine's einsum
+
     def __init__(self, monkeypatch):
         self.queue = []  # the reference's results not yet consumed
         self.on = False
@@ -73,13 +88,19 @@ class Roundings:
         for mod, name, kind in ((jquant, "quantize_act_tokenwise", "act"),
                                 (jref, "quantize_act_tokenwise", "act"),
                                 (jkvc, "quantize_pages", "pages"), (jtf, "norm", "bf16"),
-                                (jlayers, "linear", "bf16"), (jmla, "linear", "bf16")):
+                                (jlayers, "linear", "bf16"), (jmla, "linear", "bf16"),
+                                (jattn, "linear", "bf16"), (jmoe, "batched_linear", "bf16"),
+                                (jmoe, "_dispatch_masks", "route")):
             monkeypatch.setattr(mod, name, self._reference(getattr(mod, name), kind))
+        monkeypatch.setattr(jmoe, "jnp", _Combine(jnp, self._reference(jnp.einsum, "f32")))
         for mod, name, kind in ((tquant, "quantize_act_tokenwise", "act"),
                                 (tref, "quantize_act_tokenwise", "act"),
                                 (tkvc, "quantize_pages", "pages"), (ttf, "norm", "bf16"),
-                                (tlayers, "linear", "bf16"), (tmla, "linear", "bf16")):
+                                (tlayers, "linear", "bf16"), (tmla, "linear", "bf16"),
+                                (tattn, "linear", "bf16"), (tmoe, "batched_linear", "bf16"),
+                                (tmoe, "_dispatch_masks", "route")):
             monkeypatch.setattr(mod, name, self._port(getattr(mod, name), kind))
+        monkeypatch.setattr(tmoe, "torch", _Combine(torch, self._port(torch.einsum, "f32")))
         jax.clear_caches()
 
     def _reference(self, fn, kind):
@@ -104,6 +125,17 @@ class Roundings:
             assert self.queue, f"the port rounds more often than the reference ({kind})"
             want_kind, want = self.queue.pop(0)
             assert want_kind == kind, (want_kind, kind)
+            if kind == "route":
+                want = tuple(t(w) for w in want)
+                assert torch.equal(out[0], want[0].to(out[0].dtype)), \
+                    "the packages route a token to other experts"
+                for o, w in zip(out[1:], want[1:]):
+                    torch.testing.assert_close(o, w, rtol=F32_RTOL, atol=F32_RTOL)
+                return tuple(w.to(o.dtype) for w, o in zip(want, out))
+            if kind == "f32":
+                want = t(want)
+                torch.testing.assert_close(out, want, rtol=F32_RTOL, atol=F32_RTOL)
+                return want
             if kind == "bf16":
                 want = t(want).to(out.dtype)
                 assert want.shape == out.shape, (tuple(want.shape), tuple(out.shape))
@@ -176,6 +208,21 @@ class Roundings:
             self.on, self.queue = False, []
         assert self.tipped <= MAX_TIPPED, self.tipped
         return out, got
+
+
+class _Combine:
+    """A module (``jnp`` or ``torch``) whose ``einsum`` goes through
+    ``site`` for the MoE combine's equation and is itself otherwise."""
+
+    def __init__(self, mod, site):
+        self._mod, self._site = mod, site
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+    def einsum(self, eq, *operands, **kw):
+        fn = self._site if eq == Roundings.COMBINE else self._mod.einsum
+        return fn(eq, *operands, **kw)
 
 
 @pytest.fixture
