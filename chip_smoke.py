@@ -60,7 +60,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               free-running and teacher-forced at each MoE layer and each
               expert GEMM call, with the router's experts compared and two
               injected faults (wd's LoRC dropped, one expert of wu reading
-              its neighbour's weights).
+              its neighbour's weights);
+11. kernel api -- the kernels no served path reaches, through the kernel
+              API's entry points: the split W4A8 pipeline (ops.act_quant,
+              the bf16 cast, ops.w4a8_matmul_split, LoRC by two bf16
+              matmuls) at opt-125m's and OLMoE's GEMM shapes and causal
+              flash attention at opt-125m's, OLMoE's and MiniCPM3's
+              materialized-MLA prefill shapes, with the launch counts read
+              around that run; then each of the three kernels against its
+              plain version (act_quant bit-identical, the split GEMM within
+              1e-4 of max|y|, flash attention within 3e-2 bf16 / 1e-4 f32
+              and each query row within 2^-7 / 1e-5 of its norm), timed with
+              its bound and one PyTorch call (act_quant also by its device
+              time from CUDA graphs, without launch overhead), its other
+              variants checked,
+              injected faults (the split GEMM without its s_max finalize;
+              the causal mask one key short; one KV tile past key 1024
+              staged twice), and the split
+              pipeline against the fused kernel on the same packed weights,
+              timed at every GEMM shape and the kernel microbench's m256,
+              decode64 and lorc16 (names w4a8_split_<tag> / w4a8_fused_<tag>,
+              with the ratio split / fused; the ratio is reported, not gated).
 
 Phase 3 also checks and times MiniCPM3's kernels (the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
@@ -195,18 +215,25 @@ def phase_build():
                 log(f"    {name}: {line.strip()}")
 
 
+def _packed(torch, k, n, gen, w_fmt="fp4_e2m1", scale_mode="m2", lorc_rank=8, group_size=256):
+    """A random (n, k) weight from ``gen``, scaled by 1/sqrt(k), packed by the
+    port's ``pack_linear`` (RTN, FP8 E4M3 activations)."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.ptq import pack_linear
+
+    policy = QuantPolicy(w_fmt=w_fmt, a_fmt="fp8_e4m3", group_size=group_size,
+                         scale_mode=scale_mode, lorc_rank=lorc_rank)
+    w = (torch.randn((n, k), generator=gen, device=DEV) / math.sqrt(k)).to(torch.bfloat16)
+    return pack_linear(w, policy)
+
+
 def _w4a8_check(torch, m, k, n, gen, scale_mode="m2", lorc_rank=8):
     """A packed (n, k) weight and an (m, k) input; the kernel's output
     held against its plain version. Returns (packed, x, kernel, plain, err)."""
-    from repro_torch.core.policy import QuantPolicy
-    from repro_torch.core.ptq import pack_linear
     from repro_torch.kernels import ref
     from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda
 
-    policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256,
-                         scale_mode=scale_mode, lorc_rank=lorc_rank)
-    w = (torch.randn((n, k), generator=gen, device=DEV) / math.sqrt(k)).to(torch.bfloat16)
-    p = pack_linear(w, policy)
+    p = _packed(torch, k, n, gen, scale_mode=scale_mode, lorc_rank=lorc_rank)
     x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
     args = (x, p.codes, p.scale, p.s_max, p.shifts, p.lorc_a, p.lorc_b)
     kw = dict(w_fmt=p.w_fmt, a_fmt=p.a_fmt, group_size=p.group_size)
@@ -1111,13 +1138,20 @@ def _counters():
     from repro_torch.kernels.w4a8_fused import w4a8_fused_batched_cuda as batched
     from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda as gemm
 
+    from repro_torch.kernels.act_quant import act_quant_cuda
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.kernels.w4a8_matmul import w4a8_matmul_cuda
+
     return (("w4a8_fused", gemm, "launches"), ("w4a8_fused_batched", batched, "launches"),
             ("w4a8_fused_batched_fp8", batched, "quant_launches"),
             ("w4a8_fused_transposed", batched, "transposed_launches"),
             ("paged_decode_attn", attn, "launches"),
             ("paged_decode_attn_frozen", attn, "frozen_launches"),
             ("paged_mla_decode_attn", mla, "launches"),
-            ("paged_mla_decode_attn_frozen", mla, "frozen_launches"))
+            ("paged_mla_decode_attn_frozen", mla, "frozen_launches"),
+            ("act_quant", act_quant_cuda, "launches"),
+            ("w4a8_matmul_split", w4a8_matmul_cuda, "launches"),
+            ("flash_attention", flash_attention_cuda, "launches"))
 
 
 def _counts():
@@ -1609,6 +1643,486 @@ def phase_moe_cpu(torch, cfg, packed):
     return free, ops
 
 
+# -- phase 11: the kernel API ------------------------------------------------------
+# token-wise FP8 activation quantization: (rows, features) as opt-125m (768),
+# OLMoE-1B-7B (2048) and MiniCPM3-4B's d_ff (6400) feed a GEMM, at a decode
+# step's 4 rows and a 256-token prefill chunk
+ACT_QUANT_SHAPES = ((4, 768), (256, 768), (4, 2048), (256, 2048), (256, 6400))
+# the split GEMM at opt-125m's 768->768, 768->3072, 3072->768 and OLMoE's
+# 2048->2048, at M = 4 and 256: (M, K, N)
+SPLIT_GEMMS = tuple((m, k, n) for m in (4, 256)
+                    for k, n in ((768, 768), (768, 3072), (3072, 768), (2048, 2048)))
+# the kernel microbench's shapes (benchmarks/run.py): (tag, M, K, N, LoRC rank)
+MICROBENCH = (("m256", 256, 1024, 1024, 0), ("decode64", 64, 1024, 1024, 0),
+              ("lorc16", 64, 1024, 512, 16))
+# causal bf16 prefill attention, B = 1: (tag, H, hd, dv, S = T); MiniCPM3's
+# MLA materialized (qk 96 = 64 nope + 32 rope, v 64)
+FLASH_SHAPES = (("opt125m_s512", 12, 64, 64, 512), ("opt125m_s2048", 12, 64, 64, 2048),
+                ("olmoe_s2048", 16, 128, 128, 2048), ("minicpm3_mla_s2048", 40, 96, 64, 2048))
+SPLIT_RTOL = 1e-4  # of the largest |y|: the split GEMM and its plain version differ in f32 sum order
+FLASH_TOL = {"bf16": 3e-2, "f32": 1e-4}  # rtol = atol, tests/test_kernels.py:190 and :205
+# each query row, ||o_kernel - o_plain|| / ||o_plain|| over its dv outputs. At
+# S = T = 2048 a late row's outputs are ~0.04 (scores of std 1 over ~i/e
+# effective keys), so FLASH_TOL alone is as large as the values there; a row
+# is held to one bf16 ulp (2^-7) of its own size instead, f32 rows to 1e-5
+FLASH_ROW_RTOL = {"bf16": 2.0 ** -7, "f32": 1e-5}
+
+
+def _split_pipeline(torch, x, p):
+    """The split three-pass W4A8 path through the kernel API, as the kernel
+    microbench runs it (benchmarks/run.py:92-99): act_quant, the quantized
+    activations through device memory as bf16, the split GEMM, then LoRC by
+    two bf16 matmuls. Returns f32."""
+    from repro_torch.kernels import ops
+
+    qv, sc = ops.act_quant(x, p.a_fmt)
+    xq = (qv * sc).to(torch.bfloat16)
+    y = ops.w4a8_matmul_split(xq, p)
+    if p.lorc_a is not None:
+        y = y + torch.matmul(torch.matmul(xq, p.lorc_b.t()), p.lorc_a.t())
+    return y
+
+
+def _device_ms(torch, timer, fn, n=50, rounds=5):
+    """Device time of one call of ``fn`` after an L2 flush, without the
+    host's launch time that an event pair around one short call reads: one
+    CUDA graph replays ``n`` (flush, ``fn``) pairs, another ``n`` flushes
+    alone, the two are timed in turn ``rounds`` times, and the median
+    difference is split over the ``n`` calls. (A torch.profiler trace
+    loses this kernel's records once earlier phases have traced.)"""
+    flush = timer.flush.zero_
+    pairs = _graphed(torch, lambda: [f() for _ in range(n) for f in (flush, fn)])
+    flushes = _graphed(torch, lambda: [flush() for _ in range(n)])
+
+    def replay_ms(graph):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    diffs = [replay_ms(pairs) - replay_ms(flushes) for _ in range(rounds)]
+    return statistics.median(diffs) / n
+
+
+def _bits_equal(torch, a, b):
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _act_quant_check(torch, x, fmt, what):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.act_quant import act_quant_cuda
+
+    (qk, sk), (qp, sp) = act_quant_cuda(x, fmt), ref.act_quant_ref(x, fmt)
+    torch.cuda.synchronize()
+    if not (_bits_equal(torch, qk, qp) and _bits_equal(torch, sk, sp)):
+        fail(f"act_quant {what} {fmt} is not bit-identical to its plain version: max |err| "
+             f"{float((qk - qp).abs().max())} (values), {float((sk - sp).abs().max())} (scales)")
+    return qk, sk
+
+
+def _act_quant_cases(torch, timer, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.act_quant import act_quant_cuda
+
+    rows = {}
+    for m, d in ACT_QUANT_SHAPES:
+        x = (torch.randn((m, d), generator=gen, device=DEV) * 13.0).to(torch.bfloat16)
+        _act_quant_check(torch, x, "fp8_e4m3", f"({m}, {d}) bf16")
+
+        def library(x=x):  # the nearest PyTorch route: OCP E4M3 (448), not this grid (480)
+            s = x.abs().amax(-1, keepdim=True).float() * (1.0 / 448.0)
+            return (x / s).to(torch.float8_e4m3fn), s
+
+        nbytes = m * d * 2 + m * d * 4 + m * 4
+        b_ms, by = bound(nbytes, 0, "f32")
+        kernel = lambda: act_quant_cuda(x, "fp8_e4m3")
+        row = dict(ms=timer.ms(kernel), graph_ms=timer.ms(_graphed(torch, kernel)),
+                   device_ms=_device_ms(torch, timer, kernel),
+                   plain_ms=timer.ms(lambda: ref.act_quant_ref(x, "fp8_e4m3")),
+                   library_ms=timer.ms(library), bound_ms=b_ms, bound_by=by, max_abs_err=0.0,
+                   bytes=nbytes, flops=0, kind="f32")
+        rows[(m, d)] = row
+        log(f"    act_quant ({m:3d}, {d:4d}) bf16 -> fp8_e4m3: kernel {row['ms']:.4f} ms (from a "
+            f"CUDA graph {row['graph_ms']:.4f} ms; device time {row['device_ms']:.5f} ms)  plain "
+            f"{row['plain_ms']:.4f} ms  library(amax + cast to float8_e4m3fn; nearest, not the "
+            f"same function) {row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; "
+            f"{nbytes} B)  bit-identical")
+    # checked, not timed: f32 rows, E5M2, an outlier row, an all-zero row, odd widths
+    x = torch.randn((256, 768), generator=gen, device=DEV) * 13.0
+    _act_quant_check(torch, x, "fp8_e4m3", "(256, 768) f32")
+    _act_quant_check(torch, x[:3, :100].contiguous(), "fp8_e5m2", "(3, 100) f32")
+    _act_quant_check(torch, x.to(torch.bfloat16), "fp8_e5m2", "(256, 768) bf16")
+    out = torch.cat([torch.full((1, 127), 0.01, device=DEV), torch.full((1, 1), 100.0, device=DEV)], 1)
+    zero = torch.zeros((2, 128), device=DEV)
+    qk, _ = _act_quant_check(torch, torch.cat([out, zero]), "fp8_e4m3", "outlier and zero rows")
+    if float(qk[0, -1]) != 480.0 or bool(qk[1:].any()):
+        fail(f"act_quant: the outlier reads {float(qk[0, -1])}, not the grid's top 480, or a "
+             "zero row is not zero")
+    log("    act_quant checked bit-identical, not timed: (256, 768) f32 -> fp8_e4m3; (3, 100) f32 "
+        "and (256, 768) bf16 -> fp8_e5m2; an outlier row (-> 480) and two zero rows (-> 0)")
+    return rows
+
+
+def _split_check(torch, p, x_q, what):
+    """The split GEMM against its plain version; returns (kernel, plain, rel err)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a8_matmul import w4a8_matmul_cuda
+
+    kw = dict(w_fmt=p.w_fmt, group_size=p.group_size)
+    kernel = lambda: w4a8_matmul_cuda(x_q, p.codes, p.scale, p.s_max, p.shifts, **kw)
+    plain = lambda: ref.w4a8_split_matmul_ref(x_q, p.codes, p.scale, p.s_max, p.shifts, **kw)
+    y_k, y_p = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((y_k - y_p).abs().max()) / float(y_p.abs().max())
+    if not err <= SPLIT_RTOL:
+        fail(f"w4a8_matmul_split {what} disagrees with its plain version: max |err| {err:.3g} of "
+             f"the largest |y| > {SPLIT_RTOL}")
+    return kernel, plain, err
+
+
+def _quantized(torch, m, k, gen):
+    from repro_torch.kernels import ref
+
+    x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+    qv, sc = ref.act_quant_ref(x, "fp8_e4m3")
+    return x, (qv * sc).to(torch.bfloat16)
+
+
+def _split_cases(torch, timer, gen, weights):
+    """The split GEMM timed at SPLIT_GEMMS on ``weights`` (by (K, N): RTN,
+    fp4_e2m1, M2, g 256, LoRC 8), its other variants checked, and the
+    injected fault. Returns (rows, fault reading)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a8_matmul import w4a8_matmul_cuda
+
+    rows = {}
+    for m, k, n in SPLIT_GEMMS:
+        p = weights[(k, n)]
+        _, x_q = _quantized(torch, m, k, gen)
+        kernel, plain, err = _split_check(torch, p, x_q, f"M={m} {k}->{n}")
+        w_deq = ref.dequant_packed_ref(p.codes, p.scale, p.w_fmt, p.group_size)
+        g = k // p.group_size
+        nbytes = m * k * 2 + n * k // 2 + n * g + n * 4 + m * n * 4
+        flops = 2 * m * n * k
+        b_ms, by = bound(nbytes, flops, "bf16")
+        row = dict(ms=timer.ms(kernel), graph_ms=timer.ms(_graphed(torch, kernel)),
+                   plain_ms=timer.ms(plain),
+                   library_ms=timer.ms(lambda: torch.matmul(x_q, w_deq.t())), bound_ms=b_ms,
+                   bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops, kind="bf16")
+        rows[(m, k, n)] = row
+        log(f"    w4a8_matmul_split M={m:3d} {k:4d}->{n:4d} (fp4_e2m1, M2, g 256): kernel "
+            f"{row['ms']:.4f} ms (from a CUDA graph {row['graph_ms']:.4f} ms)  plain "
+            f"{row['plain_ms']:.4f} ms  library(bf16 matmul) "
+            f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {nbytes} B, {flops} "
+            f"FLOP)  max|err| {err:.3g} of max|y|")
+    # checked, not timed: E3M0, no M2, g 128, M and N off the tiles
+    for w_fmt, mode, gs, m, n in (("fp4_e3m0", "m2", 256, 4, 768), ("fp4_e3m0", "none", 128, 260, 768),
+                                  ("fp4_e2m1", "none", 256, 260, 768), ("fp4_e2m1", "m2", 128, 37, 100),
+                                  ("fp4_e2m1", "none", 128, 4, 100)):
+        p = _packed(torch, 768, n, gen, w_fmt, mode, 0, gs)
+        _, x_q = _quantized(torch, m, 768, gen)
+        err = _split_check(torch, p, x_q, f"{w_fmt} {mode} g {gs} M={m} 768->{n}")[-1]
+        rows[(4, 768, 768)]["max_abs_err"] = max(rows[(4, 768, 768)]["max_abs_err"], err)
+        log(f"    w4a8_matmul_split M={m:3d}  768->{n:4d} ({w_fmt}, scale_mode {mode}, g {gs}): "
+            f"max|err| {err:.3g} of max|y|")
+    # the injected fault: the split GEMM without its s_max finalize (s_max = 1)
+    p = weights[(768, 3072)]
+    _, x_q = _quantized(torch, 4, 768, gen)
+    y_f = w4a8_matmul_cuda(x_q, p.codes, p.scale, torch.ones_like(p.s_max), p.shifts,
+                           w_fmt=p.w_fmt, group_size=p.group_size)
+    y_p = ref.w4a8_split_matmul_ref(x_q, p.codes, p.scale, p.s_max, p.shifts,
+                                    w_fmt=p.w_fmt, group_size=p.group_size)
+    fault = float((y_f - y_p).abs().max()) / float(y_p.abs().max())
+    if fault <= SPLIT_RTOL:
+        fail(f"injected fault (no s_max finalize) reads {fault:.3g} <= {SPLIT_RTOL}: the check "
+             "cannot tell it from a sound kernel")
+    log(f"    injected fault, split GEMM without its s_max finalize: {fault:.3g} of max|y| "
+        f"(> {SPLIT_RTOL} required)")
+    return rows, fault
+
+
+def _graphed(torch, fn):
+    """``fn``'s launches captured in a CUDA graph (after a warm-up on a side
+    stream); returns its replay, which enqueues them all at once, so the
+    host's time between launches leaves the device time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def _split_vs_fused(torch, timer, gen, weights):
+    """The split pipeline (act_quant kernel, bf16 cast, split GEMM kernel,
+    LoRC by torch.matmul) against the fused kernel on the same packed
+    weights and raw activations, timed as called (eager: the host's time
+    between the split path's seven launches counts) and replayed from a
+    CUDA graph (device time only); they must agree to W4A8_TOL. Returns
+    {tag: row}."""
+    from repro_torch.kernels import ops
+
+    cases = [(f"m{m}_{k}x{n}", m, k, n, weights[(k, n)]) for m, k, n in SPLIT_GEMMS]
+    cases += [(tag, m, k, n, _packed(torch, k, n, gen, lorc_rank=r)) for tag, m, k, n, r in MICROBENCH]
+    rows = {}
+    for tag, m, k, n, p in cases:
+        x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+        split = lambda: _split_pipeline(torch, x, p)
+        fused = lambda: ops.w4a8_matmul(x, p)
+        y_s, y_f = split(), fused().float()
+        torch.cuda.synchronize()
+        err = float((y_s - y_f).abs().max())
+        if not torch.allclose(y_s, y_f, rtol=W4A8_TOL, atol=W4A8_TOL):
+            fail(f"split vs fused {tag} (M={m} {k}->{n}) disagree: max |err| {err}")
+        s_ms, f_ms = timer.ms(split), timer.ms(fused)
+        sg_ms, fg_ms = timer.ms(_graphed(torch, split)), timer.ms(_graphed(torch, fused))
+        r = 0 if p.lorc_a is None else p.lorc_a.shape[-1]
+        rows[tag] = dict(m=m, k=k, n=n, lorc_rank=r, split_ms=s_ms, fused_ms=f_ms,
+                         ratio=s_ms / f_ms, split_graph_ms=sg_ms, fused_graph_ms=fg_ms,
+                         ratio_graph=sg_ms / fg_ms, max_abs_err=err)
+        log(f"    w4a8_split_{tag} {s_ms:.4f} ms  w4a8_fused_{tag} {f_ms:.4f} ms  split/fused "
+            f"{s_ms / f_ms:.3f};  CUDA graph: split {sg_ms:.4f} ms  fused {fg_ms:.4f} ms  "
+            f"split/fused {sg_ms / fg_ms:.3f}  (M={m} {k}->{n}, LoRC {r}; max|err| {err:.3g})")
+    return rows
+
+
+def _flash_inputs(torch, gen, b, s, t, h, hd, dv, dtype):
+    q = torch.randn((b, s, h, hd), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((b, t, h, hd), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((b, t, h, dv), generator=gen, device=DEV).to(dtype)
+    return q, k, v
+
+
+def _row_err(o_k, o_p):
+    """The largest relative error of one query row: ||o_k - o_p|| / ||o_p||
+    over its dv outputs (f32 tensors (B, S, H, dv))."""
+    return float(((o_k - o_p).norm(dim=-1) / o_p.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _flash_check(torch, q, k, v, causal, what):
+    """Flash attention against its plain version, elementwise (FLASH_TOL)
+    and by query row (FLASH_ROW_RTOL); returns (kernel, plain, max |err|,
+    largest row error)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    kind = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    kernel = lambda: flash_attention_cuda(q, k, v, causal)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal)
+    o_k, o_p = kernel().float(), plain().float()
+    torch.cuda.synchronize()
+    err, row = float((o_k - o_p).abs().max()), _row_err(o_k, o_p)
+    tol, row_tol = FLASH_TOL[kind], FLASH_ROW_RTOL[kind]
+    if not torch.allclose(o_k, o_p, rtol=tol, atol=tol):
+        fail(f"flash_attention {what} disagrees with its plain version: max |err| {err} > {tol}")
+    if not row <= row_tol:
+        fail(f"flash_attention {what} disagrees with its plain version: a query row is off by "
+             f"{row:.3g} of its norm > {row_tol:.3g}")
+    return kernel, plain, err, row
+
+
+def _flash_cases(torch, timer, gen):
+    """Causal bf16 flash attention timed at FLASH_SHAPES; non-causal, f32,
+    ragged S and T != S checked; the injected fault. Returns (rows, fault)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for tag, h, hd, dv, s in FLASH_SHAPES:
+        q, k, v = _flash_inputs(torch, gen, 1, s, s, h, hd, dv, torch.bfloat16)
+        kernel, plain, err, row_err = _flash_check(torch, q, k, v, True, f"{tag} causal bf16")
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))  # SDPA's (B, H, S, d)
+        pairs = s * (s + 1) // 2  # the causal half: (q, k) pairs with k_pos <= q_pos
+        flops = 2 * pairs * (hd + dv) * h
+        nbytes = 2 * s * h * (2 * hd + 2 * dv)
+        b_ms, by = bound(nbytes, flops, "bf16")
+        row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+                   library_ms=timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+                   bound_ms=b_ms, bound_by=by, max_abs_err=err, max_row_rel_err=row_err,
+                   bytes=nbytes, flops=flops, kind="bf16")
+        rows[tag] = row
+        log(f"    flash_attention {tag} (B=1 H={h} hd={hd} dv={dv} S=T={s}, causal bf16): kernel "
+            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(SDPA) "
+            f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {flops} FLOP, "
+            f"{nbytes} B)  max|err| {err:.3g}, worst row {row_err:.3g} of its norm")
+    # checked, not timed
+    for b, s, t, h, hd, dv, causal, dtype in ((1, 512, 512, 12, 64, 64, False, torch.bfloat16),
+                                              (2, 300, 300, 3, 96, 64, True, torch.bfloat16),
+                                              (1, 130, 257, 2, 128, 128, True, torch.bfloat16),
+                                              (1, 257, 130, 2, 40, 24, True, torch.bfloat16),
+                                              (1, 100, 100, 2, 20, 12, True, torch.bfloat16),
+                                              (2, 77, 77, 2, 64, 32, True, torch.float32),
+                                              (1, 100, 150, 3, 48, 80, False, torch.float32)):
+        what = (f"B={b} S={s} T={t} H={h} hd={hd} dv={dv} {'causal' if causal else 'non-causal'} "
+                f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+        err, row_err = _flash_check(torch, *_flash_inputs(torch, gen, b, s, t, h, hd, dv, dtype),
+                                    causal, what)[2:]
+        if dtype == torch.bfloat16:
+            _worst(rows["opt125m_s512"], err, row_err)
+        log(f"    flash_attention {what}: max|err| {err:.3g}, worst row {row_err:.3g} of its norm")
+    # k and v one element past 16-byte alignment (contiguous views): staged one
+    # element at a time
+    q, k, v = _flash_inputs(torch, gen, 1, 100, 100, 2, 64, 64, torch.bfloat16)
+    off = lambda a: torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+    k, v = off(k), off(v)
+    err, row_err = _flash_check(torch, q, k, v, True, "k and v 2 bytes off alignment")[2:]
+    _worst(rows["opt125m_s512"], err, row_err)
+    log(f"    flash_attention B=1 S=T=100 H=2 hd=dv=64 causal bf16, k and v 2 bytes off "
+        f"alignment: max|err| {err:.3g}, worst row {row_err:.3g} of its norm")
+    # the injected fault: the causal mask one key short. Query row i + 1 run as
+    # row i masks keys past i, where its own mask ends at i + 1.
+    q, k, v = _flash_inputs(torch, gen, 1, 512, 512, 12, 64, 64, torch.bfloat16)
+    o_f = flash_attention_cuda(q[:, 1:].contiguous(), k, v, True).float()
+    o_p = ref.flash_attention_ref(q, k, v, True)[:, 1:].float()
+    fault = float((o_f - o_p).abs().max())
+    if torch.allclose(o_f, o_p, rtol=FLASH_TOL["bf16"], atol=FLASH_TOL["bf16"]):
+        fail(f"injected fault (causal mask one key short) reads {fault:.3g}: within "
+             f"{FLASH_TOL['bf16']}, the check cannot tell it from a sound kernel")
+    log(f"    injected fault, flash attention with the causal mask one key short: max|err| "
+        f"{fault:.3g} (> {FLASH_TOL['bf16']} required)")
+    # the injected fault of one late tile: the kernel fed k and v whose keys
+    # [1088, 1152) repeat keys [1024, 1088), as a kernel that staged one KV
+    # tile twice past k0 = 1024 would read them, held against the plain
+    # version on the true inputs. Only rows past key 1088 see it, where the
+    # outputs are small: the row check must catch it
+    q, k, v = _flash_inputs(torch, gen, 1, 2048, 2048, 12, 64, 64, torch.bfloat16)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 1088:1152], v2[:, 1088:1152] = k[:, 1024:1088], v[:, 1024:1088]
+    o_f = flash_attention_cuda(q, k2, v2, True).float()
+    o_p = ref.flash_attention_ref(q, k, v, True).float()
+    tile_fault = _row_err(o_f, o_p)
+    within = torch.allclose(o_f, o_p, rtol=FLASH_TOL["bf16"], atol=FLASH_TOL["bf16"])
+    if not tile_fault > FLASH_ROW_RTOL["bf16"]:
+        fail(f"injected fault (a KV tile past key 1024 staged twice) reads {tile_fault:.3g} of a "
+             f"row's norm <= {FLASH_ROW_RTOL['bf16']:.3g}: the check cannot tell it from a "
+             "sound kernel")
+    log(f"    injected fault, flash attention with keys 1088-1151 a copy of 1024-1087 (S=T=2048, "
+        f"H=12, hd=64): worst row {tile_fault:.3g} of its norm (> {FLASH_ROW_RTOL['bf16']:.3g} "
+        f"required); max|err| {float((o_f - o_p).abs().max()):.3g}, "
+        f"{'within' if within else 'outside'} the elementwise {FLASH_TOL['bf16']}")
+    return rows, (fault, tile_fault)
+
+
+def _worst(row, err, row_err):
+    """Fold a checked, untimed case's readings into a timed shape's row."""
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["max_row_rel_err"] = max(row["max_row_rel_err"], row_err)
+
+
+def phase_kernel_api(torch):
+    """Rows 4-6 through the kernel API (``ops.act_quant``,
+    ``ops.w4a8_matmul_split``, ``ops.flash_attention``), which no served
+    path reaches: first the path itself (the split W4A8 pipeline at every
+    GEMM shape and causal flash attention at every attention shape), with
+    the launch counts read around it; then each kernel against its plain
+    version, timed, its other variants checked, two injected faults, and
+    the split pipeline against the fused kernel."""
+    from repro_torch.kernels import ops
+
+    log(f"[11 kernel api] act_quant, the split W4A8 GEMM and flash attention on the card "
+        f"(act_quant bit-identical; split GEMM {SPLIT_RTOL} of max|y|; flash attention "
+        f"{FLASH_TOL['bf16']} bf16 / {FLASH_TOL['f32']} f32, each query row "
+        f"{FLASH_ROW_RTOL['bf16']:.3g} / {FLASH_ROW_RTOL['f32']:.3g} of its norm; times cold-L2, "
+        "CUDA events)")
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    weights = {(k, n): _packed(torch, k, n, gen) for k, n in sorted({(k, n) for _, k, n in SPLIT_GEMMS})}
+    gemms = [(torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16), weights[(k, n)])
+             for m, k, n in SPLIT_GEMMS]
+    attns = [_flash_inputs(torch, gen, 1, s, s, h, hd, dv, torch.bfloat16)
+             for _, h, hd, dv, s in FLASH_SHAPES]
+    _set_counts(dict.fromkeys(_counts(), 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [_split_pipeline(torch, x, p) for x, p in gemms]
+    outs += [ops.flash_attention(q, k, v, causal=True) for q, k, v in attns]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = {**dict.fromkeys(launches, 0), "act_quant": len(gemms),
+            "w4a8_matmul_split": len(gemms), "flash_attention": len(attns)}
+    if launches != want:
+        fail(f"kernel api launches {launches}, want {want}")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        fail("the kernel api path wrote non-finite values")
+    launches = {k: v for k, v in launches.items() if v}
+    log(f"    path: the split pipeline at {len(gemms)} GEMM shapes and causal flash attention at "
+        f"{len(attns)} shapes through ops, {wall * 1e3:.1f} ms wall (first calls); launches "
+        f"{launches}; outputs finite")
+    act = _act_quant_cases(torch, timer, gen)
+    split, split_fault = _split_cases(torch, timer, gen, weights)
+    versus = _split_vs_fused(torch, timer, gen, weights)
+    flash, flash_faults = _flash_cases(torch, timer, gen)
+    return launches, act, split, versus, (split_fault, *flash_faults), flash
+
+
+def step_sum(rows, n_layers, key):
+    """One decode step's sum of a kernel's per-launch rows."""
+    if key == "bound_ms":  # the bound of the whole step's bytes and operations
+        t_b = n_layers * sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
+        t_o = n_layers * sum(r["flops"] for r in rows) / PEAK_FLOPS[rows[0]["kind"]] * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    return n_layers * sum(r[key] for r in rows)
+
+
+def entry(rows, n_layers, **kw):
+    """A ``kernels`` line entry: ``rows`` summed over ``n_layers`` layers."""
+    b_ms, by = step_sum(rows, n_layers, "bound_ms")
+    return {**kw, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": step_sum(rows, n_layers, "ms"), "plain_ms": step_sum(rows, n_layers, "plain_ms"),
+            "bound_ms": b_ms, "bound_by": by,
+            "library_ms": step_sum(rows, n_layers, "library_ms")}
+
+
+def _api_entries(launches, act, split, versus, faults, flash):
+    """The ``kernels`` line entries of phase 11's three kernels: each one's
+    times summed over one launch at each of its timed shapes, and those
+    shapes' own numbers under ``per_shape``."""
+    path = ("no served path: the kernel API's entry points (ops.act_quant -> "
+            "ops.w4a8_matmul_split -> LoRC matmuls, ops.flash_attention), launches from phase 11")
+    shapes = lambda rows: {" ".join(map(str, key)) if isinstance(key, tuple) else key:
+                           {f: r[f] for f in ("ms", "graph_ms", "device_ms", "plain_ms",
+                                              "library_ms", "bound_ms", "max_abs_err",
+                                              "max_row_rel_err") if f in r}
+                           for key, r in rows.items()}
+    return [
+        {**entry(list(act.values()), 1, name="act_quant", route="cuda",
+                 source="src/repro_torch/csrc/act_quant.cu",
+                 replaces="src/repro/kernels/act_quant.py:41", launches=launches["act_quant"],
+                 per="the sum of one launch at each (rows, d) of " + str(ACT_QUANT_SHAPES)
+                     + ", bf16 -> fp8_e4m3; bit-identical to the plain version; library: amax + "
+                       "cast to float8_e4m3fn (448 grid), nearest, not the same function; "
+                       "device_ms: the kernel's own time after an L2 flush, from CUDA "
+                       "graphs of 50 launches less their flushes"),
+         "device_ms": sum(r["device_ms"] for r in act.values()),
+         "path": path, "per_shape": shapes(act)},
+        {**entry(list(split.values()), 1, name="w4a8_matmul_split", route="cuda",
+                 source="src/repro_torch/csrc/w4a8_matmul.cu",
+                 replaces="src/repro/kernels/w4a8_matmul.py:79",
+                 launches=launches["w4a8_matmul_split"],
+                 per="the sum of one launch at each (M, K, N) of " + str(SPLIT_GEMMS)
+                     + ", fp4_e2m1, M2, g 256; max_abs_err as a share of max|y|"),
+         "path": path, "per_shape": shapes(split), "fault_no_smax": faults[0],
+         "split_vs_fused": versus},
+        {**entry(list(flash.values()), 1, name="flash_attention", route="cuda",
+                 source="src/repro_torch/csrc/flash_attn.cu",
+                 replaces="src/repro/kernels/flash_attn.py:93",
+                 launches=launches["flash_attention"],
+                 per="the sum of one causal bf16 launch at each (tag, H, hd, dv, S=T) of "
+                     + str(FLASH_SHAPES) + ", B=1; bound counts the causal half"),
+         "path": path, "per_shape": shapes(flash),
+         "max_row_rel_err": max(r["max_row_rel_err"] for r in flash.values()),
+         "fault_mask_one_key_short": faults[1], "fault_tile_staged_twice_row_rel": faults[2]},
+    ]
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -1636,21 +2150,7 @@ def main():
     olmoe, packed_9, launches_9, live_9 = phase_moe(torch, card)
     phase_moe_cpu(torch, olmoe, packed_9)
     del packed_9
-
-    def step_sum(rows, n_layers, key):
-        """One decode step's sum of a kernel's per-launch rows."""
-        if key == "bound_ms":  # the bound of the whole step's bytes and operations
-            t_b = n_layers * sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
-            t_o = n_layers * sum(r["flops"] for r in rows) / PEAK_FLOPS[rows[0]["kind"]] * 1e3
-            return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
-        return n_layers * sum(r[key] for r in rows)
-
-    def entry(rows, n_layers, **kw):
-        b_ms, by = step_sum(rows, n_layers, "bound_ms")
-        return {**kw, "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": step_sum(rows, n_layers, "ms"), "plain_ms": step_sum(rows, n_layers, "plain_ms"),
-                "bound_ms": b_ms, "bound_by": by,
-                "library_ms": step_sum(rows, n_layers, "library_ms")}
+    api_launches, act, split, versus, faults, flash = phase_kernel_api(torch)
 
     for r in gemm.values():
         r["kind"] = "bf16"
@@ -1742,6 +2242,7 @@ def main():
          "variants_ms": {f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''}": r["ms"]
                          for (fmt, fz), r in mla.items()}},
     ]
+    kernels += _api_entries(api_launches, act, split, versus, faults, flash)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

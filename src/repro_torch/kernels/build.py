@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), at first
 use, into ``build/kernels/`` at the root of the checkout. The library name
-carries a digest of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. ``build_all`` starts one
+carries a digest of the source, the shared headers of ``csrc/`` and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. ``build_all`` starts one
 ``nvcc`` per missing source, all at once.
 """
 from __future__ import annotations
@@ -22,7 +23,8 @@ __all__ = ["SOURCES", "FLAGS", "nvcc_path", "build_all", "load", "build_logs"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("w4a8_fused", "decode_attn", "mla_decode_attn")
+SOURCES = ("w4a8_fused", "decode_attn", "mla_decode_attn", "act_quant", "w4a8_matmul",
+           "flash_attn")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -40,8 +42,9 @@ def nvcc_path() -> str:
 
 
 def _library(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
+    text = (_CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))  # shared headers
+    digest = hashlib.sha1(text + " ".join(FLAGS).encode()).hexdigest()[:12]
     return _BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -11,7 +11,7 @@ import torch
 from . import ref
 
 __all__ = ["w4a8_matmul", "w4a8_matmul_batched", "paged_decode_attn",
-           "paged_mla_decode_attn"]
+           "paged_mla_decode_attn", "act_quant", "w4a8_matmul_split", "flash_attention"]
 
 
 def _route(t: torch.Tensor) -> str:
@@ -120,3 +120,43 @@ def paged_mla_decode_attn(q_lat: torch.Tensor, q_rope: torch.Tensor, pool_layer,
     return paged_mla_decode_attn_cuda(q_lat.contiguous(), q_rope.contiguous(), cp, rp,
                                       *scales, page_table, kv_lens, scale, fmt=fmt,
                                       frozen=frozen, **fz)
+
+
+# -- the kernel API: entry points that no served path of the port reaches ------
+def act_quant(x: torch.Tensor, fmt_name: str = "fp8_e4m3"):
+    """Token-wise FP8 quantization: x (..., d) -> (values on the grid f32,
+    scale f32 (..., 1)). On the card: the act_quant kernel."""
+    if _route(x) == "cpu":
+        return ref.act_quant_ref(x, fmt_name)
+    from .act_quant import act_quant_cuda
+
+    return act_quant_cuda(x.contiguous(), fmt_name)
+
+
+def w4a8_matmul_split(x_q: torch.Tensor, w) -> torch.Tensor:
+    """The split GEMM over already quantized activations: x_q (..., K)
+    (values on the FP8 grid times their scale, e.g. from ``act_quant``);
+    w: a 2-D PackedLinear, whose LoRC factors the caller applies. Returns
+    (..., N) f32. On the card: the split W4A8 kernel."""
+    assert w.codes.dim() == 2, "stacked PackedLinear: take a layer first"
+    if _route(x_q) == "cpu":
+        return ref.w4a8_split_matmul_ref(x_q, w.codes, w.scale, w.s_max, w.shifts,
+                                         w_fmt=w.w_fmt, group_size=w.group_size)
+    from .w4a8_matmul import w4a8_matmul_cuda
+
+    lead = x_q.shape[:-1]
+    y = w4a8_matmul_cuda(x_q.reshape(-1, x_q.shape[-1]).to(torch.bfloat16).contiguous(),
+                         w.codes, w.scale, w.s_max, w.shifts, w_fmt=w.w_fmt,
+                         group_size=w.group_size)
+    return y.reshape(*lead, -1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, hd); k: (B, T, H, hd); v: (B, T, H, dv). Returns (B, S,
+    H, dv) in v's dtype. On the card: the flash-attention kernel."""
+    if _route(q) == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal)
+    from .flash_attn import flash_attention_cuda
+
+    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal)

@@ -8,13 +8,20 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import FORMATS, fp_decode, unpack_nibbles
+from repro_torch.core.formats import FORMATS, f32, fp_decode, pow2i, unpack_nibbles
 from repro_torch.core.quantize import quantize_act_tokenwise
 
 from .common import page_format
 
-__all__ = ["dequant_packed_ref", "w4a8_matmul_ref", "w4a8_batched_matmul_ref",
-           "paged_decode_attn_ref", "paged_mla_decode_attn_ref"]
+__all__ = ["act_quant_ref", "dequant_packed_ref", "w4a8_matmul_ref", "w4a8_batched_matmul_ref",
+           "w4a8_split_matmul_ref", "paged_decode_attn_ref", "paged_mla_decode_attn_ref",
+           "flash_attention_ref"]
+
+
+def act_quant_ref(x, fmt_name: str = "fp8_e4m3"):
+    """Token-wise FP8 quantization: x (..., d) -> (values on the grid f32
+    (..., d), scale f32 (..., 1))."""
+    return quantize_act_tokenwise(x, fmt_name)
 
 
 def dequant_packed_ref(codes, scale, fmt_name: str = "fp4_e2m1", group_size: int = 256):
@@ -80,6 +87,21 @@ def w4a8_batched_matmul_ref(x, codes, scale, lorc_a=None, lorc_b=None,
             xr = torch.einsum("emk,erk->emr", xf, lorc_b.float()).to(torch.bfloat16)
             y = y + torch.einsum("emr,enr->emn", xr.float(), lorc_a.float())
     return y
+
+
+def w4a8_split_matmul_ref(x_q, codes, scale, s_max=None, shifts=None,
+                          w_fmt: str = "fp4_e2m1", group_size: int = 256):
+    """The split GEMM over quantized activations: y = bf16(x_q) .
+    bf16(decode(codes) * gscale)^T in f32, gscale = 2^-shift with M2 (then
+    s_max multiplies each output column after the sum) or the f32 group
+    scale. x_q: (..., K); codes: (N, K/2); scale / shifts: (N, K/g);
+    s_max: (N,) or (N, 1). Returns (..., N) f32."""
+    q = fp_decode(unpack_nibbles(codes), FORMATS[w_fmt])  # (N, K)
+    n, k = q.shape
+    gscale = pow2i(-shifts.to(torch.int32)) if shifts is not None else scale.float()
+    w = (q.reshape(n, k // group_size, group_size) * gscale[..., None]).reshape(n, k)
+    y = torch.matmul(x_q.to(torch.bfloat16).float(), w.to(torch.bfloat16).float().t())
+    return y * s_max.reshape(1, n).float() if shifts is not None else y
 
 
 def paged_decode_attn_ref(q, k_pages, v_pages, k_smax, k_shift, v_smax,
@@ -188,3 +210,18 @@ def paged_mla_decode_attn_ref(q_lat, q_rope, ckv_pages, krope_pages, ckv_smax, c
     # masked positions never enter the sum, even as 0 * (stale NaN)
     ckv = torch.where(valid[:, 0, :, None], ckv, torch.zeros_like(ckv))
     return torch.einsum("bht,btr->bhr", p, ckv)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """Plain softmax attention. q: (B, S, H, hd); k: (B, T, H, hd); v: (B,
+    T, H, dv). Scores in f32 times 1/sqrt(hd); causal adds -1e30 where
+    k_pos > q_pos (no offset when T != S). Returns (B, S, H, dv) in v's
+    dtype."""
+    s, t = q.shape[1], k.shape[1]
+    sc = torch.einsum("bqhd,bthd->bhqt", q.float(), k.float()) * f32(1.0 / float(q.shape[-1]) ** 0.5)
+    if causal:
+        pos_q = torch.arange(s, device=q.device)[:, None]
+        pos_k = torch.arange(t, device=q.device)[None]
+        sc = sc + torch.where(pos_k > pos_q, -1e30, 0.0)
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqt,bthd->bqhd", p, v.float()).to(v.dtype)

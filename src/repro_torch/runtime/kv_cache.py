@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.core.formats import f32, fp_encode, pack_nibbles, quantize_to_grid
 from repro_torch.core.scales import constrain_scales_m2
+from repro_torch.device import resolve_device
 from repro_torch.kernels.common import PageFormat, page_format
 
 __all__ = ["CachePolicy", "PagedState", "PrefixCache", "page_key", "init_gqa_pool",
@@ -205,23 +206,25 @@ def _init_pool(n_layers, n_pages, page_size, leaves, fmt, frozen_fmt, n_frozen,
 
 def init_gqa_pool(n_layers: int, n_pages: int, page_size: int, n_kv: int, head_dim: int,
                   fmt="fp8_e4m3", frozen_fmt=None, n_frozen: int = 0,
-                  device="cpu") -> Dict:
+                  device=None) -> Dict:
     """Zeroed pool of ``n_pages`` pages plus the null page. A ``frozen_fmt``
     other than ``fmt`` adds the frozen region: half-width packed stores of
-    ``n_frozen`` pages plus the dummy row."""
+    ``n_frozen`` pages plus the dummy row. ``device=None`` is the card
+    (``resolve_device``: it raises when there is none)."""
     return _init_pool(n_layers, n_pages, page_size,
                       [("k", n_kv, head_dim, True), ("v", n_kv, head_dim, True)],
-                      fmt, frozen_fmt, n_frozen, device)
+                      fmt, frozen_fmt, n_frozen, resolve_device(device))
 
 
 def init_mla_pool(n_layers: int, n_pages: int, page_size: int, kv_lora_rank: int,
                   qk_rope_dim: int, fmt="fp8_e4m3", frozen_fmt=None, n_frozen: int = 0,
-                  device="cpu") -> Dict:
+                  device=None) -> Dict:
     """Latent pages: the compressed c_kv and the shared rope key, each with
-    a single scale "head" that is squeezed out of the value leaves."""
+    a single scale "head" that is squeezed out of the value leaves.
+    ``device=None`` is the card, as for ``init_gqa_pool``."""
     return _init_pool(n_layers, n_pages, page_size,
                       [("ckv", 1, kv_lora_rank, False), ("krope", 1, qk_rope_dim, False)],
-                      fmt, frozen_fmt, n_frozen, device)
+                      fmt, frozen_fmt, n_frozen, resolve_device(device))
 
 
 def quantize_pages(vals: torch.Tensor, fmt="fp8_e4m3"):

@@ -46,7 +46,7 @@ class _Pair:
         self.jcaches = [{"kv": jkvc.init_gqa_pool(c.n_layers, N_PAGES, PAGE, c.n_kv_heads,
                                                   c.resolved_head_dim, fmt)}]
         self.tcaches = [tkvc.init_gqa_pool(c.n_layers, N_PAGES, PAGE, c.n_kv_heads,
-                                           c.resolved_head_dim, fmt)]
+                                           c.resolved_head_dim, fmt, device="cpu")]
         self.max_err = 0.0
         self._compiled = {}
 

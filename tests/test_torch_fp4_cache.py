@@ -69,7 +69,8 @@ def _assert_same_leaves(tpool, jpool):
 def test_init_gqa_pool_leaves_match(hd, fmt, frozen_fmt, n_frozen):
     """Leaf names, shapes and dtypes (the frozen region half-width, with
     n_frozen + 1 rows; the packed store's zero-size marker)."""
-    tpool = tkvc.init_gqa_pool(2, 5, 8, 3, hd, fmt, frozen_fmt=frozen_fmt, n_frozen=n_frozen)
+    tpool = tkvc.init_gqa_pool(2, 5, 8, 3, hd, fmt, frozen_fmt=frozen_fmt, n_frozen=n_frozen,
+                               device="cpu")
     jpool = jkvc.init_gqa_pool(2, 5, 8, 3, hd, fmt, frozen_fmt=frozen_fmt, n_frozen=n_frozen)
     _assert_same_leaves(tpool, jpool)
     assert tkvc.n_frozen_pages(tpool) == jkvc.n_frozen_pages(jpool) == n_frozen
@@ -112,12 +113,12 @@ def test_gather_pages_two_regions_bit_identical(hd):
 
 
 def test_page_bytes_and_residency_accounting():
-    tpool = tkvc.init_gqa_pool(4, 32, 8, 2, 64, **MIXED, n_frozen=16)
+    tpool = tkvc.init_gqa_pool(4, 32, 8, 2, 64, **MIXED, n_frozen=16, device="cpu")
     jpool = jkvc.init_gqa_pool(4, 32, 8, 2, 64, **MIXED, n_frozen=16)
     for frozen in (False, True):
         assert tkvc.page_bytes(tpool, frozen=frozen) == jkvc.page_bytes(jpool, frozen=frozen)
     assert tkvc.page_bytes(tpool, frozen=True) / tkvc.page_bytes(tpool) <= 0.55
-    plain = tkvc.init_gqa_pool(4, 32, 8, 2, 64, "fp8_e4m3")
+    plain = tkvc.init_gqa_pool(4, 32, 8, 2, 64, "fp8_e4m3", device="cpu")
     assert tkvc.pool_bytes_per_token(tpool) == tkvc.pool_bytes_per_token(plain) == \
         jkvc.pool_bytes_per_token(jpool)
     assert tkvc.page_bytes(plain, frozen=True) == 0.0
@@ -177,7 +178,7 @@ def _frozen_layer(rng, kv, hd, page, pp, lens, freeze):
     (its transcode is held bit-identical to repro's above) and handed to
     repro as arrays."""
     b, n_pages = len(lens), len(lens) * pp
-    pool = tkvc.init_gqa_pool(1, n_pages, page, kv, hd, **MIXED, n_frozen=n_pages)
+    pool = tkvc.init_gqa_pool(1, n_pages, page, kv, hd, **MIXED, n_frozen=n_pages, device="cpu")
     for n in ("k", "v"):
         vals = torch.from_numpy(rng.normal(size=(1, n_pages + 1, page, kv, hd)).astype(np.float32))
         pool[n], pool[n + "_smax"], pool[n + "_shift"] = tkvc.quantize_pages(vals)
@@ -261,16 +262,17 @@ def test_cache_policy_classes_mirror_reference(kwargs):
 
 
 def test_append_into_packed_store_raises():
-    pool = tkvc.init_gqa_pool(1, 4, 8, 2, 16, "fp4_e2m1")
+    pool = tkvc.init_gqa_pool(1, 4, 8, 2, 16, "fp4_e2m1", device="cpu")
     layer = {k: v[0] for k, v in pool.items()}
     state = tkvc.PagedState(t(np.array([[0, 1]], np.int32)), t(np.array([3], np.int32)))
     new = {"k": torch.ones((1, 1, 2, 16)), "v": torch.ones((1, 1, 2, 16))}
     with pytest.raises(AssertionError, match="packed FP4"):
         tkvc.append_paged(layer, new, state)
     with pytest.raises(ValueError, match="fp4_e2m1"):
-        tkvc.init_gqa_pool(1, 4, 8, 2, 16, None, frozen_fmt="fp4_e2m1", n_frozen=2)
+        tkvc.init_gqa_pool(1, 4, 8, 2, 16, None, frozen_fmt="fp4_e2m1", n_frozen=2,
+                            device="cpu")
     with pytest.raises(ValueError, match="n_frozen"):
-        tkvc.init_gqa_pool(1, 4, 8, 2, 16, **MIXED, n_frozen=0)
+        tkvc.init_gqa_pool(1, 4, 8, 2, 16, **MIXED, n_frozen=0, device="cpu")
 
 
 def test_assert_unfrozen_rejects_frozen_region_ids():

@@ -122,3 +122,71 @@ def test_mla_smoke_config_serves_on_the_cpu_only_when_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.Server(params, cfg)
+
+
+def test_pools_default_to_the_card(monkeypatch):
+    """``init_gqa_pool`` / ``init_mla_pool`` without ``device`` take the
+    card and raise without one, naming the CPU opt-in."""
+    from repro_torch.runtime import kv_cache as kvc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kvc.init_gqa_pool(1, 4, 8, 2, 16, "fp8_e4m3")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kvc.init_mla_pool(1, 4, 8, 16, 8, "fp8_e4m3")
+    pool = kvc.init_mla_pool(1, 4, 8, 16, 8, "fp8_e4m3", device="cpu")
+    assert pool["ckv"].device.type == "cpu"
+
+
+def _api_wrappers():
+    from repro_torch.kernels.act_quant import act_quant_cuda
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.kernels.w4a8_matmul import w4a8_matmul_cuda
+
+    return act_quant_cuda, w4a8_matmul_cuda, flash_attention_cuda
+
+
+@pytest.mark.parametrize("call,err,match", [
+    (lambda aq, mm, fa: aq(torch.zeros((2, 64))), ValueError, "CUDA"),
+    (lambda aq, mm, fa: aq(torch.zeros((2, 64)), "int8"), NotImplementedError, "fp8_e4m3"),
+    (lambda aq, mm, fa: mm(torch.zeros((2, 256), dtype=torch.bfloat16),
+                           torch.zeros((8, 128), dtype=torch.uint8), torch.ones((8, 1))),
+     ValueError, "CUDA"),
+    (lambda aq, mm, fa: mm(torch.zeros((2, 256), dtype=torch.bfloat16),
+                           torch.zeros((8, 128), dtype=torch.uint8), torch.ones((8, 1)),
+                           w_fmt="int4"), NotImplementedError, "fp4_e3m0"),
+    (lambda aq, mm, fa: fa(*[torch.zeros((1, 8, 2, 16))] * 3), ValueError, "CUDA"),
+    (lambda aq, mm, fa: fa(*[torch.zeros((1, 8, 2, 16), dtype=torch.float16)] * 3),
+     NotImplementedError, "bf16 and f32"),
+    (lambda aq, mm, fa: fa(torch.zeros((1, 8, 2, 160)), torch.zeros((1, 8, 2, 160)),
+                           torch.zeros((1, 8, 2, 16))), NotImplementedError, "head widths"),
+    (lambda aq, mm, fa: fa(torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 2, 8)),
+                           torch.zeros((1, 8, 2, 16))), ValueError, "shapes"),
+])
+def test_kernel_api_wrappers_refuse(call, err, match):
+    """The three CUDA wrappers of the kernel API refuse CPU tensors (the
+    plain versions take them, through ``ops``) and the variants they do not
+    build, before any launch."""
+    wrappers = _api_wrappers()
+    with pytest.raises(err, match=match):
+        call(*wrappers)
+    assert all(fn.launches == 0 for fn in wrappers)
+
+
+
+def test_build_lists_six_sources_and_digests_the_shared_header(tmp_path, monkeypatch):
+    """Every ``csrc/*.cu`` is a source of the build, and a library's name
+    moves with the shared header it includes, so an edited header rebuilds
+    the kernels that include it."""
+    from repro_torch.kernels import build
+
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    assert build.SOURCES == ("w4a8_fused", "decode_attn", "mla_decode_attn", "act_quant",
+                             "w4a8_matmul", "flash_attn")
+    assert sorted(build.SOURCES) == sorted(p.stem for p in csrc.glob("*.cu"))
+    for f in csrc.glob("*.cu*"):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "_CSRC", tmp_path)
+    before = build._library("act_quant")
+    (tmp_path / "quant_common.cuh").write_text("// edited\n")
+    assert build._library("act_quant") != before

@@ -31,7 +31,8 @@ def _kv(rng, *shape):
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", None])
 def test_pool_leaves_byte_identical(fmt):
     rng = np.random.default_rng(0)
-    pool_t = {k: v[0] for k, v in tkvc.init_gqa_pool(1, N_PAGES, PAGE, KV, HD, fmt).items()}
+    pool_t = {k: v[0] for k, v in tkvc.init_gqa_pool(1, N_PAGES, PAGE, KV, HD, fmt,
+                                                               device="cpu").items()}
     pool_j = {k: v[0] for k, v in jkvc.init_gqa_pool(1, N_PAGES, PAGE, KV, HD, fmt).items()}
     null = N_PAGES
     # a previous owner left non-finite bytes in page 3 (what a failed

@@ -152,7 +152,7 @@ def _latent_pool(rng, b, r, dr, page, pp, lens, fmt, frozen):
     which ``test_mla_pool_leaves_byte_identical`` holds byte-identical to
     repro's. Returns ({name: ndarray}, page table)."""
     kw = dict(frozen_fmt="fp4_e2m1", n_frozen=b * pp) if frozen else {}
-    pool = tkvc.init_mla_pool(1, b * pp, page, r, dr, fmt, **kw)
+    pool = tkvc.init_mla_pool(1, b * pp, page, r, dr, fmt, **kw, device="cpu")
     layer = {k: v[0] for k, v in pool.items()}
     pt = np.full((b, pp), b * pp, np.int32)
     base, fidx = b * pp + 1, 0
@@ -229,7 +229,7 @@ def test_mla_pool_leaves_byte_identical(pages):
     r, dr, page, n_pages = 16, 8, 8, 8
     kw = dict(frozen_fmt="fp4_e2m1", n_frozen=3) if frozen else {}
     jpool = jkvc.init_mla_pool(2, n_pages, page, r, dr, fmt, **kw)
-    tpool = tkvc.init_mla_pool(2, n_pages, page, r, dr, fmt, **kw)
+    tpool = tkvc.init_mla_pool(2, n_pages, page, r, dr, fmt, **kw, device="cpu")
     _assert_pools_equal(tpool, jpool)
     lat = lambda b, s: {"ckv": rng.normal(size=(b, s, r)).astype(np.float32) * 3,
                         "krope": rng.normal(size=(b, s, dr)).astype(np.float32)}
