@@ -12,12 +12,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               card, at the shapes of the opt-125m serving path, with its
               time, the plain version's, one PyTorch library call's, and its
               bound (the larger of bytes / 3.35 TB/s and operations / peak);
-              then every other variant the wrappers accept (no M2, no
-              LoRC, a sliding window), checked but not timed; the
-              frozen-region variant of decode attention (FP8 pages with
-              half of each row's full pages in the packed FP4 region)
-              timed the same way, and checked at an odd head width and
-              with a window;
+              every kernel and its library call also by device time from
+              CUDA graphs (event pairs around a short call read the host's
+              enqueue time), with the bound's share of it; then every other
+              variant the wrappers accept (no M2, no LoRC, E3M0 weights,
+              activations on E5M2 or taken as they are, a sliding window),
+              checked but not timed; every W4A8 check launches twice and
+              the two outputs must be bit-identical; the frozen-region
+              variant of decode attention (FP8 pages with half of each row's
+              full pages in the packed FP4 region) timed the same way, and
+              checked at an odd head width and with a window;
 4. serve   -- opt-125m at full width, random weights from a seed, packed to
               W4A8 (FP4 E2M1 weights, M2 scales, LoRC rank 8, FP8 E4M3
               activations), served greedily over FP8 pages; every request
@@ -86,8 +90,12 @@ Phase 3 also checks and times MiniCPM3's kernels (the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
 kernel over bf16, FP8 and FP8 + FP4 frozen pages) and OLMoE's (the GEMM at
 2048 -> 2048, the batched GEMM with FP8 activations over 64 expert slabs
-at M=4, as served and dense, and at M=260, and both GQA decode variants at
-KV=16, hd 128).
+at M=4 and M=260, each as served (routed: each token's row nonzero in 8
+of the 64 slabs) and dense, and both GQA decode variants at KV=16, hd
+128), and holds the quantized paths' zero-row edge cases against the plain
+version: a slab whose only nonzero row is its last, a row whose one
+nonzero element is 1e-30, and a row with a NaN, which must come out NaN in
+every column.
 
 The last two lines are the card line and ``{"ok": true, "device": ...}``.
 The script imports nothing of jax and nothing of the JAX package.
@@ -192,6 +200,23 @@ def bound(nbytes, flops, kind):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _timed(torch, timer, kernel, plain, library):
+    """A phase 3 kernel's times: event pairs around each call (``ms``,
+    ``plain_ms``, ``library_ms``) and the device time of the kernel and of
+    its library call from CUDA graphs (``device_ms``, ``library_device_ms``:
+    see ``_device_ms``), which leaves out the host's enqueue time that an
+    event pair reads around a short call."""
+    return dict(ms=timer.ms(kernel), device_ms=_device_ms(torch, timer, kernel),
+                plain_ms=timer.ms(plain), library_ms=timer.ms(library),
+                library_device_ms=_device_ms(torch, timer, library))
+
+
+def _dev(row):
+    """The device-time part of a phase 3 log line."""
+    return (f"device {row['device_ms']:.4f} ms (library {row['library_device_ms']:.4f} ms, "
+            f"bound share {row['bound_ms'] / row['device_ms']:.3f})")
+
+
 # -- phases -----------------------------------------------------------------------
 def phase_device():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -209,9 +234,9 @@ def phase_build():
     log(f"[2 build] {len(build.SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s "
         f"({' '.join(build.FLAGS)}); each source ready after: "
         + ", ".join(f"{n} {sec:.1f} s" for n, sec in done.items()))
-    for name, out in build.build_logs.items():
+    for name, out in build.build_logs.items():  # registers and spills of every instantiation
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
 
 
@@ -227,22 +252,40 @@ def _packed(torch, k, n, gen, w_fmt="fp4_e2m1", scale_mode="m2", lorc_rank=8, gr
     return pack_linear(w, policy)
 
 
-def _w4a8_check(torch, m, k, n, gen, scale_mode="m2", lorc_rank=8):
+def _same_bits(torch, a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def _deterministic(torch, kernel, y, what):
+    """A second launch on the same inputs must write the same bits: the
+    kernel sums in a fixed order (no atomics)."""
+    y2 = kernel()
+    torch.cuda.synchronize()
+    if not _same_bits(torch, y, y2):
+        fail(f"{what}: two launches on the same inputs differ (max |diff| "
+             f"{float((y.float() - y2.float()).abs().max())})")
+
+
+def _w4a8_check(torch, m, k, n, gen, scale_mode="m2", lorc_rank=8, w_fmt="fp4_e2m1",
+                a_fmt="fp8_e4m3"):
     """A packed (n, k) weight and an (m, k) input; the kernel's output
     held against its plain version. Returns (packed, x, kernel, plain, err)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda
 
-    p = _packed(torch, k, n, gen, scale_mode=scale_mode, lorc_rank=lorc_rank)
+    p = _packed(torch, k, n, gen, w_fmt, scale_mode=scale_mode, lorc_rank=lorc_rank)
     x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
     args = (x, p.codes, p.scale, p.s_max, p.shifts, p.lorc_a, p.lorc_b)
-    kw = dict(w_fmt=p.w_fmt, a_fmt=p.a_fmt, group_size=p.group_size)
+    kw = dict(w_fmt=p.w_fmt, a_fmt=a_fmt, group_size=p.group_size)
     kernel = lambda: w4a8_fused_matmul_cuda(*args, **kw)
     plain = lambda: ref.w4a8_matmul_ref(x, p.codes, p.scale, p.lorc_a, p.lorc_b, **kw)
     y_k, y_p = kernel(), plain()
     torch.cuda.synchronize()
     err = float((y_k.float() - y_p.float()).abs().max())
-    what = f"w4a8_fused M={m} {k}->{n} scale_mode={scale_mode} lorc_rank={lorc_rank}"
+    what = (f"w4a8_fused M={m} {k}->{n} {w_fmt} a_fmt={a_fmt} scale_mode={scale_mode} "
+            f"lorc_rank={lorc_rank}")
+    _deterministic(torch, kernel, y_k, what)
     if not torch.allclose(y_k.float(), y_p.float(), rtol=W4A8_TOL, atol=W4A8_TOL):
         fail(f"{what} disagrees with its plain version: max |err| {err}")
     return p, x, kernel, plain, err
@@ -258,12 +301,13 @@ def _w4a8_case(torch, timer, m, k, n, gen):
     nbytes = m * k * 2 + n * k // 2 + n * g + n * 4 + (n * r + r * k) * 2 + m * n * 2
     flops = 2 * m * n * k + 2 * m * r * (k + n)
     b_ms, by = bound(nbytes, flops, "bf16")
-    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
-               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
+               max_abs_err=err, bytes=nbytes, flops=flops)
     log(f"    w4a8_fused M={m:3d} {k:4d}->{n:4d}: kernel {row['ms']:.4f} ms  plain "
         f"{row['plain_ms']:.4f} ms  library(bf16 matmul) {row['library_ms']:.4f} ms  bound "
         f"{b_ms * 1e3:.2f} us ({by}; {nbytes} B / 3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)"
-        f"  max|err| {err:.3g}")
+        f"  max|err| {err:.3g}  "
+        f"{_dev(row)}")
     return row
 
 
@@ -330,12 +374,13 @@ def _attn_case(torch, timer, fmt, gen, kv=12, hd=64):
               + pages_read * 4 + (pages_read * 2 * (4 + kv * 4) if fmt else 0))
     flops = sum(lens) * kv * 2 * 2 * hd  # scores and the weighted V sum, f32 FMAs
     b_ms, by = bound(nbytes, flops, "f32")
-    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
-               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
+               max_abs_err=err, bytes=nbytes, flops=flops)
     log(f"    paged_decode_attn {fmt or 'bf16'} pages B={b} H=KV={kv} hd={hd} page={page} ctx={lens}: "
         f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(SDPA) "
         f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {nbytes} B / 3.35 TB/s = "
-        f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)  max|err| {err:.3g}")
+        f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)  max|err| {err:.3g}  "
+        f"{_dev(row)}")
     return row
 
 
@@ -416,17 +461,18 @@ def _attn_frozen_case(torch, timer, gen, kv=12, hd=64):
               + b * 4 + o_k.numel() * 4 + pages_read * 4 + pages_read * 2 * (4 + kv * 4))
     flops = sum(lens) * kv * 2 * 2 * hd
     b_ms, by = bound(nbytes, flops, "f32")
-    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
-               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
+               max_abs_err=err, bytes=nbytes, flops=flops)
     log(f"    paged_decode_attn frozen variant, fp8 pages + {sum(n_frozen)} fp4 frozen pages "
         f"B={b} H=KV={kv} hd={hd} page={page} ctx={lens}: kernel {row['ms']:.4f} ms  plain "
         f"{row['plain_ms']:.4f} ms  library(SDPA) {row['library_ms']:.4f} ms  bound "
         f"{b_ms * 1e3:.2f} us ({by}; {nbytes} B / 3.35 TB/s = "
-        f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)  max|err| {err:.3g}")
+        f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)  max|err| {err:.3g}  "
+        f"{_dev(row)}")
     return row
 
 
-def _batched_check(torch, transpose, m, gen, scale_mode="m2", lorc_rank=8):
+def _batched_check(torch, transpose, m, gen, scale_mode="m2", lorc_rank=8, w_fmt="fp4_e2m1"):
     """MiniCPM3's absorbed head projections: a packed (40 * 64, 256) weight
     viewed per head (``packed_head_view``), wk_b transposed (x (40, M, 64)
     -> (40, M, 256)) or wv_b normal (x (40, M, 256) -> (40, M, 64)), bf16
@@ -439,12 +485,12 @@ def _batched_check(torch, transpose, m, gen, scale_mode="m2", lorc_rank=8):
     from repro_torch.models.layers import packed_head_view
 
     heads, n, r = 40, 64, 256
-    policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256,
+    policy = QuantPolicy(w_fmt=w_fmt, a_fmt="fp8_e4m3", group_size=256,
                          scale_mode=scale_mode, lorc_rank=lorc_rank)
     w = (torch.randn((heads * n, r), generator=gen, device=DEV) / math.sqrt(r)).to(torch.bfloat16)
     v = packed_head_view(pack_linear(w, policy), heads)
     x = torch.randn((heads, m, n if transpose else r), generator=gen, device=DEV).to(torch.bfloat16)
-    kw = dict(group_size=v.group_size, transpose_w=transpose)
+    kw = dict(w_fmt=w_fmt, group_size=v.group_size, transpose_w=transpose)
     kernel = lambda: w4a8_fused_batched_cuda(x, v.codes, v.scale, v.s_max, v.shifts, v.lorc_a,
                                              v.lorc_b, **kw)
     plain = lambda: ref.w4a8_batched_matmul_ref(x, v.codes, v.scale, v.lorc_a, v.lorc_b,
@@ -453,7 +499,8 @@ def _batched_check(torch, transpose, m, gen, scale_mode="m2", lorc_rank=8):
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
     what = (f"w4a8_fused batched {'transposed (wk_b)' if transpose else 'normal (wv_b)'} E=40 "
-            f"M={m} scale_mode={scale_mode} lorc_rank={lorc_rank}")
+            f"M={m} {w_fmt} scale_mode={scale_mode} lorc_rank={lorc_rank}")
+    _deterministic(torch, kernel, y_k, what)
     if not torch.allclose(y_k, y_p, rtol=W4A8_TOL, atol=W4A8_TOL):
         fail(f"{what} disagrees with its plain version: max |err| {err}")
     return v, x, kernel, plain, err
@@ -473,24 +520,25 @@ def _batched_case(torch, timer, transpose, gen):
               + e * n * r * 2 + r * in_f * 2 + e * m * n_out * 4)  # lorc_b: one factor for all heads
     flops = 2 * e * m * n * in_f + 2 * e * m * r * (n + in_f)
     b_ms, by = bound(nbytes, flops, "bf16")
-    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
-               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
+               max_abs_err=err, bytes=nbytes, flops=flops)
     name = "transposed (wk_b, 64->256)" if transpose else "normal (wv_b, 256->64)"
     log(f"    w4a8_fused batched {name} E=40 M=4: kernel {row['ms']:.4f} ms  plain "
         f"{row['plain_ms']:.4f} ms  library(bf16 matmul per head) {row['library_ms']:.4f} ms  "
-        f"bound {b_ms * 1e3:.3f} us ({by}; {nbytes} B)  max|err| {err:.3g}")
+        f"bound {b_ms * 1e3:.3f} us ({by}; {nbytes} B)  max|err| {err:.3g}  "
+        f"{_dev(row)}")
     return row
 
 
 OLMOE_EXPERTS = (("wu", 2048, 1024), ("wd", 1024, 2048))  # (weight, In, N); wg is wu's shape
 
 
-def _moe_weights(torch, k, n, gen, scale_mode="m2", lorc_rank=8):
+def _moe_weights(torch, k, n, gen, scale_mode="m2", lorc_rank=8, w_fmt="fp4_e2m1"):
     """64 random (n, k) expert weights, packed by the port's ``_pack_batched``."""
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.core.ptq import _pack_batched
 
-    policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256,
+    policy = QuantPolicy(w_fmt=w_fmt, a_fmt="fp8_e4m3", group_size=256,
                          scale_mode=scale_mode, lorc_rank=lorc_rank)
     w = (torch.randn((64, n, k), generator=gen, device=DEV) / math.sqrt(k)).to(torch.bfloat16)
     return _pack_batched(w, policy)
@@ -522,15 +570,64 @@ def _moe_check(torch, p, m, gen, routed=False):
     y_k, y_p = kernel(), plain()
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
-    what = (f"w4a8_fused batched fp8 (row 1d) E={e} M={m} {k}->{n}"
+    what = (f"w4a8_fused batched fp8 (row 1d) E={e} M={m} {k}->{n} {p.w_fmt}"
             f"{' routed (8 of 64 slabs per token)' if routed else ''} scale_mode="
             f"{'m2' if p.shifts is not None else 'none'} lorc_rank="
             f"{0 if p.lorc_a is None else p.lorc_a.shape[-1]}")
+    _deterministic(torch, kernel, y_k, what)
     if not torch.allclose(y_k, y_p, rtol=W4A8_TOL, atol=W4A8_TOL):
         fail(f"{what} disagrees with its plain version: max |err| {err}")
     if routed and bool((y_k.abs().sum(-1) > 0).sum() != rows):
         fail(f"{what}: the zero rows do not come out zero")
     return x, rows, kernel, plain, err, what
+
+
+def _hold_with_nan(torch, y_k, y_p, what):
+    """``y_k`` within W4A8_TOL of ``y_p``, NaN where and only where it is NaN."""
+    if not (torch.equal(y_k.isnan(), y_p.isnan())
+            and torch.allclose(y_k.float(), y_p.float(), rtol=W4A8_TOL, atol=W4A8_TOL,
+                               equal_nan=True)):
+        fail(f"{what} disagrees with its plain version: max |err| "
+             f"{float((y_k.float() - y_p.float()).nan_to_num().abs().max())}, NaN at "
+             f"{int(y_k.isnan().sum())} entries, plain {int(y_p.isnan().sum())}")
+
+
+def _compaction_checks(torch, gen, p):
+    """The quantized paths' zero rows at their edges, rows 1d (the expert
+    stack ``p``) and 1 (its first expert), each against its plain version at
+    W4A8_TOL: in one slab only the last row is nonzero (M = 70: two row
+    tiles of 64, the second ragged); in another one row's one nonzero
+    element is 1e-30 (its scale is the 1e-12 floor, so it quantizes to zero,
+    but it is no zero row); in a third one row holds a NaN beside two
+    ordinary rows, and that row must come out NaN in every column."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a8_fused import w4a8_fused_batched_cuda, w4a8_fused_matmul_cuda
+
+    e, n, k, m = p.codes.shape[0], p.codes.shape[1], 2 * p.codes.shape[2], 70
+    x = torch.zeros((e, m, k), dtype=torch.bfloat16, device=DEV)
+    x[0, m - 1] = torch.randn(k, generator=gen, device=DEV).to(torch.bfloat16)
+    x[1, 3, 17] = 1e-30
+    x[2, :3] = torch.randn((3, k), generator=gen, device=DEV).to(torch.bfloat16)
+    x[2, 5, 100] = float("nan")
+    kw = dict(w_fmt=p.w_fmt, a_fmt="fp8_e4m3", group_size=p.group_size)
+    y_k = w4a8_fused_batched_cuda(x, p.codes, p.scale, p.s_max, p.shifts, p.lorc_a, p.lorc_b, **kw)
+    y_p = ref.w4a8_batched_matmul_ref(x, p.codes, p.scale, p.lorc_a, p.lorc_b, **kw)
+    torch.cuda.synchronize()
+    what = f"w4a8_fused batched fp8 (row 1d) E={e} M={m} {k}->{n}, zero-row edge cases"
+    _hold_with_nan(torch, y_k, y_p, what)
+    if not (bool(y_k[2, 5].isnan().all()) and bool(y_k[0, m - 1].ne(0).any())
+            and not bool(y_k[0, :m - 1].any())):
+        fail(f"{what}: the NaN row is not NaN throughout, or the last row's slab is wrong")
+    log(f"    {what}: max|err| {float((y_k - y_p).nan_to_num().abs().max()):.3g}, the NaN row NaN")
+    s = lambda t: None if t is None else t[0].contiguous()
+    for xs, case in ((x[0], "only the last row nonzero"), (x[1], "one element of 1e-30"),
+                     (x[2], "a NaN row beside ordinary rows")):
+        args = (xs, p.codes[0], p.scale[0], s(p.s_max), s(p.shifts), s(p.lorc_a), s(p.lorc_b))
+        y_k = w4a8_fused_matmul_cuda(*args, **kw)
+        y_p = ref.w4a8_matmul_ref(xs, p.codes[0], p.scale[0], s(p.lorc_a), s(p.lorc_b), **kw)
+        torch.cuda.synchronize()
+        _hold_with_nan(torch, y_k, y_p, f"w4a8_fused M={m} {k}->{n}, {case}")
+    log(f"    w4a8_fused M={m} {k}->{n}: the three edge cases held against the plain version")
 
 
 def _moe_case(torch, timer, p, m, gen, routed):
@@ -546,11 +643,12 @@ def _moe_case(torch, timer, p, m, gen, routed):
               + e * m * n * 4)
     flops = 2 * rows * n * k + 2 * rows * r * (k + n)
     b_ms, by = bound(nbytes, flops, "bf16")
-    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
-               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
+               max_abs_err=err, bytes=nbytes, flops=flops)
     log(f"    {what}: kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(bf16 "
         f"bmm) {row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {nbytes} B, "
-        f"{flops} FLOP)  max|err| {err:.3g}")
+        f"{flops} FLOP)  max|err| {err:.3g}  "
+        f"{_dev(row)}")
     return row
 
 
@@ -646,12 +744,13 @@ def _mla_case(torch, timer, gen, fmt, frozen):
               + (pages_read * 2 * (4 + 4) if fmt else 0) + b * h * r * 4)
     flops = sum(lens) * h * (2 * (r + dr) + 2 * r)  # scores and the weighted latent sum
     b_ms, by = bound(nbytes, flops, "f32")
-    row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain), library_ms=timer.ms(library),
-               bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops)
+    row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
+               max_abs_err=err, bytes=nbytes, flops=flops)
     log(f"    {what} ctx={lens}{f' ({sum(n_frozen)} frozen pages)' if frozen else ''}: kernel "
         f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(SDPA) "
         f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {nbytes} B)  "
-        f"max|err| {err:.3g}")
+        f"max|err| {err:.3g}  "
+        f"{_dev(row)}")
     return row
 
 
@@ -675,6 +774,15 @@ def phase_kernels(torch):
         err = _w4a8_check(torch, 37, 3072, 768, gen, scale_mode=mode, lorc_rank=rank)[-1]
         log(f"    w4a8_fused M= 37 3072-> 768 scale_mode={mode} lorc_rank={rank}: "
             f"max|err| {err:.3g}")
+    # the variants repro serves beside the default: E3M0 weights (PRESETS
+    # ["w4a8_e3m0_fp"]), activations on E5M2 or taken as they are; at a
+    # decode step's few rows and at 260 (the wgmma path)
+    for w_fmt, a_fmt, mode in (("fp4_e3m0", "fp8_e4m3", "m2"), ("fp4_e2m1", "fp8_e5m2", "m2"),
+                               ("fp4_e2m1", None, "m2"), ("fp4_e3m0", None, "none")):
+        for m in (5, 260):
+            err = _w4a8_check(torch, m, 2560, 768, gen, mode, 8, w_fmt, a_fmt)[-1]
+            log(f"    w4a8_fused M={m:3d} 2560-> 768 {w_fmt} a_fmt={a_fmt} scale_mode={mode} "
+                f"lorc_rank=8: max|err| {err:.3g}")
     for fmt in ("fp8_e4m3", None):
         err = _attn_check(torch, fmt, gen, window=300)[-1]
         log(f"    paged_decode_attn {fmt or 'bf16'} pages, window 300: max|err| {err:.3g}")
@@ -692,6 +800,11 @@ def phase_kernels(torch):
             batched[tr]["max_abs_err"] = max(batched[tr]["max_abs_err"], err)
             log(f"    w4a8_fused batched {'transposed' if tr else 'normal'} E=40 M={m} "
                 f"scale_mode={mode} lorc_rank={rank}: max|err| {err:.3g}")
+        for m in (4, 260):  # E3M0 weights
+            err = _batched_check(torch, tr, m, gen, w_fmt="fp4_e3m0")[-1]
+            batched[tr]["max_abs_err"] = max(batched[tr]["max_abs_err"], err)
+            log(f"    w4a8_fused batched {'transposed' if tr else 'normal'} E=40 M={m} fp4_e3m0 "
+                f"scale_mode=m2 lorc_rank=8: max|err| {err:.3g}")
     mla = {(fmt, fz): _mla_case(torch, timer, gen, fmt, fz)
            for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False))}
     for h, r, dr, page in ((3, 16, 8, 4), (3, 9, 5, 4)):  # tests/test_fp4_cache.py:268-272; odd widths
@@ -715,10 +828,13 @@ def _olmoe_kernels(torch, timer, gen):
     for name, k, n in OLMOE_EXPERTS:
         p = _moe_weights(torch, k, n, gen)
         moe[(name, "routed")] = _moe_case(torch, timer, p, 4, gen, routed=True)
+        moe[(name, "routed260")] = _moe_case(torch, timer, p, 260, gen, routed=True)
         for m in (4, 260):
             moe[(name, m)] = _moe_case(torch, timer, p, m, gen, routed=False)
-    for mode, rank in (("none", 0), ("m2", 0), ("none", 8)):
-        p = _moe_weights(torch, 1024, 2048, gen, mode, rank)
+    _compaction_checks(torch, gen, p)
+    for mode, rank, w_fmt in (("none", 0, "fp4_e2m1"), ("m2", 0, "fp4_e2m1"),
+                              ("none", 8, "fp4_e2m1"), ("m2", 8, "fp4_e3m0")):
+        p = _moe_weights(torch, 1024, 2048, gen, mode, rank, w_fmt)
         for routed in (False, True):
             *_, err, what = _moe_check(torch, p, 37, gen, routed)
             log(f"    {what}: max|err| {err:.3g}")
@@ -1683,7 +1799,7 @@ def _split_pipeline(torch, x, p):
     return y
 
 
-def _device_ms(torch, timer, fn, n=50, rounds=5):
+def _device_ms(torch, timer, fn, n=30, rounds=3):
     """Device time of one call of ``fn`` after an L2 flush, without the
     host's launch time that an event pair around one short call reads: one
     CUDA graph replays ``n`` (flush, ``fn``) pairs, another ``n`` flushes
@@ -1739,11 +1855,10 @@ def _act_quant_cases(torch, timer, gen):
         nbytes = m * d * 2 + m * d * 4 + m * 4
         b_ms, by = bound(nbytes, 0, "f32")
         kernel = lambda: act_quant_cuda(x, "fp8_e4m3")
-        row = dict(ms=timer.ms(kernel), graph_ms=timer.ms(_graphed(torch, kernel)),
-                   device_ms=_device_ms(torch, timer, kernel),
-                   plain_ms=timer.ms(lambda: ref.act_quant_ref(x, "fp8_e4m3")),
-                   library_ms=timer.ms(library), bound_ms=b_ms, bound_by=by, max_abs_err=0.0,
-                   bytes=nbytes, flops=0, kind="f32")
+        row = dict(**_timed(torch, timer, kernel, lambda: ref.act_quant_ref(x, "fp8_e4m3"),
+                            library),
+                   graph_ms=timer.ms(_graphed(torch, kernel)), bound_ms=b_ms, bound_by=by,
+                   max_abs_err=0.0, bytes=nbytes, flops=0, kind="f32")
         rows[(m, d)] = row
         log(f"    act_quant ({m:3d}, {d:4d}) bf16 -> fp8_e4m3: kernel {row['ms']:.4f} ms (from a "
             f"CUDA graph {row['graph_ms']:.4f} ms; device time {row['device_ms']:.5f} ms)  plain "
@@ -1808,13 +1923,12 @@ def _split_cases(torch, timer, gen, weights):
         nbytes = m * k * 2 + n * k // 2 + n * g + n * 4 + m * n * 4
         flops = 2 * m * n * k
         b_ms, by = bound(nbytes, flops, "bf16")
-        row = dict(ms=timer.ms(kernel), graph_ms=timer.ms(_graphed(torch, kernel)),
-                   plain_ms=timer.ms(plain),
-                   library_ms=timer.ms(lambda: torch.matmul(x_q, w_deq.t())), bound_ms=b_ms,
-                   bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops, kind="bf16")
+        row = dict(**_timed(torch, timer, kernel, plain, lambda: torch.matmul(x_q, w_deq.t())),
+                   graph_ms=timer.ms(_graphed(torch, kernel)), bound_ms=b_ms, bound_by=by, max_abs_err=err, bytes=nbytes, flops=flops, kind="bf16")
         rows[(m, k, n)] = row
         log(f"    w4a8_matmul_split M={m:3d} {k:4d}->{n:4d} (fp4_e2m1, M2, g 256): kernel "
-            f"{row['ms']:.4f} ms (from a CUDA graph {row['graph_ms']:.4f} ms)  plain "
+            f"{row['ms']:.4f} ms (from a CUDA graph {row['graph_ms']:.4f} ms; device time "
+            f"{row['device_ms']:.5f} ms, library {row['library_device_ms']:.5f} ms)  plain "
             f"{row['plain_ms']:.4f} ms  library(bf16 matmul) "
             f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {nbytes} B, {flops} "
             f"FLOP)  max|err| {err:.3g} of max|y|")
@@ -1943,15 +2057,14 @@ def _flash_cases(torch, timer, gen):
         flops = 2 * pairs * (hd + dv) * h
         nbytes = 2 * s * h * (2 * hd + 2 * dv)
         b_ms, by = bound(nbytes, flops, "bf16")
-        row = dict(ms=timer.ms(kernel), plain_ms=timer.ms(plain),
-                   library_ms=timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+        row = dict(**_timed(torch, timer, kernel, plain, lambda: sdpa(qt, kt, vt, is_causal=True)),
                    bound_ms=b_ms, bound_by=by, max_abs_err=err, max_row_rel_err=row_err,
                    bytes=nbytes, flops=flops, kind="bf16")
         rows[tag] = row
         log(f"    flash_attention {tag} (B=1 H={h} hd={hd} dv={dv} S=T={s}, causal bf16): kernel "
             f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(SDPA) "
             f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {flops} FLOP, "
-            f"{nbytes} B)  max|err| {err:.3g}, worst row {row_err:.3g} of its norm")
+            f"{nbytes} B)  max|err| {err:.3g}, worst row {row_err:.3g} of its norm  {_dev(row)}")
     # checked, not timed
     for b, s, t, h, hd, dv, causal, dtype in ((1, 512, 512, 12, 64, 64, False, torch.bfloat16),
                                               (2, 300, 300, 3, 96, 64, True, torch.bfloat16),
@@ -2075,10 +2188,13 @@ def step_sum(rows, n_layers, key):
 def entry(rows, n_layers, **kw):
     """A ``kernels`` line entry: ``rows`` summed over ``n_layers`` layers."""
     b_ms, by = step_sum(rows, n_layers, "bound_ms")
+    dev = step_sum(rows, n_layers, "device_ms")
     return {**kw, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": step_sum(rows, n_layers, "ms"), "plain_ms": step_sum(rows, n_layers, "plain_ms"),
             "bound_ms": b_ms, "bound_by": by,
-            "library_ms": step_sum(rows, n_layers, "library_ms")}
+            "library_ms": step_sum(rows, n_layers, "library_ms"),
+            "device_ms": dev, "bound_share": b_ms / dev,
+            "library_device_ms": step_sum(rows, n_layers, "library_device_ms")}
 
 
 def _api_entries(launches, act, split, versus, faults, flash):
@@ -2089,7 +2205,8 @@ def _api_entries(launches, act, split, versus, faults, flash):
             "ops.w4a8_matmul_split -> LoRC matmuls, ops.flash_attention), launches from phase 11")
     shapes = lambda rows: {" ".join(map(str, key)) if isinstance(key, tuple) else key:
                            {f: r[f] for f in ("ms", "graph_ms", "device_ms", "plain_ms",
-                                              "library_ms", "bound_ms", "max_abs_err",
+                                              "library_ms", "library_device_ms", "bound_ms",
+                                              "max_abs_err",
                                               "max_row_rel_err") if f in r}
                            for key, r in rows.items()}
     return [
@@ -2100,8 +2217,7 @@ def _api_entries(launches, act, split, versus, faults, flash):
                      + ", bf16 -> fp8_e4m3; bit-identical to the plain version; library: amax + "
                        "cast to float8_e4m3fn (448 grid), nearest, not the same function; "
                        "device_ms: the kernel's own time after an L2 flush, from CUDA "
-                       "graphs of 50 launches less their flushes"),
-         "device_ms": sum(r["device_ms"] for r in act.values()),
+                       "graphs of 30 launches less their flushes"),
          "path": path, "per_shape": shapes(act)},
         {**entry(list(split.values()), 1, name="w4a8_matmul_split", route="cuda",
                  source="src/repro_torch/csrc/w4a8_matmul.cu",
@@ -2136,19 +2252,29 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32, as on the CPU
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    lap = lambda n: log(f"    (phase {n} done, {time.perf_counter() - t_start:.1f} s in)")
     card = phase_device()
     phase_build()
+    lap(2)
     gemm, attn, frozen, batched, mla, moe, olmoe_attn = phase_kernels(torch)
+    lap(3)
     cfg, packed, t_pack = _opt_125m()
     log(f"    opt-125m init + W4A8 pack on the card: {t_pack:.1f} s")
     launches = phase_serve(torch, cfg, packed)
+    lap(4)
     phase_cpu(torch, cfg, packed)
+    lap(5)
     launches_6, live = phase_prefix(torch, cfg, packed, card)
+    lap(6)
     del packed
     launches_7, live_7 = phase_mla(torch, card)
+    lap(7)
     phase_mla_cpu(torch)
+    lap(8)
     olmoe, packed_9, launches_9, live_9 = phase_moe(torch, card)
+    lap(9)
     phase_moe_cpu(torch, olmoe, packed_9)
+    lap(10)
     del packed_9
     api_launches, act, split, versus, faults, flash = phase_kernel_api(torch)
 
@@ -2188,9 +2314,7 @@ def main():
         {"name": "paged_decode_attn", "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131",
          "launches": launches["paged_decode_attn"],
-         "max_abs_err": max(r["max_abs_err"] for r in attn.values()),
-         "ms": 12 * a["ms"], "plain_ms": 12 * a["plain_ms"], "bound_ms": 12 * a["bound_ms"],
-         "bound_by": a["bound_by"], "library_ms": 12 * a["library_ms"],
+         **entry([a], 12), "max_abs_err": max(r["max_abs_err"] for r in attn.values()),
          "per": "12 launches (one per layer), fp8 pages, B=4, contexts 2048/1337/300/1",
          "olmoe": per_olmoe_attn(olmoe_attn["fp8_e4m3"],
                                  "16 launches (one per layer), fp8 pages, KV=H=16, hd 128, B=4, "
@@ -2199,10 +2323,7 @@ def main():
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131 (frozen)",
          "launches": launches_6["paged_decode_attn_frozen"],
-         "max_abs_err": max(frozen["max_abs_err"], live[0]),
-         "ms": 12 * frozen["ms"], "plain_ms": 12 * frozen["plain_ms"],
-         "bound_ms": 12 * frozen["bound_ms"], "bound_by": frozen["bound_by"],
-         "library_ms": 12 * frozen["library_ms"],
+         **entry([frozen], 12), "max_abs_err": max(frozen["max_abs_err"], live[0]),
          "per": "12 launches (one per layer), fp8 pages with half of each row's full pages "
                 "in the fp4 frozen region, B=4, contexts 2048/1337/300/1; launches from phase 6",
          "olmoe": {**per_olmoe_attn(olmoe_attn["frozen"],
@@ -2229,7 +2350,10 @@ def main():
                      "1024->2048) over E=64 slabs of M=4 rows, each token's row nonzero in 8 "
                      "slabs; launches from phase 9"),
          "max_abs_err": max(r["max_abs_err"] for r in moe.values()),
-         "per_launch_ms": {f"{w} {m}": r["ms"] for (w, m), r in moe.items()}},
+         "per_launch_ms": {f"{w} {m}": r["ms"] for (w, m), r in moe.items()},
+         "per_launch_device_ms": {f"{w} {m}": r["device_ms"] for (w, m), r in moe.items()},
+         "per_launch_library_device_ms": {f"{w} {m}": r["library_device_ms"]
+                                          for (w, m), r in moe.items()}},
         {**entry([mla[("fp8_e4m3", True)]], 62, name="paged_mla_decode_attn", route="cuda",
                  source="src/repro_torch/csrc/mla_decode_attn.cu",
                  replaces="src/repro/kernels/decode_attn.py:287",

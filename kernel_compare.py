@@ -1,0 +1,60 @@
+#!/usr/bin/env python3
+"""Device times of the W4A8 GEMM kernel rows of another checkout, for a
+before/after comparison on one card.
+
+    python3 kernel_compare.py <root of a checkout>
+
+Builds the CUDA kernels of ``<root>/src/repro_torch`` and times them with
+this checkout's ``chip_smoke.py`` timing code: phase 3's W4A8 rows (row 1 at
+opt-125m's, MiniCPM3-4B's and OLMoE-1B-7B's shapes, rows 1b and 1c at E=40,
+row 1d at M=4 and 260, as served and dense), each held against its plain
+version, with its library call; then phase 11's split-vs-fused table. Every
+reading is device time from CUDA graphs beside the event-pair time. Run it
+on the checkout itself and on a copy of the parent commit in one call.
+"""
+import json
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+
+def main():
+    if len(sys.argv) != 2:
+        cs.fail("usage: kernel_compare.py <root of a checkout>")
+    root = Path(sys.argv[1]).resolve()
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: this comparison needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.log(f"kernels of {root}")
+    card = cs.phase_device()
+    cs.phase_build()
+    timer = cs.Timer(torch)
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    rows = {}
+    shapes = [(m, k, n) for m in (4, 64, 256) for k, n in ((768, 768), (768, 3072), (3072, 768))]
+    shapes += [(4, k, n) for k, n in sorted(set(cs.MINICPM3_GEMMS))] + [(4, 2048, 2048)]
+    for m, k, n in shapes:
+        rows[f"row1 M={m} {k}->{n}"] = cs._w4a8_case(torch, timer, m, k, n, gen)
+    for tr in (False, True):
+        rows[f"row1{'c' if tr else 'b'} E=40 M=4"] = cs._batched_case(torch, timer, tr, gen)
+    for name, k, n in cs.OLMOE_EXPERTS:
+        p = cs._moe_weights(torch, k, n, gen)
+        for m, routed in ((4, True), (260, True), (4, False), (260, False)):
+            rows[f"row1d {name} M={m}{' routed' if routed else ''}"] = cs._moe_case(
+                torch, timer, p, m, gen, routed)
+    cs.log("[11 kernel api] split vs fused")
+    weights = {(k, n): cs._packed(torch, k, n, gen)
+               for k, n in sorted({(k, n) for _, k, n in cs.SPLIT_GEMMS})}
+    versus = cs._split_vs_fused(torch, timer, gen, weights)
+    keep = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "max_abs_err")
+    print(json.dumps({"root": str(root), "card": card,
+                      "rows": {k: {f: r[f] for f in keep} for k, r in rows.items()},
+                      "split_vs_fused": versus}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -36,15 +36,17 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 
 // RNE onto the saturating ExMy grid. floor(log2|v|) is read from the f32
 // exponent bits; where that differs from a rounded log2 (values a hair
-// below a power of two) both steps round to the same grid point.
+// below a power of two) both steps round to the same grid point. v / step
+// is taken as v * (1 / step): both are powers of two inside the f32 normal
+// range (the exponent is clamped to the grid's), so the product is the
+// quotient exactly, without a division.
 __device__ __forceinline__ float round_to_grid(float v, const Grid& g) {
   if (v != v) return v;
   float a = fabsf(v);
   if (a == 0.f) return 0.f;
   int e = ((__float_as_int(fmaxf(a, 1e-38f)) >> 23) & 0xff) - 127;
   e = max(g.min_exp, min(g.max_exp, e));
-  float step = pow2i(e - g.man_bits);
-  float q = rintf(v / step) * step;
+  float q = rintf(v * pow2i(g.man_bits - e)) * pow2i(e - g.man_bits);
   return fminf(fmaxf(q, -g.max_value), g.max_value);
 }
 

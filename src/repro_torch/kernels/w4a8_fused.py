@@ -8,12 +8,17 @@ launch the kernel on the current stream. They count their launches:
 ``w4a8_fused_batched_cuda.quant_launches`` (normal, FP8 activations) /
 ``w4a8_fused_batched_cuda.transposed_launches``. They take CUDA tensors
 only: the plain versions for the CPU are ``ref.w4a8_matmul_ref`` and
-``ref.w4a8_batched_matmul_ref`` (``ops`` dispatches). The kernel covers
-what the serving path runs: FP4 E2M1 weights with or without M2 and LoRC;
-bf16 activations quantized to FP8 E4M3 in-kernel by the 2-D GEMM and by
-the batched normal orientation with ``a_fmt`` set (the MoE expert stacks),
-taken as they are by the batched orientations without it (the MLA absorbed
-projections); the wrappers refuse any other variant.
+``ref.w4a8_batched_matmul_ref`` (``ops`` dispatches). The kernel runs
+every variant ``repro`` serves: FP4 E2M1 or E3M0 weights with or without
+M2 and LoRC; bf16 activations quantized token-wise onto FP8 E4M3 or E5M2
+in-kernel, or taken as they are (``a_fmt=None``), by the 2-D GEMM and the
+batched normal orientation; taken as they are by the transposed one. The
+wrappers refuse only the transposed orientation with quantized
+activations, which no ``repro`` path runs.
+
+``gemm_plan`` is the launch plan of every W4A8 GEMM launch (this kernel
+and the split GEMM, ``csrc/w4a8_gemm.cuh``): the output channels of a
+block and the number of blocks of a thread-block cluster that split K.
 """
 from __future__ import annotations
 
@@ -26,12 +31,61 @@ from repro_torch.core.formats import FORMATS
 
 from . import build
 
-__all__ = ["w4a8_fused_matmul_cuda", "w4a8_fused_batched_cuda"]
+__all__ = ["w4a8_fused_matmul_cuda", "w4a8_fused_batched_cuda", "gemm_plan", "chunk_ranges",
+           "W_FORMATS", "A_FORMATS"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+
+W_FORMATS = ("fp4_e2m1", "fp4_e3m0")
+A_FORMATS = (None, "fp8_e4m3", "fp8_e5m2")
+SMS = 132       # streaming multiprocessors of an H100 SXM
+BK = 64         # the kernel's contraction chunk (csrc/w4a8_gemm.cuh)
+TM = 64         # its rows of a block
+MAX_KS = 8      # blocks of a cluster (the portable limit)
+SLOTS = 2 * SMS  # blocks the card runs at once: two of 256 threads a streaming multiprocessor
 
 
-_LL = ctypes.c_longlong
+def gemm_plan(m: int, n_out: int, k: int, e: int = 1):
+    """The launch plan of x (e, m, k) -> (e, m, n_out): (bn, ks), the output
+    channels of a block (128, 64 or 32, no wider than n_out needs) and the
+    blocks of a cluster that split the k / 64 chunks. The widest tile that
+    reaches SMS blocks with at most MAX_KS splits, then as many splits as
+    fit one wave of SLOTS blocks (a block's lifetime is mostly latency, so
+    fewer chunks a block is shorter; a second wave would double it). A
+    decode step's weight is read by every SM; a stacked launch (the MoE
+    experts) splits nothing."""
+    chunks = -(-k // BK)
+    row_tiles = -(-m // TM) * e
+    widths = [bn for bn in (128, 64, 32) if bn <= max(32, -(-n_out // 32) * 32)]
+    for bn in widths:
+        tiles = -(-n_out // bn) * row_tiles
+        if tiles * min(MAX_KS, chunks) >= SMS:
+            break
+    ks = max(1, min(MAX_KS, chunks, SLOTS // tiles))
+    return bn, ks
+
+
+def chunk_ranges(k: int, ks: int):
+    """The K chunks of each block of a cluster: rank q takes chunks
+    [q * n // ks, (q + 1) * n // ks) of n = ceil(k / 64), as the kernel does."""
+    n = -(-k // BK)
+    return [range(q * n // ks, (q + 1) * n // ks) for q in range(ks)]
+
+
+def _refuse(w_fmt, a_fmt, transpose_w=False):
+    if w_fmt not in W_FORMATS or a_fmt not in A_FORMATS:
+        raise NotImplementedError(
+            f"w_fmt={w_fmt!r}, a_fmt={a_fmt!r}: the CUDA kernel runs {W_FORMATS} weights with "
+            f"activations quantized onto {A_FORMATS[1:]} or taken as they are (None)")
+    if a_fmt is not None and transpose_w:
+        raise NotImplementedError(
+            "the transposed orientation takes its activations as they are (a_fmt=None): no "
+            "served path quantizes them there")
+
+
+def _grid(a_fmt):
+    g = FORMATS[a_fmt or "fp8_e4m3"]
+    return g.man_bits, g.min_exp, g.max_exp, g.max_value, 1.0 / g.max_value
 
 
 def _lib():
@@ -39,7 +93,7 @@ def _lib():
     fn = lib.w4a8_fused_launch
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _F, _P]
+                       _F, _F, _I, _I, _I, _I, _P]
         fn.restype = _I
     return fn
 
@@ -47,7 +101,8 @@ def _lib():
 def _batched_lib():
     fn = build.load("w4a8_fused").w4a8_batched_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 6 + [_LL, _LL, _I, _I, _I, _I, _I, _F, _F, _P]
+        fn.argtypes = [_P] * 8 + [_I] * 6 + [_LL, _LL, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                                             _P]
         fn.restype = _I
     return fn
 
@@ -67,14 +122,12 @@ def _ptr(t: Optional[torch.Tensor]):
 def w4a8_fused_matmul_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=None,
                            lorc_b=None, *, w_fmt: str = "fp4_e2m1",
                            a_fmt: Optional[str] = "fp8_e4m3", group_size: int = 256):
-    """x: (M, K) bf16 raw activations (quantized to FP8 E4M3 in-kernel);
-    codes: (N, K/2) uint8 E2M1 nibbles; scale: (N, G) f32; optional M2
-    split s_max (N, 1) f32 + shifts (N, G) int8 and LoRC lorc_a (N, r) /
-    lorc_b (r, K) bf16. Returns (M, N) bf16."""
-    if w_fmt != "fp4_e2m1" or a_fmt != "fp8_e4m3":
-        raise NotImplementedError(
-            f"w_fmt={w_fmt!r}, a_fmt={a_fmt!r}: the CUDA kernel runs fp4_e2m1 weights with "
-            "fp8_e4m3 activations only (ROADMAP queue 2: other W4A8 variants)")
+    """x: (M, K) bf16 raw activations (quantized onto ``a_fmt`` in-kernel,
+    or taken as they are when it is None); codes: (N, K/2) uint8 ``w_fmt``
+    nibbles; scale: (N, G) f32; optional M2 split s_max (N, 1) f32 + shifts
+    (N, G) int8 and LoRC lorc_a (N, r) / lorc_b (r, K) bf16. Returns (M, N)
+    bf16."""
+    _refuse(w_fmt, a_fmt)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"w4a8_fused_matmul_cuda takes CUDA tensors, got {dev}")
@@ -98,12 +151,11 @@ def w4a8_fused_matmul_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=None
             raise ValueError(f"LoRC rank {r} > 32 (the kernel's epilogue bound)")
         _check(lorc_a, "lorc_a", torch.bfloat16, (n, r), dev)
         _check(lorc_b, "lorc_b", torch.bfloat16, (r, k), dev)
-    grid = FORMATS[a_fmt]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     rc = _lib()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(shifts), _ptr(s_max),
                 _ptr(lorc_a) if r else None, _ptr(lorc_b) if r else None, out.data_ptr(),
-                m, n, k, group_size, r, grid.man_bits, grid.min_exp, grid.max_exp,
-                grid.max_value, 1.0 / grid.max_value,
+                m, n, k, group_size, r, *_grid(a_fmt), int(a_fmt is not None),
+                int(w_fmt == "fp4_e3m0"), *gemm_plan(m, n, k),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"w4a8_fused kernel launch failed: CUDA error {rc}")
@@ -118,21 +170,14 @@ def w4a8_fused_batched_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=Non
                             lorc_b=None, *, w_fmt: str = "fp4_e2m1", a_fmt: Optional[str] = None,
                             group_size: int = 256, transpose_w: bool = False):
     """Batched W4A8 over E stacked weights, bf16 activations, quantized
-    token-wise onto ``a_fmt`` (FP8 E4M3, normal orientation only) in-kernel
-    or taken as they are (``a_fmt=None``). codes: (E, N, In/2) uint8 E2M1
+    token-wise onto ``a_fmt`` (FP8, normal orientation only) in-kernel or
+    taken as they are (``a_fmt=None``). codes: (E, N, In/2) uint8 ``w_fmt``
     nibbles; scale: (E, N, G) f32; optional M2 split s_max (E, N, 1) f32 +
     shifts (E, N, G) int8, and LoRC lorc_a (E, N, r) / lorc_b (E, r, In)
     bf16 (lorc_b may be a stride-0 broadcast over E). Normal: x (E, M, In)
     -> (E, M, N) = x W^T; ``transpose_w``: x (E, M, N) -> (E, M, In) = x W.
     Returns f32."""
-    if w_fmt != "fp4_e2m1" or a_fmt not in (None, "fp8_e4m3"):
-        raise NotImplementedError(
-            f"w_fmt={w_fmt!r}, a_fmt={a_fmt!r}: the batched CUDA kernel runs fp4_e2m1 weights "
-            "with bf16 activations, quantized to fp8_e4m3 or taken as they are")
-    if a_fmt is not None and transpose_w:
-        raise NotImplementedError(
-            "the transposed orientation takes its activations as they are (a_fmt=None): no "
-            "served path quantizes them there")
+    _refuse(w_fmt, a_fmt, transpose_w)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"w4a8_fused_batched_cuda takes CUDA tensors, got {dev}")
@@ -169,13 +214,13 @@ def w4a8_fused_batched_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=Non
             raise ValueError(f"lorc_b: want bf16 (E, r, In) = {(e, r, in_f)} with row-major "
                              f"slices of stride r*In or 0, got {lorc_b.dtype} "
                              f"{tuple(lorc_b.shape)} strides {lorc_b.stride()}")
-    out = torch.empty((e, m, in_f if transpose_w else n), dtype=torch.float32, device=dev)
-    grid = FORMATS[a_fmt or "fp8_e4m3"]
+    n_out = in_f if transpose_w else n
+    out = torch.empty((e, m, n_out), dtype=torch.float32, device=dev)
     rc = _batched_lib()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(shifts),
                         _ptr(s_max), _ptr(lorc_a) if r else None, _ptr(lorc_b) if r else None,
                         out.data_ptr(), e, m, n, in_f, group_size, r, n * r, s_lb,
-                        int(transpose_w), int(a_fmt is not None), grid.man_bits, grid.min_exp,
-                        grid.max_exp, grid.max_value, 1.0 / grid.max_value,
+                        int(transpose_w), int(a_fmt is not None), *_grid(a_fmt),
+                        int(w_fmt == "fp4_e3m0"), *gemm_plan(m, n_out, d, e),
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"w4a8_fused batched kernel launch failed: CUDA error {rc}")

@@ -16,18 +16,17 @@ from typing import Optional
 import torch
 
 from . import build
-from .w4a8_fused import _check, _ptr
+from .w4a8_fused import W_FORMATS as SPLIT_W_FORMATS, _check, _ptr, gemm_plan
 
 __all__ = ["w4a8_matmul_cuda", "SPLIT_W_FORMATS"]
 
-SPLIT_W_FORMATS = ("fp4_e2m1", "fp4_e3m0")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib():
     fn = build.load("w4a8_matmul").w4a8_split_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
     return fn
 
@@ -63,7 +62,7 @@ def w4a8_matmul_cuda(x_q, codes, scale, s_max: Optional[torch.Tensor] = None,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     rc = _lib()(x_q.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(shifts), _ptr(s_max),
                 out.data_ptr(), m, n, k, group_size, int(w_fmt == "fp4_e3m0"),
-                torch.cuda.current_stream(dev).cuda_stream)
+                *gemm_plan(m, n, k), torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"w4a8_matmul kernel launch failed: CUDA error {rc}")
     w4a8_matmul_cuda.launches += 1

@@ -9,6 +9,7 @@ cast back to the activation dtype.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -18,7 +19,7 @@ from repro_torch.core.quantize import fake_quantize_act
 from .params import ParamDef
 
 __all__ = ["PackedLinear", "linear", "batched_linear", "packed_head_view", "quant_act",
-           "norm", "norm_params", "activation", "mlp_params", "mlp", "rope_freqs",
+           "norm", "norm_params", "activation", "xla_tanh", "mlp_params", "mlp", "rope_freqs",
            "apply_rope"]
 
 
@@ -136,13 +137,55 @@ def norm(p, x: torch.Tensor, kind: str, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+# XLA's f32 tanh on the CPU: x * P(x^2) / Q(x^2), each Horner step one fused
+# multiply-add, x itself below 0.0004 and +-1 above 7.99881172180175781.
+# Held bit for bit against jax.numpy.tanh (tests/test_torch_gelu.py).
+_TANH_P = (-2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+           5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+           4.89352455891786e-03)
+_TANH_Q = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+           4.89352518554385e-03)
+_TANH_SMALL, _TANH_ONE = 0.0004, 7.99881172180175781
+
+
+def _horner_fma(x2: torch.Tensor, coeffs) -> torch.Tensor:
+    """f32 Horner steps p * x2 + c, each rounded once to f32 as an FMA
+    rounds it (the f64 product of two f32 values is exact)."""
+    x2d = x2.double()
+    p = torch.full_like(x2d, float(torch.tensor(coeffs[0], dtype=torch.float32)))
+    for c in coeffs[1:]:
+        p = (p * x2d + float(torch.tensor(c, dtype=torch.float32))).float().double()
+    return p.float()
+
+
+def xla_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh of an f32 tensor as XLA computes it on the CPU (the reference's
+    backend): its rational approximation, not torch's tanh."""
+    x = x.float()
+    ax = x.abs()
+    x2 = x * x
+    r = x * _horner_fma(x2, _TANH_P) / _horner_fma(x2, _TANH_Q)
+    r = torch.where(ax > _TANH_ONE, torch.sign(x), r)
+    return torch.where(ax < _TANH_SMALL, x, r)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(x, approximate=True)'s op chain, each op rounded to
+    x.dtype as the reference rounds it: its constants sqrt(2/pi) and 0.044715
+    in x.dtype, x**3 as x * (x * x), tanh in f32 (XLA's) rounded once."""
+    dt = x.dtype
+    const = lambda v: torch.tensor(v, dtype=torch.float64).to(dt)
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * (x * x)))
+    return x * (0.5 * (1.0 + xla_tanh(inner).to(dt)))
+
+
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         # jax.nn.silu's op chain, each op rounded to x.dtype as the
         # reference rounds it (torch's fused silu rounds once)
         return x * (1 / (1 + torch.exp(-x)))
     if kind == "gelu":
-        return torch.nn.functional.gelu(x, approximate="tanh")
+        return _gelu_tanh(x)
     if kind == "relu":
         return torch.relu(x)
     if kind == "relu2":

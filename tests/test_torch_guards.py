@@ -24,7 +24,8 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                     ROOT / "kernel_compare.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
@@ -69,7 +70,7 @@ def _batched_operands(e=4, n=64, k=256, m=3):
     ({}, ValueError),                                  # CPU tensors: the plain version's
     ({"a_fmt": "fp8_e4m3", "transpose_w": True},       # FP8 activations, transposed: no
      NotImplementedError),                             # served path runs them
-    ({"w_fmt": "fp4_e3m0"}, NotImplementedError),      # E3M0 weights are not built
+    ({"w_fmt": "fp4_e3m0"}, ValueError),               # CPU tensors, E3M0 weights (built)
     ({"a_fmt": "fp8_e4m3"}, ValueError),               # CPU tensors, FP8 activations (row 1d)
 ])
 def test_batched_w4a8_wrapper_refuses(kw, err):

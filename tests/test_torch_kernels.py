@@ -93,6 +93,22 @@ def test_w4a8_plain_e3m0_and_no_act_quant(w_fmt):
                                    .astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("w_fmt", ["fp4_e2m1", "fp4_e3m0"])
+def test_w4a8_plain_e5m2_activations(w_fmt):
+    """The 2-D GEMM with activations quantized onto FP8 E5M2 (a variant the
+    card now runs): the port's plain version against repro's oracle."""
+    rng = np.random.default_rng(5)
+    jp = _packed(rng, 64, 256, 64, w_fmt, "m2", 4)
+    w = _port(jp)
+    x = (rng.normal(size=(9, 256)) * 7.0).astype(np.float32)
+    y = to_np(tref.w4a8_matmul_ref(t(x), w.codes, w.scale, w.lorc_a, w.lorc_b, w_fmt=w_fmt,
+                                   a_fmt="fp8_e5m2", group_size=64))
+    y_ref = np.asarray(jref.w4a8_matmul_ref(jnp.asarray(x), jp.codes, jp.scale, jp.lorc_a,
+                                            jp.lorc_b, w_fmt=w_fmt, a_fmt="fp8_e5m2",
+                                            group_size=64))
+    np.testing.assert_allclose(y, y_ref, rtol=1e-4, atol=1e-4)
+
+
 def _pool(rng, kv, hd, page, pp, lens, fmt):
     """A random 1-layer pool (every E4M3 code is a finite grid value) and a
     page table whose entries past each row's pages point at the null page."""
@@ -169,15 +185,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                k_fz=torch.zeros(1))
 
 
-@pytest.mark.parametrize("w_fmt,a_fmt", [("fp4_e3m0", "fp8_e4m3"), ("fp4_e2m1", None),
-                                          ("fp4_e2m1", "fp8_e5m2")])
-def test_w4a8_cuda_wrapper_refuses_variants_it_does_not_build(w_fmt, a_fmt):
-    """The kernel compiles only E2M1 weights with FP8 E4M3 activations; any
-    other variant raises before a launch (the plain version takes it)."""
+@pytest.mark.parametrize("w_fmt,a_fmt,err,match", [
+    ("fp4_e3m0", "fp8_e4m3", ValueError, "CUDA"),   # E3M0 weights: built, so only
+    ("fp4_e2m1", None, ValueError, "CUDA"),         # the CPU tensors are refused;
+    ("fp4_e2m1", "fp8_e5m2", ValueError, "CUDA"),   # activations as they are, E5M2
+    ("fp8_e4m3", "fp8_e4m3", NotImplementedError, "fp4_e2m1"),  # not an FP4 weight
+])
+def test_w4a8_cuda_wrapper_refuses_variants_it_does_not_build(w_fmt, a_fmt, err, match):
+    """The kernel builds every W4A8 variant repro serves (E2M1 and E3M0
+    weights; FP8 E4M3, E5M2 or unquantized activations): those pass the
+    variant check and stop at the CPU tensors; any other weight format
+    raises before a launch (the plain version takes it)."""
     x = torch.zeros((2, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="fp4_e2m1 weights with fp8_e4m3"):
+    with pytest.raises(err, match=match):
         w4a8_fused_matmul_cuda(x, torch.zeros((8, 32), dtype=torch.uint8), torch.ones((8, 1)),
                                w_fmt=w_fmt, a_fmt=a_fmt, group_size=64)
+    assert w4a8_fused_matmul_cuda.launches == 0
 
 
 def test_build_refuses_without_nvcc(monkeypatch):
