@@ -17,11 +17,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               enqueue time), with the bound's share of it; then every other
               variant the wrappers accept (no M2, no LoRC, E3M0 weights,
               activations on E5M2 or taken as they are, a sliding window),
-              checked but not timed; every W4A8 check launches twice and
-              the two outputs must be bit-identical; the frozen-region
-              variant of decode attention (FP8 pages with half of each row's
-              full pages in the packed FP4 region) timed the same way, and
-              checked at an odd head width and with a window;
+              checked but not timed; every W4A8 and decode-attention check
+              launches twice and the two outputs must be bit-identical; the
+              frozen-region variant of decode attention (FP8 pages with half
+              of each row's full pages in the packed FP4 region) timed the
+              same way, and checked at an odd head width and with a window;
+              both decode-attention variants also at the split plan's edges
+              (a row at kv_len 0, rows ending on a split boundary, a window
+              starting on one), with NaN planted outside the valid tokens
+              (stale page tails, the null page, the frozen dummy row), and
+              at g = 4 query heads a KV head (H 32, KV 8, hd 128);
 4. serve   -- opt-125m at full width, random weights from a seed, packed to
               W4A8 (FP4 E2M1 weights, M2 scales, LoRC rank 8, FP8 E4M3
               activations), served greedily over FP8 pages; every request
@@ -311,16 +316,59 @@ def _w4a8_case(torch, timer, m, k, n, gen):
     return row
 
 
-def _attn_check(torch, fmt, gen, window=0, kv=12, hd=64):
+ATTN_LENS = [2048, 1337, 300, 1]  # ragged contexts, up to 2048 tokens (32 pages of 64)
+
+
+def _stale_nan(layer, table, lens, page, fmt, frozen=False):
+    """NaN where no valid token lies: in bf16 pages the tail of each row's
+    last page past its length, and the whole null page (id P); FP8 and FP4
+    codes all decode finite, so there the null page's s_max is NaN, and with
+    the frozen region also the dummy row's, with every second row's unused
+    table entries pointed at the dummy id. The outputs must stay finite."""
+    n_null = layer["k"].shape[0] - 1
+    nan = float("nan")
+    for name in ("k", "v"):
+        if fmt:
+            layer[name + "_smax"][n_null] = nan
+        else:
+            layer[name][n_null] = nan
+            for row, n in enumerate(lens):
+                if n % page:
+                    layer[name][int(table[row, (n - 1) // page]), n % page:] = nan
+        if frozen:
+            layer[name + "_fz_smax"][-1] = nan
+    if frozen:
+        dummy = n_null + layer["k_fz"].shape[0]  # P + 1 + nfz
+        for row, n in enumerate(lens):
+            if row % 2:
+                table[row, -(-n // page):] = dummy
+
+
+def _attn_held(torch, o_k, o_p, kernel, what, nan):
+    """The kernel's output against its plain version, bit-identical on a
+    second launch, finite where NaN was planted outside the valid tokens."""
+    torch.cuda.synchronize()
+    err = float((o_k - o_p).abs().max())
+    _deterministic(torch, kernel, o_k, what)
+    if nan and not bool(torch.isfinite(o_k).all()):
+        fail(f"{what}: a NaN planted outside the valid tokens reached the output")
+    if not torch.allclose(o_k, o_p, rtol=ATTN_TOL, atol=ATTN_TOL):
+        fail(f"{what} disagrees with its plain version: max |err| {err}")
+    return err
+
+
+def _attn_check(torch, fmt, gen, window=0, kv=12, hd=64, h=None, lens=None, nan=False):
     """A random pool at the decode shapes of opt-125m (``kv`` heads of width
-    ``hd``; OLMoE-1B-7B: 16 of 128) and the kernel's output held against its
-    plain version. Returns the operands, the two callables and the error."""
+    ``hd``; OLMoE-1B-7B: 16 of 128; ``h`` query heads, ``kv`` by default)
+    and the kernel's output held against its plain version (and launched
+    twice, bit-identical). ``nan``: see ``_stale_nan``. Returns the
+    operands, the two callables and the error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attn import paged_decode_attn_cuda
     from repro_torch.runtime import kv_cache as kvc
 
     b, page = 4, 64
-    lens = [2048, 1337, 300, 1]  # ragged contexts, up to 2048 tokens
+    lens = lens or ATTN_LENS
     pp = 2048 // page
     n_pages = b * pp
     shape = (n_pages + 1, page, kv, hd)
@@ -337,9 +385,11 @@ def _attn_check(torch, fmt, gen, window=0, kv=12, hd=64):
     for row, n in enumerate(lens):
         npg = kvc.pages_needed(n, page)
         table[row, :npg] = perm[row * pp: row * pp + npg].to(torch.int32)
+    if nan:
+        _stale_nan(layer, table, lens, page, fmt)
     table = table.to(DEV)
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
-    q = torch.randn((b, kv, hd), generator=gen, device=DEV).to(torch.bfloat16)
+    q = torch.randn((b, h or kv, hd), generator=gen, device=DEV).to(torch.bfloat16)
     sc = ((layer["k_smax"], layer["k_shift"], layer["v_smax"], layer["v_shift"]) if fmt
           else (None,) * 4)
     kernel = lambda: paged_decode_attn_cuda(q, layer["k"], layer["v"], *sc, table, kv_lens,
@@ -347,11 +397,9 @@ def _attn_check(torch, fmt, gen, window=0, kv=12, hd=64):
     plain = lambda: ref.paged_decode_attn_ref(q, layer["k"], layer["v"], *sc, table, kv_lens,
                                               fmt=fmt, window=window)
     o_k, o_p = kernel(), plain()
-    torch.cuda.synchronize()
-    err = float((o_k - o_p).abs().max())
-    if not torch.allclose(o_k, o_p, rtol=ATTN_TOL, atol=ATTN_TOL):
-        fail(f"paged_decode_attn ({fmt or 'bf16'} pages, KV {kv}, hd {hd}, window {window}) "
-             f"disagrees with its plain version: max |err| {err}")
+    what = (f"paged_decode_attn ({fmt or 'bf16'} pages, H {h or kv}, KV {kv}, hd {hd}, "
+            f"window {window}, lens {lens}{', NaN planted' if nan else ''})")
+    err = _attn_held(torch, o_k, o_p, kernel, what, nan)
     return layer, table, kv_lens, lens, q, o_k, kernel, plain, err
 
 
@@ -384,16 +432,17 @@ def _attn_case(torch, timer, fmt, gen, kv=12, hd=64):
     return row
 
 
-def _frozen_layer(torch, gen, hd, kv=12):
+def _frozen_layer(torch, gen, hd, kv=12, lens=None, nan=False):
     """A random mixed-precision pool layer at the decode shapes of opt-125m
-    (B=4, KV=12, page 64, contexts 2048/1337/300/1; OLMoE: KV=16, hd 128)
+    (B=4, KV=12, page 64, contexts ``ATTN_LENS``; OLMoE: KV=16, hd 128)
     and its table: the first half of each row's full pages sit in the
-    packed FP4 frozen region (ids >= P+1), the rest are FP8 pages. Returns
-    (layer, table, kv_lens, lens, frozen pages per row)."""
+    packed FP4 frozen region (ids >= P+1), the rest are FP8 pages. ``nan``:
+    see ``_stale_nan``. Returns (layer, table, kv_lens, lens, frozen pages
+    per row)."""
     from repro_torch.runtime import kv_cache as kvc
 
     b, page = 4, 64
-    lens = [2048, 1337, 300, 1]
+    lens = lens or ATTN_LENS
     pp = 2048 // page
     n_pages = b * pp
     layer = {}
@@ -412,6 +461,8 @@ def _frozen_layer(torch, gen, hd, kv=12):
         table[row, :npg] = perm[row * pp: row * pp + npg].to(torch.int32)
         table[row, :nfr] = n_pages + 1 + fperm[row * pp: row * pp + nfr].to(torch.int32)
         n_frozen.append(nfr)
+    if nan:
+        _stale_nan(layer, table, lens, page, "fp8_e4m3", frozen=True)
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
     return layer, table.to(DEV), kv_lens, lens, n_frozen
 
@@ -429,17 +480,46 @@ def _frozen_calls(layer, table, kv_lens, q, window=0):
             lambda: ref.paged_decode_attn_ref(*args, **kw, **fz))
 
 
-def _attn_frozen_check(torch, gen, hd=64, window=0, kv=12):
-    layer, table, kv_lens, lens, n_frozen = _frozen_layer(torch, gen, hd, kv)
-    q = torch.randn((4, kv, hd), generator=gen, device=DEV).to(torch.bfloat16)
+def _attn_frozen_check(torch, gen, hd=64, window=0, kv=12, h=None, lens=None, nan=False):
+    layer, table, kv_lens, lens, n_frozen = _frozen_layer(torch, gen, hd, kv, lens, nan)
+    q = torch.randn((4, h or kv, hd), generator=gen, device=DEV).to(torch.bfloat16)
     kernel, plain = _frozen_calls(layer, table, kv_lens, q, window)
     o_k, o_p = kernel(), plain()
-    torch.cuda.synchronize()
-    err = float((o_k - o_p).abs().max())
-    if not torch.allclose(o_k, o_p, rtol=ATTN_TOL, atol=ATTN_TOL):
-        fail(f"paged_decode_attn frozen variant (KV {kv}, hd {hd}, window {window}) disagrees "
-             f"with its plain version: max |err| {err}")
+    what = (f"paged_decode_attn frozen variant (H {h or kv}, KV {kv}, hd {hd}, window {window}, "
+            f"lens {lens}{', NaN planted' if nan else ''})")
+    err = _attn_held(torch, o_k, o_p, kernel, what, nan)
     return layer, table, kv_lens, lens, n_frozen, q, o_k, kernel, plain, err
+
+
+def _attn_edge_checks(torch, gen, kv, hd):
+    """Rows 2 and 2b where the split plan has edges, at KV heads of width
+    hd: a row at kv_len 0 (must return 0), rows ending exactly on a split
+    boundary and one token past it, a window starting exactly on one; NaN
+    planted outside the valid tokens. Returns the largest error of each
+    row."""
+    from repro_torch.kernels.decode_attn import decode_attn_plan
+
+    span = decode_attn_plan(4, kv, kv, hd, 64, 2048 // 64).pps * 64
+    lens = [2 * span, 0, span, span + 1]
+    worst = [0.0, 0.0]
+    for window in (0, span):
+        for i, check in enumerate((lambda: _attn_check(torch, "fp8_e4m3", gen, window, kv, hd,
+                                                       lens=lens),
+                                   lambda: _attn_check(torch, None, gen, window, kv, hd,
+                                                       lens=lens),
+                                   lambda: _attn_frozen_check(torch, gen, hd, window, kv,
+                                                              lens=lens))):
+            *_, o_k, _, _, err = check()
+            if bool(o_k[1].ne(0).any()):
+                fail(f"paged_decode_attn check {i} (window {window}): the kv_len 0 row is not 0")
+            worst[i // 2] = max(worst[i // 2], err)
+    for fmt in ("fp8_e4m3", None):
+        worst[0] = max(worst[0], _attn_check(torch, fmt, gen, 0, kv, hd, nan=True)[-1])
+    worst[1] = max(worst[1], _attn_frozen_check(torch, gen, hd, 0, kv, nan=True)[-1])
+    log(f"    paged_decode_attn KV={kv} hd={hd}, split span {span} tokens: kv_len 0, lens on "
+        f"and past a split boundary, a window from one, NaN outside the valid tokens: max|err| "
+        f"{worst[0]:.3g} (fp8, bf16 pages), {worst[1]:.3g} (frozen variant)")
+    return worst
 
 
 def _attn_frozen_case(torch, timer, gen, kv=12, hd=64):
@@ -790,6 +870,9 @@ def phase_kernels(torch):
         err = _attn_frozen_check(torch, gen, hd=hd, window=window)[-1]
         frozen["max_abs_err"] = max(frozen["max_abs_err"], err)
         log(f"    paged_decode_attn frozen variant, hd {hd}, window {window}: max|err| {err:.3g}")
+    err2, err2b = _attn_edge_checks(torch, gen, 12, 64)
+    attn["fp8_e4m3"]["max_abs_err"] = max(attn["fp8_e4m3"]["max_abs_err"], err2)
+    frozen["max_abs_err"] = max(frozen["max_abs_err"], err2b)
     # slice 3: MiniCPM3-4B's shapes (row 1 at a decode step; rows 1b, 1c, 3)
     for k, n in sorted(set(MINICPM3_GEMMS)):
         gemm[(4, k, n)] = _w4a8_case(torch, timer, 4, k, n, gen)
@@ -822,8 +905,9 @@ def _olmoe_kernels(torch, timer, gen):
     1024->2048) as served (M=4, each token's row nonzero in 8 of the 64
     slabs) and on raw activations at M=4 and 260, timed; the other M2 and
     LoRC variants checked at an M that is no multiple of the block rows.
-    Rows 2 and 2b at KV=H=16, hd 128 (67 KB of dynamic shared memory),
-    timed; row 2 over bf16 pages and row 2b with a window, checked."""
+    Rows 2 and 2b at KV=H=16, hd 128, timed; row 2 over bf16 pages and row
+    2b with a window, the split plan's edges (``_attn_edge_checks``) and
+    GQA at g = 4 (H 32, KV 8), checked."""
     moe = {}
     for name, k, n in OLMOE_EXPERTS:
         p = _moe_weights(torch, k, n, gen)
@@ -846,6 +930,16 @@ def _olmoe_kernels(torch, timer, gen):
     err = _attn_frozen_check(torch, gen, hd=128, window=300, kv=16)[-1]
     attn["frozen"]["max_abs_err"] = max(attn["frozen"]["max_abs_err"], err)
     log(f"    paged_decode_attn frozen variant KV=16 hd=128, window 300: max|err| {err:.3g}")
+    err2, err2b = _attn_edge_checks(torch, gen, 16, 128)
+    # GQA at g = 4 (H 32 over KV 8, hd 128): four query heads a block share
+    # each decoded element; no served model has g > 1
+    for window in (0, 300):
+        err2 = max(err2, _attn_check(torch, "fp8_e4m3", gen, window, 8, 128, h=32)[-1])
+        err2b = max(err2b, _attn_frozen_check(torch, gen, 128, window, 8, h=32)[-1])
+    log(f"    paged_decode_attn H=32 KV=8 hd=128 (g 4), windows 0 and 300: max|err| {err2:.3g} "
+        f"(fp8 pages), {err2b:.3g} (frozen variant)")
+    attn["fp8_e4m3"]["max_abs_err"] = max(attn["fp8_e4m3"]["max_abs_err"], err2)
+    attn["frozen"]["max_abs_err"] = max(attn["frozen"]["max_abs_err"], err2b)
     return moe, attn
 
 
@@ -946,8 +1040,10 @@ def _profiled(torch, srv, n_steps, what):
         return f"    profiled decode step: {wall_ms:.2f} ms wall; device time not measured (no CUDA events)"
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
     launches = sum(e.count for e in kernels) / n_steps
+    gqa_ms = sum(dev_us(e) for e in kernels if "gqa_decode_" in e.key) / 1e3 / n_steps
     return (f"    profiled decode step ({what}): {wall_ms:.2f} ms wall, device busy "
             f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), {launches:.0f} device launches; "
+            f"GQA decode attention (csrc/decode_attn.cu, split + combine) {gqa_ms:.3f} ms; "
             f"top: " + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n_steps:.2f} ms" for e in top))
 
 
@@ -1282,7 +1378,8 @@ def _set_counts(counts):
 def _live_pool_check(torch, srv, gen):
     """Every layer of the live pool, at a step where every active row is
     decoding over a table that holds frozen ids: the frozen variant and
-    its plain version on the same q must agree to ATTN_TOL, and the same
+    its plain version on the same q must agree to ATTN_TOL (a second
+    launch bit-identical), and the same
     call with ``k_fz_shift + 1`` (every frozen K halved) must read at least
     10x above it. q is scaled to the layer's K so the scores are O(1).
     Returns (largest error, smallest fault reading). Its launches are not
@@ -1303,8 +1400,9 @@ def _live_pool_check(torch, srv, gen):
                              generator=gen, device=DEV) * (2.0 / max(k_rms, 1e-6))
                  ).to(torch.bfloat16)
             kernel, plain = _frozen_calls(layer, table, kv_lens, q)
-            o_p = plain()
-            err = max(err, float((kernel() - o_p).abs().max()))
+            o_p, o_k = plain(), kernel()
+            _deterministic(torch, kernel, o_k, "live pool: the frozen variant")
+            err = max(err, float((o_k - o_p).abs().max()))
             layer["k_fz_shift"] = layer["k_fz_shift"] + 1
             kernel, _ = _frozen_calls(layer, table, kv_lens, q)
             fault = min(fault, float((kernel() - o_p).abs().max()))

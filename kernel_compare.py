@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Device times of the W4A8 GEMM kernel rows of another checkout, for a
-before/after comparison on one card.
+"""Device times of the W4A8 GEMM and GQA decode-attention kernel rows of
+another checkout, for a before/after comparison on one card.
 
     python3 kernel_compare.py <root of a checkout>
 
 Builds the CUDA kernels of ``<root>/src/repro_torch`` and times them with
-this checkout's ``chip_smoke.py`` timing code: phase 3's W4A8 rows (row 1 at
-opt-125m's, MiniCPM3-4B's and OLMoE-1B-7B's shapes, rows 1b and 1c at E=40,
-row 1d at M=4 and 260, as served and dense), each held against its plain
-version, with its library call; then phase 11's split-vs-fused table. Every
-reading is device time from CUDA graphs beside the event-pair time. Run it
-on the checkout itself and on a copy of the parent commit in one call.
+this checkout's ``chip_smoke.py`` timing code: phase 3's decode-attention
+rows (row 2 over FP8 pages and row 2b with the FP4 frozen region, at
+opt-125m's KV 12 of hd 64 and OLMoE-1B-7B's KV 16 of hd 128), then its W4A8
+rows (row 1 at opt-125m's, MiniCPM3-4B's and OLMoE-1B-7B's shapes, rows 1b
+and 1c at E=40, row 1d at M=4 and 260, as served and dense), each held
+against its plain version, with its library call; then phase 11's
+split-vs-fused table. Every reading is device time from CUDA graphs beside
+the event-pair time. Run it on the checkout itself and on a copy of the
+parent commit in one call.
 """
 import json
 import sys
@@ -35,6 +38,18 @@ def main():
     timer = cs.Timer(torch)
     gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
     rows = {}
+    for kv, hd in ((12, 64), (16, 128)):
+        rows[f"row2 KV={kv} hd={hd}"] = cs._attn_case(torch, timer, "fp8_e4m3", gen, kv, hd)
+        rows[f"row2b KV={kv} hd={hd}"] = cs._attn_frozen_case(torch, timer, gen, kv, hd)
+    versus = _w4a8_rows(torch, timer, gen, rows)
+    keep = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "max_abs_err")
+    print(json.dumps({"root": str(root), "card": card,
+                      "rows": {k: {f: r[f] for f in keep} for k, r in rows.items()},
+                      "split_vs_fused": versus}), flush=True)
+
+
+def _w4a8_rows(torch, timer, gen, rows):
+    """Phase 3's W4A8 rows into ``rows``; returns phase 11's split-vs-fused table."""
     shapes = [(m, k, n) for m in (4, 64, 256) for k, n in ((768, 768), (768, 3072), (3072, 768))]
     shapes += [(4, k, n) for k, n in sorted(set(cs.MINICPM3_GEMMS))] + [(4, 2048, 2048)]
     for m, k, n in shapes:
@@ -49,11 +64,7 @@ def main():
     cs.log("[11 kernel api] split vs fused")
     weights = {(k, n): cs._packed(torch, k, n, gen)
                for k, n in sorted({(k, n) for _, k, n in cs.SPLIT_GEMMS})}
-    versus = cs._split_vs_fused(torch, timer, gen, weights)
-    keep = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "max_abs_err")
-    print(json.dumps({"root": str(root), "card": card,
-                      "rows": {k: {f: r[f] for f in keep} for k, r in rows.items()},
-                      "split_vs_fused": versus}), flush=True)
+    return cs._split_vs_fused(torch, timer, gen, weights)
 
 
 if __name__ == "__main__":

@@ -3,35 +3,70 @@
 ``paged_mla_decode_attn_cuda`` at the end of this module).
 
 ``paged_decode_attn_cuda`` checks its operands, allocates the output and
-launches the kernel on the current stream. It counts its launches by
-variant: ``paged_decode_attn_cuda.launches`` over FP8 or bf16 pages,
-``paged_decode_attn_cuda.frozen_launches`` over FP8 pages with the packed
-FP4 frozen region. CUDA tensors only: the plain version for the CPU is
-``ref.paged_decode_attn_ref`` (``ops.paged_decode_attn`` dispatches). The
-kernel covers what the serving path runs: bf16 queries over FP8 or bf16
-pages (and the frozen region behind FP8 pages) whose K and V share the
-head width; the wrapper refuses the rest.
+the splits' workspace and launches the kernel (its split kernel and the
+combine, by ``decode_attn_plan``) on the current stream. It counts its
+calls by variant: ``paged_decode_attn_cuda.launches`` over FP8 or bf16
+pages, ``paged_decode_attn_cuda.frozen_launches`` over FP8 pages with the
+packed FP4 frozen region. CUDA tensors only: the plain version for the CPU
+is ``ref.paged_decode_attn_ref`` (``ops.paged_decode_attn`` dispatches).
+The kernel covers what the serving path runs: bf16 queries over FP8 or
+bf16 pages (and the frozen region behind FP8 pages) whose K and V share
+the head width, up to 512; the wrapper refuses the rest.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from .common import page_format
-from .w4a8_fused import _check
+from .w4a8_fused import SMS, _check
 
-__all__ = ["paged_decode_attn_cuda", "paged_mla_decode_attn_cuda"]
+__all__ = ["DecodePlan", "decode_attn_plan", "paged_decode_attn_cuda",
+           "paged_mla_decode_attn_cuda"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+THREADS = 128                # a split block's threads (csrc/decode_attn.cu)
+BLOCK_BUDGET = 8 * SMS       # split blocks the card holds at once, about: 8 an SM
+STAGE_BYTES = 96 << 10       # a split's staged K and V rows in shared memory, at most
+MAX_HD = 512                 # 32 lanes of 16 dims hold a token row
+
+
+class DecodePlan(NamedTuple):
+    pps: int      # pages a split
+    splits: int   # splits of a (row, KV head): ceil(PP / pps)
+    group: int    # query heads a block, sharing each decoded K and V element
+    threads: int  # threads a block
+
+
+def decode_attn_plan(B: int, H: int, KV: int, hd: int, page: int, PP: int,
+                     esize: int = 1) -> DecodePlan:
+    """The launch plan of paged GQA decode attention, from shapes alone (no
+    length is read, so a captured step replays it). Split s of a (row, KV
+    head) takes pages [s * pps, (s + 1) * pps) of the table. A block serves
+    ``group`` query heads of one KV head: 4 where H / KV is a multiple of 4,
+    else 1. pps is the fewest pages that keep every split of the launch
+    within one wave of BLOCK_BUDGET blocks (a block's life is a few
+    dependent round trips, so a second wave would double the launch), and no
+    more than STAGE_BYTES of staged K and V rows (``esize`` bytes an
+    element: 1 for FP8 pages, 2 for bf16)."""
+    g = H // KV
+    group = 4 if g % 4 == 0 else 1
+    heads = B * KV * (g // group)
+    pps = max(1, -(-heads * PP // BLOCK_BUDGET))
+    pps = min(pps, max(1, STAGE_BYTES // (2 * page * hd * esize)), max(PP, 1), THREADS)
+    return DecodePlan(pps, max(1, -(-PP // pps)), group, THREADS)
 
 
 def _lib():
     fn = build.load("decode_attn").paged_decode_attn_launch
     if fn.argtypes is None:
         fn.argtypes = ([_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _I, _I, _I, _I] + [_P] * 6 + [_I] * 5 + [_P])
+                        _I, _F, _I, _I, _I, _I] + [_P] * 6 + [_I] * 5 + [_I] * 4 + [_P] * 3)
         fn.restype = _I
     return fn
 
@@ -68,6 +103,8 @@ def paged_decode_attn_cuda(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift
     pp = page_table.shape[1]
     if h % kv:
         raise ValueError(f"H={h} is not a multiple of KV={kv}")
+    if hd > MAX_HD:
+        raise NotImplementedError(f"head width {hd}: the kernel reads heads up to {MAX_HD}")
     store = torch.uint8 if pf.quantized else torch.bfloat16
     _check(k_pages, "k_pages", store, (p1, page, kv, hd), dev)
     _check(v_pages, "v_pages", store, (p1, page, kv, hd), dev)
@@ -91,7 +128,10 @@ def paged_decode_attn_cuda(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift
         for t, name in ((k_fz_shift, "k_fz_shift"), (v_fz_shift, "v_fz_shift")):
             _check(t, name, torch.int32, (f1, kv), dev)
     f, ff = pf.fmt, fz.fmt if fz is not None else None
+    plan = decode_attn_plan(b, h, kv, hd, page, pp, esize=1 if pf.quantized else 2)
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, h, plan.splits, 2), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, h, plan.splits, hd), dtype=torch.float32, device=dev)
     ptr = lambda t, on: t.data_ptr() if on else None
     rc = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), int(pf.quantized),
                 ptr(k_smax, f), ptr(k_shift, f), ptr(v_smax, f), ptr(v_shift, f),
@@ -101,7 +141,8 @@ def paged_decode_attn_cuda(q, k_pages, v_pages, k_smax, k_shift, v_smax, v_shift
                 *(ptr(t, ff) for t in (k_fz, v_fz, k_fz_smax, k_fz_shift, v_fz_smax,
                                        v_fz_shift)),
                 p1, nfz, ff.exp_bits if ff else 0, ff.man_bits if ff else 0,
-                ff.bias if ff else 0, torch.cuda.current_stream(dev).cuda_stream)
+                ff.bias if ff else 0, *plan, part_ml.data_ptr(), part_acc.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"paged_decode_attn kernel launch failed: CUDA error {rc}")
     if ff is not None:

@@ -23,7 +23,7 @@ from repro_torch.core.ptq import effective_group, pack_linear as t_pack_linear
 from repro_torch.kernels import common as TC
 from repro_torch.models.layers import PackedLinear
 
-from test_torch_bridge import release_compiled, t, to_np
+from test_torch_bridge import t, to_np
 
 FLOAT_FMTS = ["fp8_e4m3", "fp8_e5m2", "fp4_e2m1", "fp4_e3m0"]
 

@@ -24,7 +24,7 @@ from repro_torch.models.bridge import from_numpy
 from repro_torch.runtime import kv_cache as tkvc
 
 from conftest import tiny_lm_cfg
-from test_torch_bridge import POLICY, flatten_jax, port_cfg, release_compiled, t, to_np
+from test_torch_bridge import POLICY, flatten_jax, port_cfg, t, to_np
 
 TOL = 1e-5
 PAGE, N_PAGES = 8, 8

@@ -15,7 +15,7 @@ import torch
 from repro.models.layers import activation as j_activation
 from repro_torch.models.layers import activation, xla_tanh
 
-from test_torch_bridge import release_compiled, t, to_np  # noqa: F401 (module fixture)
+from test_torch_bridge import t, to_np
 
 
 def test_gelu_bf16_matches_reference_bit_for_bit():

@@ -24,8 +24,8 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                     ROOT / "kernel_compare.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "kernel_compare.py", ROOT / "attn_ablate.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files}
     assert {f: b for f, b in bad.items() if b} == {}

@@ -31,7 +31,7 @@ from repro.kernels.w4a8_matmul import w4a8_matmul_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
-from test_torch_bridge import release_compiled, t, to_np  # noqa: F401
+from test_torch_bridge import t, to_np
 from test_torch_kernels import _port
 
 

@@ -11,7 +11,7 @@ import torch
 from repro.runtime import kv_cache as jkvc
 from repro_torch.runtime import kv_cache as tkvc
 
-from test_torch_bridge import release_compiled, t, to_np
+from test_torch_bridge import t, to_np
 
 PAGE, KV, HD, N_PAGES = 8, 2, 16, 6
 

@@ -60,7 +60,7 @@ MAX_TIES = {0: 0, 1: 3, 2: 0, 3: 0}
 
 @pytest.fixture(scope="module", autouse=True)
 def release_compiled():
-    """``test_torch_bridge.release_compiled``, and the reference steps that
+    """The repo's ``conftest.release_compiled``, and the reference steps that
     ``StrictReference`` compiled; ``test_torch_mla_serve`` imports it."""
     yield
     _COMPILED.clear()

@@ -43,7 +43,7 @@ from repro_torch.kernels.common import page_format
 from repro_torch.models import api as tapi
 from repro_torch.runtime import kv_cache as tkvc
 
-from test_torch_bridge import release_compiled, t, to_np
+from test_torch_bridge import t, to_np
 from test_torch_mla import MLA_CFG, _model
 
 TOL = 1e-5  # logits, against the strictly compiled reference

@@ -42,7 +42,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import moe as tmoe
 from repro_torch.models.transformer import layer_view
 
-from test_torch_bridge import release_compiled, t, to_np  # noqa: F401
+from test_torch_bridge import t, to_np
 from test_torch_mla import _model
 
 MOE_CFG = ArchConfig(

@@ -20,7 +20,7 @@ import pytest
 from repro.runtime import kv_cache as jkvc
 from repro_torch.runtime import kv_cache as tkvc  # noqa: F401
 
-from test_torch_bridge import release_compiled, t  # noqa: F401
+from test_torch_bridge import t
 from test_torch_mla import _model
 from test_torch_mla_logits import _Pair, roundings  # noqa: F401
 from test_torch_moe import MOE_CFG

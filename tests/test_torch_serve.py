@@ -40,7 +40,7 @@ from repro_torch.models.bridge import from_numpy
 from repro_torch.runtime import serve as tserve
 
 from conftest import tiny_lm_cfg
-from test_torch_bridge import POLICY, flatten_jax, port_cfg, release_compiled
+from test_torch_bridge import POLICY, flatten_jax, port_cfg
 
 PROMPT_LENS = (5, 19, 3, 12, 27, 9)
 MAX_NEW = 6

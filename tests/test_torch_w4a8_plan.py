@@ -26,7 +26,7 @@ from repro.kernels.w4a8_fused import w4a8_fused_batched_pallas, w4a8_fused_matmu
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.w4a8_fused import BK, MAX_KS, SMS, chunk_ranges, gemm_plan
 
-from test_torch_bridge import release_compiled, t, to_np  # noqa: F401 (module fixture)
+from test_torch_bridge import t, to_np
 
 ROOT = Path(__file__).resolve().parent.parent
 
