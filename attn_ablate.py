@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the paged GQA decode-attention kernel goes, by ablation.
+"""Where the time of the attention kernels goes, by ablation.
 
-    python3 attn_ablate.py
+    python3 attn_ablate.py [decode_attn] [flash_attn] [mla_decode_attn]
 
-Each variant is ``src/repro_torch/csrc/decode_attn.cu`` with one part cut
-out by a text edit, compiled with the build's own flags into
-``build/ablate/``; every variant is timed by ``chip_smoke._device_ms``
-(device time from CUDA graphs, cold L2) through the unchanged wrapper, in
-turns (all variants, then all again in reverse), at phase 3's timed shapes:
-row 2 at opt-125m's KV 12 of hd 64 and OLMoE-1B-7B's KV 16 of hd 128, and
-row 2b at KV 16 of hd 128, contexts 2048/1337/300/1. The variants:
+(all three when none is named). Each variant is the kernel's source under
+``src/repro_torch/csrc/`` with one part cut out (or one choice changed) by
+a text edit, compiled with the build's own flags into
+``build/ablate/<source>/<variant>/``; every variant is timed by
+``chip_smoke._device_ms`` (device time from CUDA graphs, cold L2) through
+the unchanged wrapper, in turns (all variants, then all again in
+reverse). The cut variants compute wrong outputs: they are timed, not
+checked (the kernel as it is is held against its plain version first).
+
+``decode_attn`` (rows 2, 2b), at phase 3's timed shapes: row 2 at
+opt-125m's KV 12 of hd 64 and OLMoE-1B-7B's KV 16 of hd 128, row 2b at KV
+16 of hd 128, contexts 2048/1337/300/1:
 
 - ``base``: the kernel as it is;
 - ``placed_off``: every code through ``decode_code`` (no bit placement);
@@ -17,12 +22,33 @@ row 2b at KV 16 of hd 128, contexts 2048/1337/300/1. The variants:
 - ``no_trigger``: the split kernel does not release the combine early;
 - ``no_combine``: no combine launch;
 - ``no_attend``: pages staged, nothing attended (merge and combine run);
+- ``empty``: every split block exits at once (the launch floor);
+
+then ``base`` again under other block budgets of ``decode_attn_plan``
+(twice the plan's, and one page a split).
+
+``flash_attn`` (row 6), at phase 11's four causal bf16 shapes:
+
+- ``no_stage``: the ring copies no tile after the first (stale tiles);
+- ``no_exp``: p is the score itself (no ex2);
+- ``no_qk`` / ``no_pv``: no Q . K^T / no P . V mma.sync;
+- ``narrow``: 64-row q tiles at every grid;
+- ``two_stages``: a 2-stage ring at 128-row tiles;
+- ``one_slab``: one 16-row slab a warp at hd 96 too (eight warps);
+- ``kv64``: 64-key KV tiles everywhere.
+
+``mla_decode_attn`` (row 3), at phase 3's MLA_SHAPE over FP8 + FP4 frozen,
+FP8 and bf16 pages:
+
+- ``placed_off``: every code through ``decode_code`` (still exact);
+- ``no_decode``: no operand decode (stale operands);
+- ``no_scores`` / ``no_pv``: no score / no P . V mma.sync over the latent;
+- ``two_pieces``: p * post_c in two bf16 pieces, not three;
+- ``no_combine``: no combine launch;
 - ``empty``: every split block exits at once (the launch floor).
 
-The cut variants compute wrong outputs: they are timed, not checked. Then
-``base`` again under other block budgets of ``decode_attn_plan`` (twice
-the plan's, and one page a split). Prints one JSON line of microseconds
-a launch, each variant's readings in turn order.
+Prints one JSON line of microseconds a launch, each variant's readings in
+turn order.
 """
 import ctypes
 import json
@@ -31,51 +57,112 @@ import sys
 
 import chip_smoke as cs
 
-CSRC = cs.SRC / "repro_torch" / "csrc" / "decode_attn.cu"
+CSRC = cs.SRC / "repro_torch" / "csrc"
 OUT = cs.ROOT / "build" / "ablate"
 ATTEND = "float (&m)[G], float (&l)[G], float (&acc)[G][DL]) {\n"  # attend()'s signature
 CUTS = {
-    "base": [],
-    "placed_off": [("    fast = fast && (c == 0.f", "    fast = false && (c == 0.f")],
-    "no_pdl": [("programmaticStreamSerializationAllowed = 1;",
-                "programmaticStreamSerializationAllowed = 0;")],
-    "no_trigger": [('  asm volatile("griddepcontrol.launch_dependents;\\n");', "")],
-    "no_combine": [("  const cudaError_t e = cudaLaunchKernelEx(",
-                    "  if (B > 0) return 0;\n  const cudaError_t e = cudaLaunchKernelEx(")],
-    "no_attend": [(ATTEND, ATTEND + "  if (ns > 0) return;\n")],
-    "empty": [("  constexpr bool VEC = LT != 0;\n",
-               "  constexpr bool VEC = LT != 0;\n  if (a.H > 0) return;\n")],
+    "decode_attn": {
+        "base": [],
+        "placed_off": [("    fast = fast && (c == 0.f", "    fast = false && (c == 0.f")],
+        "no_pdl": [("programmaticStreamSerializationAllowed = 1;",
+                    "programmaticStreamSerializationAllowed = 0;", "split_combine.cuh")],
+        "no_trigger": [('  asm volatile("griddepcontrol.launch_dependents;\\n");', "")],
+        "no_combine": [("  return launch_split_combine(",
+                        "  if (B > 0) return 0;\n  return launch_split_combine(")],
+        "no_attend": [(ATTEND, ATTEND + "  if (ns > 0) return;\n")],
+        "empty": [("  constexpr bool VEC = LT != 0;\n",
+                   "  constexpr bool VEC = LT != 0;\n  if (a.H > 0) return;\n")],
+    },
+    "flash_attn": {
+        "base": [],
+        "no_stage": [("    if (j + NST - 1 < ntiles) stage_kv(j + NST - 1, (j + NST - 1) % NST);\n",
+                      "")],
+        "no_exp": [("        const float p = MMA ? ex2(fmaf(sm[i], sl2, -mb[r])) : "
+                    "expf(sm[i] - m[ms][r]);\n", "        const float p = sm[i];\n")],
+        "no_qk": [("            mma_bf16(s[ms] + 8 * np, qa[ms], bk[0], bk[1]);\n"
+                   "            mma_bf16(s[ms] + 8 * np + 4, qa[ms], bk[2], bk[3]);\n", "")],
+        "no_pv": [("            mma_bf16(o[ms] + 8 * np, pa[ms], bv[0], bv[1]);\n"
+                   "            mma_bf16(o[ms] + 8 * np + 4, pa[ms], bv[2], bv[3]);\n", "")],
+        "narrow": [("    if ((long long)B * a.H * ((a.S + 127) / 128) >= SMS) return "
+                    "launch<T, HDP, DVP, 128>(a, B, s);\n", "")],
+        "two_stages": [("  static constexpr int STAGES = MMA && BQ == 128 ? 3 : 2;\n",
+                        "  static constexpr int STAGES = 2;\n")],
+        "one_slab": [("  static constexpr int MS = MMA && BQ == 128 && HDP == 96 ? 2 : 1;\n",
+                      "  static constexpr int MS = 1;\n")],
+        "kv64": [("  static constexpr int BKV = MMA && MS == 1 ? 128 : 64;\n",
+                  "  static constexpr int BKV = 64;\n")],
+    },
+    "mla_decode_attn": {
+        "base": [],
+        "placed_off": [("      const bool fast = 1 - st.fmt.bias - sh >= -126",
+                        "      const bool fast = false && 1 - st.fmt.bias - sh >= -126")],
+        "no_decode": [("    for (int i = tid; i < TILE * CH; i += THREADS) {",
+                       "    for (int i = tid; i < 0 * TILE * CH; i += THREADS) {")],
+        "no_scores": [("      mma_bf16(ac[0], qf, kf[0], kf[1]);\n"
+                       "      mma_bf16(ac[1], qf, kf[2], kf[3]);\n", "")],
+        "no_pv": [("      for (int k = 0; k < PIECES; ++k) mma_bf16(o[c], pa[k], b0, b1);\n", "")],
+        "two_pieces": [("constexpr int PIECES = 3;", "constexpr int PIECES = 2;")],
+        "no_combine": [("  return launch_split_combine(",
+                        "  if (B > 0) return 0;\n  return launch_split_combine(")],
+        "empty": [("  if (n <= 0) return;\n", "  if (n <= 0 || a.H > 0) return;\n")],
+    },
 }
 
 
-def _build(build):
-    """Every variant's library, one nvcc each, in parallel."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src, procs = CSRC.read_text(), {}
-    for name, cuts in CUTS.items():
-        text = src
-        for old, new in cuts:
+def _build(build, source):
+    """Every variant's library of ``source``, one nvcc each, in parallel. A
+    cut names the file it edits when that is a shared header: the edited
+    copy sits beside the variant's source, which includes it first."""
+    procs = {}
+    for name, cuts in CUTS[source].items():
+        out_dir = OUT / source / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        texts = {}
+        for old, new, *where in cuts:
+            fname = where[0] if where else f"{source}.cu"
+            text = texts.get(fname, (CSRC / fname).read_text())
             if text.count(old) != 1:
-                cs.fail(f"variant {name}: the cut {old!r} is not in {CSRC.name} exactly once")
-            text = text.replace(old, new)
-        (OUT / f"{name}.cu").write_text(text)
+                cs.fail(f"variant {name}: the cut {old!r} is not in {fname} exactly once")
+            texts[fname] = text.replace(old, new)
+        texts.setdefault(f"{source}.cu", (CSRC / f"{source}.cu").read_text())
+        for fname, text in texts.items():
+            (out_dir / fname).write_text(text)
         procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.FLAGS, "-o", str(OUT / f"{name}.so"),
-             str(OUT / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [build.nvcc_path(), *build.FLAGS, f"-I{CSRC}", "-o", str(out_dir / "lib.so"),
+             str(out_dir / f"{source}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            cs.fail(f"variant {name} does not build:\n{out}")
+            cs.fail(f"{source} variant {name} does not build:\n{out}")
         if name == "base":  # each instantiation's registers and spills, by name
-            for line in out.splitlines():
-                if "entry function" in line or "Used" in line or "spill" in line:
-                    cs.log(f"    {line.strip()}")
-    return {name: ctypes.CDLL(str(OUT / f"{name}.so")) for name in CUTS}
+            for r in cs._ptxas_table(out, build.nvcc_path()):
+                cs.log(f"    {source}: {r['fn']}: {r['registers']} registers, spill stores "
+                       f"{r['spill_stores']} B, loads {r['spill_loads']} B")
+    return {name: ctypes.CDLL(str(OUT / source / name / "lib.so")) for name in CUTS[source]}
+
+
+def _cases(torch, gen, source):
+    """{case: callable that checks the kernel as it is, then returns its launch}."""
+    if source == "decode_attn":
+        return {"row2 KV=12 hd=64": lambda: cs._attn_check(torch, "fp8_e4m3", gen, 0, 12, 64)[-3],
+                "row2 KV=16 hd=128": lambda: cs._attn_check(torch, "fp8_e4m3", gen, 0, 16,
+                                                            128)[-3],
+                "row2b KV=16 hd=128": lambda: cs._attn_frozen_check(torch, gen, 128, 0, 16)[-3]}
+    if source == "flash_attn":
+        return {f"row6 {tag}": (lambda h=h, hd=hd, dv=dv, s=s, tag=tag: cs._flash_check(
+            torch, *cs._flash_inputs(torch, gen, 1, s, s, h, hd, dv, torch.bfloat16), True,
+            f"{tag} causal bf16")[0]) for tag, h, hd, dv, s in cs.FLASH_SHAPES}
+    shape = [cs.MLA_SHAPE[k] for k in ("b", "h", "r", "dr", "page", "lens")]
+    return {f"row3 {fmt or 'bf16'}{' + fp4 frozen' if fz else ''}":
+            (lambda fmt=fmt, fz=fz: cs._mla_check(torch, gen, fmt, fz, *shape)[7])
+            for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False))}
 
 
 def main():
-    if len(sys.argv) > 1:
-        cs.fail(f"takes no arguments, got {sys.argv[1:]}")
+    sources = sys.argv[1:] or list(CUTS)
+    if any(s not in CUTS for s in sources):
+        cs.fail(f"unknown kernel in {sources}: choose from {list(CUTS)}")
     sys.path.insert(0, str(cs.SRC))
     import torch
 
@@ -84,29 +171,29 @@ def main():
     from repro_torch.kernels import build, decode_attn
 
     card = cs.phase_device()
-    libs = _build(build)
     timer = cs.Timer(torch)
     gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
-    cases = {"row2 KV=12 hd=64": lambda: cs._attn_check(torch, "fp8_e4m3", gen, 0, 12, 64),
-             "row2 KV=16 hd=128": lambda: cs._attn_check(torch, "fp8_e4m3", gen, 0, 16, 128),
-             "row2b KV=16 hd=128": lambda: cs._attn_frozen_check(torch, gen, 128, 0, 16)}
-    budget = decode_attn.BLOCK_BUDGET
     us = lambda fn: 1e3 * cs._device_ms(torch, timer, fn)
     result = {}
-    for case, make in cases.items():
-        build._LIBS["decode_attn"] = libs["base"]
-        kernel = make()[-3]  # held against its plain version with the kernel as it is
-        row = result[case] = {}
-        for order in (list(CUTS), list(CUTS)[::-1]):
-            for name in order:
-                build._LIBS["decode_attn"] = libs[name]
-                row.setdefault(name, []).append(us(kernel))
-        build._LIBS["decode_attn"] = libs["base"]
-        for label, b in (("budget x2", 2 * budget), ("one page a split", 1 << 30)):
-            decode_attn.BLOCK_BUDGET = b
-            row[label] = [us(kernel), us(kernel)]
-        decode_attn.BLOCK_BUDGET = budget
-        cs.log(f"{case}: " + ", ".join(f"{k} {min(v):.2f}" for k, v in row.items()))
+    for source in sources:
+        libs = _build(build, source)
+        for case, make in _cases(torch, gen, source).items():
+            build._LIBS[source] = libs["base"]
+            kernel = make()  # held against its plain version with the kernel as it is
+            row = result[case] = {}
+            for order in (list(libs), list(libs)[::-1]):
+                for name in order:
+                    build._LIBS[source] = libs[name]
+                    row.setdefault(name, []).append(us(kernel))
+            build._LIBS[source] = libs["base"]
+            if source == "decode_attn":
+                budget = decode_attn.BLOCK_BUDGET
+                for label, b in (("budget x2", 2 * budget), ("one page a split", 1 << 30)):
+                    decode_attn.BLOCK_BUDGET = b
+                    row[label] = [us(kernel), us(kernel)]
+                decode_attn.BLOCK_BUDGET = budget
+            cs.log(f"{case}: " + ", ".join(f"{k} {min(v):.2f}" for k, v in row.items()))
+        build._LIBS.pop(source, None)
     print(json.dumps({"card": card, "us_per_launch": result}), flush=True)
 
 

@@ -107,6 +107,7 @@ The script imports nothing of jax and nothing of the JAX package.
 """
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -231,6 +232,42 @@ def phase_device():
     return card
 
 
+PTXAS = {}  # source -> [{"fn", "registers", "spill_stores", "spill_loads"}], from phase 2
+
+
+def _ptxas_table(out, nvcc):
+    """Each kernel instantiation's registers and spill bytes from nvcc's
+    -Xptxas=-v output, its name demangled by the toolkit's cu++filt."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in out.splitlines():
+        if (m := re.search(r"Compiling entry function '([^']+)'", line)):
+            fn, spill = m.group(1), (0, 0)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            rows.append((fn, int(m.group(1)), *spill))
+            fn = None
+    names = [r[0] for r in rows]
+    filt = Path(nvcc).with_name("cu++filt")
+    if names and filt.exists():
+        got = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(got) == len(names):  # "void <unnamed>::k<(int)8, ...>(<unnamed>::Args)" -> "k<8, ...>"
+            names = [re.sub(r"\((int|bool)\)|<unnamed>::|\(anonymous namespace\)::|^void ", "",
+                            n).rsplit("(", 1)[0] for n in got]
+    return [{"fn": n, "registers": r[1], "spill_stores": r[2], "spill_loads": r[3]}
+            for n, r in zip(names, rows)]
+
+
+def _ptxas_summary(rows):
+    """A source's instantiations in brief, for the kernels line."""
+    return {"instantiations": len(rows),
+            "registers": [min((r["registers"] for r in rows), default=0),
+                          max((r["registers"] for r in rows), default=0)],
+            "spill_bytes_max": max((r["spill_stores"] + r["spill_loads"] for r in rows),
+                                   default=0)}
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -240,9 +277,10 @@ def phase_build():
         f"({' '.join(build.FLAGS)}); each source ready after: "
         + ", ".join(f"{n} {sec:.1f} s" for n, sec in done.items()))
     for name, out in build.build_logs.items():  # registers and spills of every instantiation
-        for line in out.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        PTXAS[name] = _ptxas_table(out, build.nvcc_path())
+        for r in PTXAS[name]:
+            log(f"    {name}: {r['fn']}: {r['registers']} registers, spill stores "
+                f"{r['spill_stores']} B, loads {r['spill_loads']} B")
 
 
 def _packed(torch, k, n, gen, w_fmt="fp4_e2m1", scale_mode="m2", lorc_rank=8, group_size=256):
@@ -319,15 +357,16 @@ def _w4a8_case(torch, timer, m, k, n, gen):
 ATTN_LENS = [2048, 1337, 300, 1]  # ragged contexts, up to 2048 tokens (32 pages of 64)
 
 
-def _stale_nan(layer, table, lens, page, fmt, frozen=False):
+def _stale_nan(layer, table, lens, page, fmt, frozen=False, names=("k", "v")):
     """NaN where no valid token lies: in bf16 pages the tail of each row's
     last page past its length, and the whole null page (id P); FP8 and FP4
     codes all decode finite, so there the null page's s_max is NaN, and with
     the frozen region also the dummy row's, with every second row's unused
-    table entries pointed at the dummy id. The outputs must stay finite."""
-    n_null = layer["k"].shape[0] - 1
+    table entries pointed at the dummy id. The outputs must stay finite.
+    ``names``: the layer's stores (K and V; MLA's "ckv" and "krope")."""
+    n_null = layer[names[0]].shape[0] - 1
     nan = float("nan")
-    for name in ("k", "v"):
+    for name in names:
         if fmt:
             layer[name + "_smax"][n_null] = nan
         else:
@@ -338,7 +377,7 @@ def _stale_nan(layer, table, lens, page, fmt, frozen=False):
         if frozen:
             layer[name + "_fz_smax"][-1] = nan
     if frozen:
-        dummy = n_null + layer["k_fz"].shape[0]  # P + 1 + nfz
+        dummy = n_null + layer[names[0] + "_fz"].shape[0]  # P + 1 + nfz
         for row, n in enumerate(lens):
             if row % 2:
                 table[row, -(-n // page):] = dummy
@@ -732,11 +771,11 @@ def _moe_case(torch, timer, p, m, gen, routed):
     return row
 
 
-def _mla_layer(torch, gen, b, r, dr, page, lens, fmt, frozen):
+def _mla_layer(torch, gen, b, r, dr, page, lens, fmt, frozen, nan=False):
     """A random latent pool layer (ckv (P+1, page, r), krope (P+1, page,
     dr)) and its table: ``fmt`` pages, and with ``frozen`` the first half of
-    each row's full pages in the packed FP4 region. Returns (layer, table,
-    kv_lens, frozen pages per row)."""
+    each row's full pages in the packed FP4 region. ``nan``: see
+    ``_stale_nan``. Returns (layer, table, kv_lens, frozen pages per row)."""
     from repro_torch.runtime import kv_cache as kvc
 
     pp = -(-max(lens) // page)
@@ -760,6 +799,8 @@ def _mla_layer(torch, gen, b, r, dr, page, lens, fmt, frozen):
         table[row, :npg] = perm[row * pp: row * pp + npg].to(torch.int32)
         table[row, :nfr] = n_pages + 1 + fperm[row * pp: row * pp + nfr].to(torch.int32)
         n_frozen.append(nfr)
+    if nan:
+        _stale_nan(layer, table, lens, page, fmt, frozen, names=("ckv", "krope"))
     return layer, table.to(DEV), torch.tensor(lens, dtype=torch.int32, device=DEV), n_frozen
 
 
@@ -782,20 +823,64 @@ def _mla_calls(layer, table, kv_lens, q_lat, q_rope, scale):
 MLA_SHAPE = dict(b=4, h=40, r=256, dr=32, page=64, lens=[2048, 1337, 300, 1])
 
 
-def _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens):
-    layer, table, kv_lens, n_frozen = _mla_layer(torch, gen, b, r, dr, page, lens, fmt, frozen)
+def _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens, nan=False):
+    """A random latent pool (``_mla_layer``) and the MLA decode kernel's
+    output held against its plain version within ATTN_TOL, launched twice
+    (bit-identical) and finite where NaN was planted (``nan``)."""
+    layer, table, kv_lens, n_frozen = _mla_layer(torch, gen, b, r, dr, page, lens, fmt, frozen,
+                                                 nan)
     q_lat = torch.randn((b, h, r), generator=gen, device=DEV).to(torch.bfloat16)
     q_rope = torch.randn((b, h, dr), generator=gen, device=DEV).to(torch.bfloat16)
     scale = 1.0 / math.sqrt(96)  # MiniCPM3: 1 / sqrt(qk_nope + qk_rope)
     kernel, plain = _mla_calls(layer, table, kv_lens, q_lat, q_rope, scale)
     o_k, o_p = kernel(), plain()
-    torch.cuda.synchronize()
-    err = float((o_k - o_p).abs().max())
     what = (f"paged_mla_decode_attn {fmt or 'bf16'} pages{' + fp4 frozen' if frozen else ''} "
             f"B={b} H={h} r={r} dr={dr} page={page}")
-    if not torch.allclose(o_k, o_p, rtol=ATTN_TOL, atol=ATTN_TOL):
-        fail(f"{what} disagrees with its plain version: max |err| {err}")
+    err = _attn_held(torch, o_k, o_p, kernel, f"{what} lens {lens}"
+                     f"{', NaN planted' if nan else ''}", nan)
     return layer, table, kv_lens, n_frozen, q_lat, q_rope, scale, kernel, plain, err, what
+
+
+def _mla_edge_checks(torch, gen):
+    """Row 3 where the split plan has edges, at MLA_SHAPE's widths, over each
+    page variant: a row at kv_len 0 (must return 0) and one at 1, rows
+    ending exactly on a split boundary and one token past it; NaN planted
+    outside the valid tokens (stale page tails, the null page, the frozen
+    dummy row). Every check launches twice, bit-identical. Then the injected
+    fault: the combine dropping each row's last split, read as the kernel
+    over the tokens before that split's first (as such a combine would sum
+    them) against the plain version on all of them; it must read above
+    ATTN_TOL. Returns ({variant: largest error}, the fault's reading)."""
+    from repro_torch.kernels.decode_attn import mla_decode_plan
+
+    h, r, dr, page = (MLA_SHAPE[k] for k in ("h", "r", "dr", "page"))
+    span = mla_decode_plan(4, h, r, dr, page, 32).pps * page
+    worst = {}
+    for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False)):
+        errs = []
+        for lens in ([2 * span, 0, span, span + 1], [1, 0, 3 * span, 2 * span - 1]):
+            *_, kernel, _, err, what = _mla_check(torch, gen, fmt, fz, 4, h, r, dr, page, lens)
+            if bool(kernel()[1].ne(0).any()):
+                fail(f"{what} lens {lens}: the kv_len 0 row is not 0")
+            errs.append(err)
+        errs.append(_mla_check(torch, gen, fmt, fz, 4, h, r, dr, page, MLA_SHAPE["lens"],
+                               nan=True)[-2])
+        worst[(fmt, fz)] = max(errs)
+    layer, table, kv_lens, _, q_lat, q_rope, scale, _, plain, _, _ = _mla_check(
+        torch, gen, "fp8_e4m3", True, 4, h, r, dr, page, MLA_SHAPE["lens"])
+    short = ((kv_lens - 1).clamp_min(0) // span) * span  # each row's last split's first token
+    dropped = _mla_calls(layer, table, short.to(torch.int32), q_lat, q_rope, scale)[0]
+    fault = float((dropped() - plain()).abs().max())
+    if not fault > ATTN_TOL:
+        fail(f"injected fault (the MLA combine without each row's last split) reads {fault:.3g} "
+             f"<= {ATTN_TOL}: the check cannot tell it from a sound kernel")
+    log(f"    paged_mla_decode_attn H={h} r={r} dr={dr}, split span {span} tokens: kv_len 0 and 1, "
+        f"lens on and past a split boundary, NaN outside the valid tokens, each launched twice "
+        f"(bit-identical): max|err| " + ", ".join(
+            f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''} {e:.3g}" for (fmt, fz), e in worst.items())
+        + f"; injected fault, the combine without each row's last split: max|err| {fault:.3g} "
+        f"(> {ATTN_TOL} required)")
+    return worst, fault
 
 
 def _mla_case(torch, timer, gen, fmt, frozen):
@@ -822,8 +907,9 @@ def _mla_case(torch, timer, gen, fmt, frozen):
     nbytes = (b * h * (r + dr) * 2 + act_tok * (r + dr) * esize
               + fz_tok * ((r + 1) // 2 + (dr + 1) // 2) + b * 4 + pages_read * 4
               + (pages_read * 2 * (4 + 4) if fmt else 0) + b * h * r * 4)
-    flops = sum(lens) * h * (2 * (r + dr) + 2 * r)  # scores and the weighted latent sum
-    b_ms, by = bound(nbytes, flops, "f32")
+    # scores and the weighted latent sum, exact bf16 products on the tensor cores
+    flops = sum(lens) * h * (2 * (r + dr) + 2 * r)
+    b_ms, by = bound(nbytes, flops, "bf16")
     row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
                max_abs_err=err, bytes=nbytes, flops=flops)
     log(f"    {what} ctx={lens}{f' ({sum(n_frozen)} frozen pages)' if frozen else ''}: kernel "
@@ -895,6 +981,10 @@ def phase_kernels(torch):
             *_, err, what = _mla_check(torch, gen, fmt, fz, 2, h, r, dr, page, [4 * page - 3, 2])
             mla[(fmt, fz)]["max_abs_err"] = max(mla[(fmt, fz)]["max_abs_err"], err)
             log(f"    {what}: max|err| {err:.3g}")
+    edge, mla_fault = _mla_edge_checks(torch, gen)
+    for key, err in edge.items():
+        mla[key]["max_abs_err"] = max(mla[key]["max_abs_err"], err)
+    mla[("fp8_e4m3", True)]["fault_combine_drops_last_split"] = mla_fault
     gemm[(4, 2048, 2048)] = _w4a8_case(torch, timer, 4, 2048, 2048, gen)  # OLMoE's q, k, v, o
     moe, olmoe_attn = _olmoe_kernels(torch, timer, gen)
     return gemm, attn, frozen, batched, mla, moe, olmoe_attn
@@ -1040,10 +1130,13 @@ def _profiled(torch, srv, n_steps, what):
         return f"    profiled decode step: {wall_ms:.2f} ms wall; device time not measured (no CUDA events)"
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
     launches = sum(e.count for e in kernels) / n_steps
-    gqa_ms = sum(dev_us(e) for e in kernels if "gqa_decode_" in e.key) / 1e3 / n_steps
+    # the split kernels of rows 2, 2b (GQA) or 3 (MLA) and their shared combine
+    attn_ms = sum(dev_us(e) for e in kernels
+                  if any(k in e.key for k in ("gqa_decode_", "mla_decode_", "split_combine_"))
+                  ) / 1e3 / n_steps
     return (f"    profiled decode step ({what}): {wall_ms:.2f} ms wall, device busy "
             f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), {launches:.0f} device launches; "
-            f"GQA decode attention (csrc/decode_attn.cu, split + combine) {gqa_ms:.3f} ms; "
+            f"decode attention (GQA or MLA latent, split + combine) {attn_ms:.3f} ms; "
             f"top: " + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n_steps:.2f} ms" for e in top))
 
 
@@ -2139,30 +2232,35 @@ def _flash_check(torch, q, k, v, causal, what):
     return kernel, plain, err, row
 
 
+def _flash_case(torch, timer, gen, tag, h, hd, dv, s):
+    """Causal bf16 flash attention at one timed shape (B = 1, S = T = s),
+    held against its plain version and timed beside SDPA. Returns its row."""
+    q, k, v = _flash_inputs(torch, gen, 1, s, s, h, hd, dv, torch.bfloat16)
+    kernel, plain, err, row_err = _flash_check(torch, q, k, v, True, f"{tag} causal bf16")
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))  # SDPA's (B, H, S, d)
+    pairs = s * (s + 1) // 2  # the causal half: (q, k) pairs with k_pos <= q_pos
+    flops = 2 * pairs * (hd + dv) * h
+    nbytes = 2 * s * h * (2 * hd + 2 * dv)
+    b_ms, by = bound(nbytes, flops, "bf16")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(**_timed(torch, timer, kernel, plain, lambda: sdpa(qt, kt, vt, is_causal=True)),
+               bound_ms=b_ms, bound_by=by, max_abs_err=err, max_row_rel_err=row_err,
+               bytes=nbytes, flops=flops, kind="bf16")
+    log(f"    flash_attention {tag} (B=1 H={h} hd={hd} dv={dv} S=T={s}, causal bf16): kernel "
+        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(SDPA) "
+        f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {flops} FLOP, "
+        f"{nbytes} B)  max|err| {err:.3g}, worst row {row_err:.3g} of its norm  {_dev(row)}")
+    return row
+
+
 def _flash_cases(torch, timer, gen):
     """Causal bf16 flash attention timed at FLASH_SHAPES; non-causal, f32,
     ragged S and T != S checked; the injected fault. Returns (rows, fault)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attn import flash_attention_cuda
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {}
-    for tag, h, hd, dv, s in FLASH_SHAPES:
-        q, k, v = _flash_inputs(torch, gen, 1, s, s, h, hd, dv, torch.bfloat16)
-        kernel, plain, err, row_err = _flash_check(torch, q, k, v, True, f"{tag} causal bf16")
-        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))  # SDPA's (B, H, S, d)
-        pairs = s * (s + 1) // 2  # the causal half: (q, k) pairs with k_pos <= q_pos
-        flops = 2 * pairs * (hd + dv) * h
-        nbytes = 2 * s * h * (2 * hd + 2 * dv)
-        b_ms, by = bound(nbytes, flops, "bf16")
-        row = dict(**_timed(torch, timer, kernel, plain, lambda: sdpa(qt, kt, vt, is_causal=True)),
-                   bound_ms=b_ms, bound_by=by, max_abs_err=err, max_row_rel_err=row_err,
-                   bytes=nbytes, flops=flops, kind="bf16")
-        rows[tag] = row
-        log(f"    flash_attention {tag} (B=1 H={h} hd={hd} dv={dv} S=T={s}, causal bf16): kernel "
-            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(SDPA) "
-            f"{row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {flops} FLOP, "
-            f"{nbytes} B)  max|err| {err:.3g}, worst row {row_err:.3g} of its norm  {_dev(row)}")
+    rows = {tag: _flash_case(torch, timer, gen, tag, h, hd, dv, s)
+            for tag, h, hd, dv, s in FLASH_SHAPES}
     # checked, not timed
     for b, s, t, h, hd, dv, causal, dtype in ((1, 512, 512, 12, 64, 64, False, torch.bfloat16),
                                               (2, 300, 300, 3, 96, 64, True, torch.bfloat16),
@@ -2378,9 +2476,9 @@ def main():
 
     for r in gemm.values():
         r["kind"] = "bf16"
-    for r in (*attn.values(), frozen, *mla.values(), *olmoe_attn.values()):
+    for r in (*attn.values(), frozen, *olmoe_attn.values()):
         r["kind"] = "f32"
-    for r in (*batched.values(), *moe.values()):
+    for r in (*batched.values(), *moe.values(), *mla.values()):  # MLA: exact bf16 products
         r["kind"] = "bf16"
     # one decode step at 4 slots. opt-125m: per layer q, k, v, o (768->768),
     # up (768->3072) and down (3072->768) at M=4, and one attention launch.
@@ -2462,9 +2560,14 @@ def main():
                      "row's full pages frozen; launches (all variants) from phase 7"),
          "max_abs_err": max(max(r["max_abs_err"] for r in mla.values()), live_7[0]),
          "variants_ms": {f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''}": r["ms"]
-                         for (fmt, fz), r in mla.items()}},
+                         for (fmt, fz), r in mla.items()},
+         "variants_device_ms": {f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''}":
+                                r["device_ms"] for (fmt, fz), r in mla.items()},
+         "fault_combine_drops_last_split": mla[("fp8_e4m3", True)]["fault_combine_drops_last_split"]},
     ]
     kernels += _api_entries(api_launches, act, split, versus, faults, flash)
+    for k in kernels:  # its source's registers and spills, from phase 2's build log
+        k["ptxas"] = _ptxas_summary(PTXAS.get(Path(k["source"]).stem, []))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -45,9 +45,9 @@
 //    widths; any other width takes the generic path (byte copies, the
 //    lane's dims guarded), as does a page store not aligned to 16 bytes.
 //  * The splits' (m, l, acc) go to a workspace the wrapper allocates; a
-//    second kernel of the same call sums them in split order: weight
-//    exp(m - M), then acc / max(l, 1e-30). No atomics: repeated launches
-//    are bit-identical. A split that holds no valid token is never read;
+//    second kernel of the same call (split_combine.cuh) sums them in
+//    split order: weight exp(m - M), then acc / max(l, 1e-30). No
+//    atomics: repeated launches are bit-identical. A split that holds no valid token is never read;
 //    a row with none returns 0, as the plain version does. The combine is
 //    a programmatic dependent launch: its blocks start once every split
 //    block has, read kv_lens, and wait for the split kernel only before
@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "split_combine.cuh"
 
 namespace {
 
@@ -508,49 +510,6 @@ __global__ void __launch_bounds__(THREADS) gqa_decode_split_kernel(const Args a)
   }
 }
 
-// out[b, head] = sum_s exp(m_s - M) acc_s / max(sum_s exp(m_s - M) l_s,
-// 1e-30) over the splits of row b that hold a valid token (the split
-// kernel's own test), in split order; 0 for a row with none. The splits'
-// m and l are read at once into shared memory, their weights computed once.
-__global__ void __launch_bounds__(THREADS)
-gqa_decode_combine_kernel(const float* __restrict__ ml, const float* __restrict__ acc,
-               const int* __restrict__ lens, float* __restrict__ out, int H, int hd, int splits,
-               int span, int PP, int page, int window) {
-  extern __shared__ float wsm[];  // (splits,) weights, then (splits,) l
-  const int bh = blockIdx.x, b = bh / H, tid = threadIdx.x;
-  const int len = lens[b], lenc = min(len, PP * page);
-  const int lo = window ? max(0, len - window) : 0;
-  int s_lo = 0, s_hi = 0;
-  if (lo < lenc) {
-    s_lo = lo / span;
-    s_hi = (lenc + span - 1) / span;
-  }
-  const int n = s_hi - s_lo;
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the split kernel's writes
-  const float* mlr = ml + ((size_t)bh * splits + s_lo) * 2;
-  float* wl = wsm + splits;
-  for (int i = tid; i < n; i += THREADS) {
-    wsm[i] = mlr[2 * i];
-    wl[i] = mlr[2 * i + 1];
-  }
-  __syncthreads();
-  float mx = NEG;
-  for (int i = 0; i < n; ++i) mx = fmaxf(mx, wsm[i]);
-  __syncthreads();
-  for (int i = tid; i < n; i += THREADS) wsm[i] = expf(wsm[i] - mx);
-  __syncthreads();
-  float ls = 0.f;
-  for (int i = 0; i < n; ++i) ls += wl[i] * wsm[i];
-  const float den = fmaxf(ls, 1e-30f);
-  const float* ar = acc + ((size_t)bh * splits + s_lo) * hd;
-  for (int d = tid; d < hd; d += THREADS) {
-    float o = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < n; ++i) o += ar[(size_t)i * hd + d] * wsm[i];
-    out[(size_t)bh * hd + d] = o / den;
-  }
-}
-
 template <int LT, int G, int STORE>
 int launch_split(const Args& a, int B, int chunks, cudaStream_t stream) {
   const int rmax = STORE == BF16 ? 2 * a.hd : a.hd;
@@ -632,28 +591,6 @@ extern "C" int paged_decode_attn_launch(const void* q, const void* k_pages,
                : hd == 64 ? by_group<4>(group, store, a, B, chunks, s)
                           : by_group<8>(group, store, a, B, chunks, s);
   if (rc) return rc;
-  const size_t cbytes = sizeof(float) * 2 * (size_t)splits;
-  if (cbytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  if (cbytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gqa_decode_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cbytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  // a programmatic dependent launch: the combine's blocks are scheduled
-  // once every split block has started, and wait for the split kernel's
-  // completion (griddepcontrol.wait) only after their own prologue
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * H);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = cbytes;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, gqa_decode_combine_kernel, (const float*)part_ml, (const float*)part_acc,
-      (const int*)kv_lens, (float*)out, H, hd, splits, pps * page, PP, page, window);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return launch_split_combine(part_ml, part_acc, kv_lens, out, B, H, hd, splits, pps * page, PP,
+                              page, window, s);
 }

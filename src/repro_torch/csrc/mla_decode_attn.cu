@@ -1,48 +1,82 @@
 // MLA latent decode attention for Hopper (sm_90a): absorbed flash-decoding
-// over the paged latent pool (one KV "head" shared by every query head).
+// over the paged latent pool (one KV "head" shared by every query head),
+// split over the pages of each row and combined.
 //
 // Replaces the TPU kernel repro/kernels/decode_attn.py:287
 // (paged_mla_decode_attn_pallas, its _mla_kernel at :220), with and without
-// the packed-FP4 frozen region. For batch row b, the query heads of one
-// head group attend the tokens of pages page_table[b, 0..PP) up to
-// kv_lens[b]: scores s[h, t] = (q_lat[h] . ckv[t] + q_rope[h] . krope[t]) *
-// scale (k = concat(ckv, krope), never materialized), an online softmax in
-// f32, and the context acc[h] = sum_t p[h, t] ckv[t] (v is the ckv view).
-// FP8 codes are decoded by the integer exponent add of
-// kernels/common.py::decode_fp8 (value * 2^-shift[page] built from the f32
-// bit pattern; the latent has one shift per page, shift[pid, 0]), then one
-// s_max[page] multiply: never through the hardware E4M3 type, which tops
-// out at 448 and reads S.1111.111 as NaN where this grid's top code is 480.
+// the packed-FP4 frozen region. For batch row b, the query heads attend the
+// tokens of pages page_table[b, 0..PP) up to kv_lens[b]: scores s[h, t] =
+// (q_lat[h] . ckv[t] + q_rope[h] . krope[t]) * scale (k = concat(ckv,
+// krope), never materialized), a softmax in f32, and the context acc[h] =
+// sum_t p[h, t] ckv[t] (v is the ckv view), out = acc / max(l, 1e-30) in
+// f32. FP8 codes are worth their grid value times 2^-shift[page] (the
+// integer exponent add of kernels/common.py::decode_fp8; the latent has one
+// shift per page, shift[pid, 0]) times s_max[page]: never through the
+// hardware E4M3 type, which tops out at 448 and reads S.1111.111 as NaN
+// where this grid's top code is 480.
 //
-// What bounds it on the H100: the latent read, (r + dr) bytes per token for
-// FP8 pages (288 at MiniCPM3) against 2 * H * (r + dr) + 2 * H * r FLOPs per
-// token, so bytes for the card (a few hundred FLOPs per byte is needed to
-// be compute bound only at H in the hundreds); at serving batch sizes the
-// kernel is latency bound too, with B * ceil(H / HG) blocks each walking its
-// pages in sequence.
-// What the design does about it: KV is one head shared by all H query
-// heads, so a block takes a group of HG = 8 heads of one row and decodes
-// each page once into shared memory for the whole group (ckv page x r and
-// krope page x dr in f32: 73.7 KB at MiniCPM3, so the kernel opts into
-// dynamic shared memory above 48 KB). The page loop takes the place of the
-// Pallas innermost grid axis, whose m / l / acc scratch carried across grid
-// steps; here per-head m, l and the (HG, r) accumulator live in shared
-// memory for the block's whole walk. A page whose rows are a multiple of
-// 16 bytes is staged with 16-byte loads, all of a thread's loads issued
-// before any is used. Pages past kv_lens are never read, and positions at
-// or past kv_lens inside a page never enter a sum: the mask is a bound on
-// the loops, never a multiply by 0, so a stale NaN in a recycled or null
-// page cannot leak (0 * NaN = NaN). Split-KV for small batches is not done
-// yet: at B = 4 and H = 40 the launch has 20 blocks.
-// The frozen region (FROZEN = true, behind FP8 active pages): page ids >=
-// base = P + 1 address the half-width packed FP4 E2M1 store, row
-// min(pid - base, nfz), with its own s_max and shift. The TPU kernel
-// fetches both candidate pages through clamped index maps and selects per
-// page; the id class is uniform within a page, so here a branch per page
-// picks one store and reads only that one. The clamps of the plain version
-// (min(pid, P) on the FP8 side, the dummy row nfz for ids past the region)
-// are kept. Packed rows are ceil(d / 2) bytes, low nibble first: 128 bytes
-// for r = 256, 16 for dr = 32; an odd width's pad nibble is never written.
+// What bounds it on the H100: the latent read, (r + dr) bytes a token for
+// FP8 pages (288 at MiniCPM3), 1.06 MB at phase 3's contexts (0.32 us),
+// against 2 H (2 r + dr) = 46 kFLOP a token on the tensor cores (0.16 us).
+// At a decode step a launch lasts as long as its blocks' chains of
+// dependent steps (page ids, the copies, two barriers, the combine), as
+// in decode_attn.cu, which this design follows.
+//  * Split-KV from shapes alone: a block takes `pps` pages (at most 64
+//    tokens) of one (row, group of G = 16 query heads);
+//    kernels/decode_attn.py::mla_decode_plan picks pps with no length read,
+//    so a captured step replays the launch. At B = 4, H = 40, PP = 32 it is
+//    one page: 4 x 3 x 32 = 384 blocks, one wave at three blocks an SM. A
+//    split wholly past kv_lens[b] exits at once.
+//  * A staged page serves 16 heads (the old kernel: 8). G = 16 is one m16
+//    tile of query rows; all 40 in one block would leave B * splits = 64
+//    blocks at the served PP = 16 for 132 SMs, so the grid's second axis
+//    takes the three head groups (16, 16, 8), each staging the page again
+//    from L2. Shared memory at r = 256, dr = 32, page 64: the raw FP8 rows
+//    (18 KB), their bf16 operands (64 x 296 x 2 = 37 KB), q (9 KB), p in
+//    three bf16 pieces (7 KB): 72 KB, three blocks an SM (bf16 pages: no
+//    raw rows, 54 KB).
+//  * The copies: the page ids are read beside kv_lens, then every valid
+//    row of the split (and q) is issued as 16-byte cp.async copies before
+//    any is waited for. Rows past kv_lens are never copied, so a stale NaN
+//    in a recycled or null page (or the frozen dummy row) is never read;
+//    the operand rows past them are zero.
+//  * Placed decode, once a block: every thread turns 16 FP8 codes (or 32
+//    FP4 codes) into bf16 operands, each code's fields placed under an
+//    f32's (decode_attn.cu's `Placed`) and one multiply by 2^(127 - bias):
+//    the code's grid value, exact in bf16 (at most 4 significant bits).
+//    Where 2^-shift s_max would not be a normal product, or decode_code's
+//    pow2i would clamp, the operand is decode_code(code, shift) (also exact
+//    in bf16) and s_max alone is left for after the product.
+//  * Scores on the tensor cores: mma.sync m16n8k16 with the 16 heads as M,
+//    a warp's 16 tokens as N and the 256 + 32 dims as K (q and the
+//    operands by ldmatrix); bf16 products are exact and sum in f32. Then
+//    s = (q.ckv_op * post_c + q.krope_op * post_r) * scale, post = 2^-shift
+//    s_max of the token's page and store, after the product: one rounding
+//    apart from the plain version's q . (code s_max).
+//  * p f32-accurate in P . V: p * post_c in f32, split into three bf16
+//    pieces (hi, mid, lo: 24 bits, so a one-token row returns its latent
+//    to an f32 rounding; two pieces would leave post_c off by 2^-17),
+//    three mma.sync a k-step over the ckv operands (ldmatrix .trans), a
+//    warp owning 64 of the 256 columns. The softmax of a split: its max
+//    through shared memory (one barrier), exp in f32, the sum l per warp.
+//  * The splits' (m, l, acc) go to a workspace the wrapper allocates; a
+//    second kernel of the same call (split_combine.cuh) sums them in
+//    split order: weight exp(m - M), then acc / max(l, 1e-30). No
+//    atomics: repeated launches are bit-identical. A split that holds no valid token is never read;
+//    a row with none returns 0, as the plain version does. The combine is
+//    a programmatic dependent launch, as decode_attn.cu's.
+// Masks are loop bounds or selects (a masked token's score is -inf, its p
+// a selected 0, its operand row 0), never a multiply by 0.
+// The frozen region (FROZEN, behind FP8 active pages): page ids >= base =
+// P + 1 address the half-width packed FP4 E2M1 store, row min(pid - base,
+// nfz), with its own s_max and shift; other ids read the FP8 store at
+// min(pid, P), the clamps of the plain version. The id class is uniform
+// within a page, so each page reads only the store that holds it. Packed
+// rows are ceil(d / 2) bytes, low nibble first: 128 bytes for r = 256, 16
+// for dr = 32; an odd width's pad nibble is never read into an operand.
+// r = 256 and dr = 32 (MiniCPM3) are the template widths; any other width,
+// or a store not aligned to 16 bytes, takes the generic path (operands
+// decoded one element at a time, dims padded to 16 with zeros).
 // Instantiated for bf16 pages, FP8 pages and FP8 pages with the FP4 frozen
 // region; bf16 queries only (the Python wrapper refuses the rest).
 
@@ -50,12 +84,21 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+#include "split_combine.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int HG = 8;          // query heads per block
-constexpr int IN_FLIGHT = 8;   // global loads each thread issues before it uses one
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int G = 16;      // query heads a block: the M of one m16 tile
+constexpr int TILE = 64;   // tokens a split, at most: 16 a warp
+constexpr int PIECES = 3;  // bf16 pieces of p * post_c
 constexpr float NEG = -1e30f;
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
+constexpr unsigned FULL = 0xffffffffu;
+
+enum Store { BF16 = 0, FP8 = 1, FROZEN = 2 };  // FROZEN: FP8 pages + the FP4 region
 
 struct Grid {  // an ExMy code grid: FP8 E4M3 pages, FP4 E2M1 frozen pages
   int exp_bits, man_bits, bias;
@@ -75,224 +118,424 @@ __device__ __forceinline__ float decode_code(int code, int shift, const Grid& f)
   return (code >> (f.exp_bits + f.man_bits)) & 1 ? -val : val;
 }
 
-enum Store { BF16 = 0, CODES8 = 1, PACKED4 = 2 };
-
-// How one page's codes decode: each code times 2^-shift * smax.
-struct PageDecode {
-  Grid fmt;
-  int shift;
-  float smax;
-  __device__ __forceinline__ float code(int c) const {
-    return decode_code(c, shift, fmt) * smax;
-  }
-};
-
-// Decode the bytes [byte, byte + n) of one row into dst[value index]:
-// bf16 values (n even), one FP8 code per byte, or two FP4 codes per byte
-// (low nibble first), skipping values at or past d (an odd packed width's pad).
-template <Store KIND>
-__device__ __forceinline__ void decode_bytes(const uint8_t* raw, int n, int byte, int d,
-                                             float* dst, const PageDecode& f) {
-  if (KIND == BF16) {
-    for (int u = 0; u < n; u += 2) {
-      const unsigned short bits = (unsigned short)(raw[u] | (raw[u + 1] << 8));
-      dst[(byte + u) / 2] = __bfloat162float(__ushort_as_bfloat16(bits));
-    }
-  } else if (KIND == CODES8) {
-    for (int u = 0; u < n; ++u) dst[byte + u] = f.code(raw[u]);
-  } else {
-    for (int u = 0; u < n; ++u) {
-      const int v = 2 * (byte + u);
-      dst[v] = f.code(raw[u] & 15);
-      if (v + 1 < d) dst[v + 1] = f.code(raw[u] >> 4);
-    }
-  }
-}
-
-// Stage rows [0, rows) of one page (rows of rb bytes, contiguous) into
-// dst[t * pitch + value], d values a row. Every load of a round is issued
-// before any is decoded.
-template <Store KIND>
-__device__ void stage_page(const uint8_t* __restrict__ src, int rows, int rb, int d,
-                           float* dst, int pitch, const PageDecode& f) {
-  if (rb % 16 == 0 && ((uintptr_t)src & 15) == 0) {  // 16-byte loads
-    const int per_row = rb / 16, n = rows * per_row;
-    const uint4* s4 = (const uint4*)src;
-    for (int i0 = threadIdx.x; i0 < n; i0 += IN_FLIGHT * THREADS) {
-      uint4 raw[IN_FLIGHT];
-#pragma unroll
-      for (int u = 0; u < IN_FLIGHT; ++u) {
-        const int i = i0 + u * THREADS;
-        if (i < n) raw[u] = s4[i];
-      }
-#pragma unroll 1
-      for (int u = 0; u < IN_FLIGHT; ++u) {
-        const int i = i0 + u * THREADS;
-        if (i < n)
-          decode_bytes<KIND>((const uint8_t*)&raw[u], 16, 16 * (i % per_row), d,
-                             dst + (i / per_row) * pitch, f);
-      }
-    }
-    return;
-  }
-  const int step = KIND == BF16 ? 2 : 1;  // one value's bytes, or one packed byte
-  const int per_row = rb / step, n = rows * per_row;
-  for (int i0 = threadIdx.x; i0 < n; i0 += IN_FLIGHT * THREADS) {
-    uint8_t raw[IN_FLIGHT][2];
-#pragma unroll
-    for (int u = 0; u < IN_FLIGHT; ++u) {
-      const int i = i0 + u * THREADS;
-      if (i < n) {
-        const uint8_t* p = src + (size_t)(i / per_row) * rb + step * (i % per_row);
-        raw[u][0] = p[0];
-        raw[u][1] = step == 2 ? p[1] : 0;
-      }
-    }
-#pragma unroll 1
-    for (int u = 0; u < IN_FLIGHT; ++u) {
-      const int i = i0 + u * THREADS;
-      if (i < n)
-        decode_bytes<KIND>(raw[u], step, step * (i % per_row), d, dst + (i / per_row) * pitch,
-                           f);
-    }
-  }
-}
-
 struct Pages {  // one store of the latent pool: ckv and krope
-  const uint8_t *ckv, *krope;        // (n + 1, page, row bytes)
+  const uint8_t *ckv, *krope;          // (n + 1, page, row bytes)
   const float *ckv_smax, *krope_smax;  // (n + 1,)
   const int *ckv_shift, *krope_shift;  // (n + 1, 1)
   Grid fmt;
-  int rb_c, rb_r;                    // row bytes of ckv and krope
+  int rb_c, rb_r;                      // row bytes of ckv and krope
 };
 
-// Rows [0, rows) of page ``row`` of one store: ckv into cs, krope into ks.
-template <Store KIND>
-__device__ __forceinline__ void stage_latents(const Pages& st, int row, int rows, int page,
-                                              int r, int dr, float* cs, int cp, float* ks,
-                                              int rp) {
-  const bool codes = KIND != BF16;
-  const PageDecode fc{st.fmt, codes ? st.ckv_shift[row] : 0, codes ? st.ckv_smax[row] : 1.f};
-  const PageDecode fr{st.fmt, codes ? st.krope_shift[row] : 0,
-                      codes ? st.krope_smax[row] : 1.f};
-  stage_page<KIND>(st.ckv + (size_t)row * page * st.rb_c, rows, st.rb_c, r, cs, cp, fc);
-  stage_page<KIND>(st.krope + (size_t)row * page * st.rb_r, rows, st.rb_r, dr, ks, rp, fr);
-}
+struct Args {
+  const __nv_bfloat16 *q_lat, *q_rope;  // (B, H, r), (B, H, dr)
+  Pages act, fz;
+  const int *table, *lens;              // (B, PP), (B,)
+  float *part_ml, *part_acc;            // (B, H, splits, 2) m and l; (B, H, splits, r) acc
+  int H, r, dr, page, PP, pps, splits;
+  int base, nfz;                        // first frozen id (P + 1); the dummy row
+  float scale;
+};
 
-template <bool FP8, bool FROZEN>
-__global__ void __launch_bounds__(THREADS)
-mla_decode_attn_kernel(const __nv_bfloat16* __restrict__ q_lat,
-                       const __nv_bfloat16* __restrict__ q_rope, Pages act, Pages fz,
-                       const int* __restrict__ page_table, const int* __restrict__ kv_lens,
-                       float* __restrict__ out, int H, int r, int dr, int page, int PP,
-                       float scale, int base, int nfz) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h0 = blockIdx.y * HG, g = min(HG, H - h0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = THREADS / 32;
-  const int cp = r + 1, rp = dr + 1;  // pitches: the score loop reads a column
-                                      // across threads, a stride of r would hit one bank
-  float* ql = smem;                   // (g, r)
-  float* qr = ql + HG * r;            // (g, dr)
-  float* cs = qr + HG * dr;           // (page, cp) decoded ckv
-  float* ks = cs + page * cp;         // (page, rp) decoded krope
-  float* ps = ks + page * rp;         // (g, page) scores, then probabilities
-  float* acc = ps + HG * page;        // (g, r)
-  float* m_run = acc + HG * r;        // (g,)
-  float* l_run = m_run + HG;          // (g,)
-  float* corr = l_run + HG;           // (g,)
+// How one page of a split becomes operands, [0] ckv and [1] krope: its row
+// 0 in the store that holds it, that store's row bytes, the page's shift,
+// whether the placed decode applies, and the factor after the product.
+struct PageOp {
+  const uint8_t* row0[2];
+  float post[2];
+  int rb[2], shift[2], fast[2], fp4;
+};
 
-  for (int i = tid; i < g * r; i += THREADS) {
-    ql[i] = __bfloat162float(q_lat[((size_t)b * H + h0) * r + i]);
-    acc[i] = 0.f;
+// A page's codes -> bf16 operands, exactly: placed fields times
+// 2^(127 - bias) (the code's grid value) when fast, else decode_code.
+struct Operand {
+  Grid f;
+  float c;
+  int sh, mask, bits, shift, fast;
+  __device__ Operand(const Grid& g, int shift_, int fast_) : f(g), shift(shift_), fast(fast_) {
+    c = __int_as_float((254 - g.bias) << 23);  // 2^(127 - bias)
+    sh = 8 - g.exp_bits;
+    mask = (int)(0x80000000u | (((1u << (g.exp_bits + g.man_bits)) - 1) << (23 - g.man_bits)));
+    bits = 1 + g.exp_bits + g.man_bits;
   }
-  for (int i = tid; i < g * dr; i += THREADS)
-    qr[i] = __bfloat162float(q_rope[((size_t)b * H + h0) * dr + i]);
-  for (int i = tid; i < g; i += THREADS) {
-    m_run[i] = NEG;
-    l_run[i] = 0.f;
+  // top: the code in the top bits of an int
+  __device__ __forceinline__ float operator()(int top) const {
+    return fast ? __int_as_float((top >> sh) & mask) * c
+                : decode_code((int)((unsigned)top >> (32 - bits)), shift, f);
   }
-  const int len = kv_lens[b];
+};
+
+// The block's shared memory: PageOp[pps] | post_c, post_r of each token |
+// the warps' max and sum (WARPS x G each) | q (G x LP bf16) | p's pieces
+// (PIECES x G x PP_LD bf16) | the operands (TILE x LP bf16: ckv dims [0, RP),
+// krope dims [RP, RP + DRP)) | the raw rows (TILE x RAWP bytes; FP8 stores
+// on the template widths only).
+constexpr int PP_LD = TILE + 8;
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+struct Layout {
+  size_t post, red, q, p, opnd, raw, bytes;
+  __host__ __device__ Layout(int pps, int lp, int rawp) {
+    post = align16(sizeof(PageOp) * pps);
+    red = post + sizeof(float) * 2 * TILE;
+    q = align16(red + sizeof(float) * 2 * WARPS * G);
+    p = q + sizeof(__nv_bfloat16) * G * lp;
+    opnd = align16(p + sizeof(__nv_bfloat16) * PIECES * G * PP_LD);
+    raw = opnd + sizeof(__nv_bfloat16) * TILE * lp;
+    bytes = raw + (size_t)TILE * rawp;
+  }
+};
+
+// One split of one (row b, group of G query heads): its (m, l, acc) into the
+// workspace. R, DR: the template widths (r, dr), 0 for the generic path.
+template <int R, int DR, int STORE>
+__global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a) {
+  constexpr bool VEC = R != 0;
+  constexpr int MAX_TPW = VEC ? R / 32 : 16;  // n8 column tiles a warp (r <= 512)
+  asm volatile("griddepcontrol.launch_dependents;\n");  // the combine may start its prologue
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int s = blockIdx.x, h0 = blockIdx.y * G, b = blockIdx.z, tid = threadIdx.x;
+  const int j0 = s * a.pps, jn = min(a.pps, a.PP - j0);
+  int pid = 0;
+  if (tid < jn) pid = a.table[(size_t)b * a.PP + j0 + tid];  // beside kv_lens, not after it
+  const int len = a.lens[b];
+  const int span = a.pps * a.page, lenc = min(len, a.PP * a.page);
+  const int n = min(span, lenc - s * span);  // valid tokens of the split: [0, n)
+  if (n <= 0) return;
+
+  const int r = VEC ? R : a.r, dr = VEC ? DR : a.dr;
+  const int RP = (r + 15) & ~15, DRP = (dr + 15) & ~15, LP = RP + DRP + 8;
+  const int rawp = (VEC && STORE != BF16) ? R + DR : 0;
+  const Layout lay(a.pps, LP, rawp);
+  PageOp* pages = reinterpret_cast<PageOp*>(smem);
+  float* post = reinterpret_cast<float*>(smem + lay.post);  // (2, TILE)
+  float* red_m = reinterpret_cast<float*>(smem + lay.red);  // (WARPS, G)
+  float* red_l = red_m + WARPS * G;                         // (WARPS, G)
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + lay.q);
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + lay.p);
+  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem + lay.opnd);
+  uint8_t* raw = smem + lay.raw;
+  const int gh = min(G, a.H - h0);  // real heads of this group
+
+  // the split's pages with a valid token: where each lives (thread p)
+  const int npv = (n + a.page - 1) / a.page;
+  if (tid < npv) {
+    PageOp& pg = pages[tid];
+    const bool frozen = STORE == FROZEN && pid >= a.base;
+    const int row = frozen ? min(pid - a.base, a.nfz) : STORE == FROZEN ? min(pid, a.base - 1) : pid;
+    const Pages& st = frozen ? a.fz : a.act;
+    pg.fp4 = frozen;
+    pg.rb[0] = st.rb_c;
+    pg.rb[1] = st.rb_r;
+    pg.row0[0] = st.ckv + (size_t)row * a.page * st.rb_c;
+    pg.row0[1] = st.krope + (size_t)row * a.page * st.rb_r;
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      if (STORE == BF16) {
+        pg.post[part] = 1.f;
+        pg.shift[part] = 0;
+        pg.fast[part] = 1;
+        continue;
+      }
+      const int sh = (part ? st.krope_shift : st.ckv_shift)[row];
+      const float sm = (part ? st.krope_smax : st.ckv_smax)[row];
+      const float pf = __int_as_float((127 - max(-127, min(126, sh))) << 23) * sm;  // 2^-shift s_max
+      const int top = (1 << st.fmt.exp_bits) - 1 - st.fmt.bias - sh;
+      const bool fast = 1 - st.fmt.bias - sh >= -126 && top <= 127 && sh <= 126 && sh >= -127 &&
+                        (pf == 0.f || (fabsf(pf) >= 1.17549435e-38f && fabsf(pf) <= 3.40282347e38f));
+      pg.post[part] = fast ? pf : sm;
+      pg.shift[part] = sh;
+      pg.fast[part] = fast;
+    }
+  }
   __syncthreads();
 
-  for (int j = 0; j < PP; ++j) {
-    const int t_hi = min(page, len - j * page);  // valid positions of this page: [0, t_hi)
-    if (t_hi <= 0) break;
-    const int pid = page_table[(size_t)b * PP + j];
-    // the reference's clamps: frozen ids past the region read the dummy
-    // row, FP8 ids past the active store the null page
-    if (FROZEN && pid >= base)
-      stage_latents<PACKED4>(fz, min(pid - base, nfz), t_hi, page, r, dr, cs, cp, ks, rp);
-    else
-      stage_latents<FP8 ? CODES8 : BF16>(act, FROZEN ? min(pid, base - 1) : pid, t_hi, page,
-                                         r, dr, cs, cp, ks, rp);
-    __syncthreads();
-
-    // scores of the valid positions: k = concat(ckv, krope)
-    for (int i = tid; i < g * page; i += THREADS) {
-      const int gi = i / page, t = i % page;
-      if (t >= t_hi) continue;
-      float s = 0.f, s2 = 0.f;
-      for (int c = 0; c < r; ++c) s += ql[gi * r + c] * cs[t * cp + c];
-      for (int c = 0; c < dr; ++c) s2 += qr[gi * dr + c] * ks[t * rp + c];
-      ps[i] = (s + s2) * scale;
+  // every valid row of the split (and q) before any wait
+  if constexpr (VEC) {
+    constexpr int QC = R / 8, QRC = DR / 8;  // 16-byte chunks of a q_lat and a q_rope row
+    for (int i = tid; i < G * (QC + QRC); i += THREADS) {
+      const int hh = i / (QC + QRC), c = i % (QC + QRC), head = min(h0 + hh, a.H - 1);
+      const __nv_bfloat16* src = c < QC ? a.q_lat + ((size_t)b * a.H + head) * R + c * 8
+                                        : a.q_rope + ((size_t)b * a.H + head) * DR + (c - QC) * 8;
+      cp_async16(qs + hh * LP + (c < QC ? c * 8 : R + (c - QC) * 8), src, hh < gh);
     }
-    __syncthreads();
-
-    // online softmax, one warp per query head
-    for (int gi = warp; gi < g; gi += nwarps) {
-      float mx = NEG;
-      for (int t = lane; t < t_hi; t += 32) mx = fmaxf(mx, ps[gi * page + t]);
-      for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_run[gi], mx);
-      float sum = 0.f;
-      for (int t = lane; t < t_hi; t += 32) {
-        const float p = expf(ps[gi * page + t] - m_new);
-        ps[gi * page + t] = p;
-        sum += p;
+    constexpr int CC8 = R / 16, CR8 = DR / 16;  // 16-byte chunks of an FP8 ckv / krope row
+    if (STORE == BF16) {
+      constexpr int CC = R / 8, CR = DR / 8;
+      for (int i = tid; i < n * (CC + CR); i += THREADS) {
+        const int t = i / (CC + CR), c = i % (CC + CR);
+        const PageOp& pg = pages[t / a.page];
+        const int u = t % a.page;
+        cp_async16(op + t * LP + (c < CC ? c * 8 : R + (c - CC) * 8),
+                   c < CC ? pg.row0[0] + (size_t)u * pg.rb[0] + c * 16
+                          : pg.row0[1] + (size_t)u * pg.rb[1] + (c - CC) * 16);
       }
-      for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float c = expf(m_run[gi] - m_new);
-        corr[gi] = c;
-        l_run[gi] = l_run[gi] * c + sum;
-        m_run[gi] = m_new;
+      for (int i = tid; i < (TILE - n) * (CC + CR); i += THREADS) {
+        const int t = n + i / (CC + CR), c = i % (CC + CR);
+        *reinterpret_cast<uint4*>(op + t * LP + (c < CC ? c * 8 : R + (c - CC) * 8)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      for (int i = tid; i < n * (CC8 + CR8); i += THREADS) {
+        const int t = i / (CC8 + CR8), c = i % (CC8 + CR8);
+        const PageOp& pg = pages[t / a.page];
+        const int u = t % a.page;
+        const int cc = pg.fp4 ? CC8 / 2 : CC8, cr = pg.fp4 ? CR8 / 2 : CR8;  // FP4: half
+        if (c >= cc + cr) continue;
+        cp_async16(raw + t * rawp + c * 16, c < cc ? pg.row0[0] + (size_t)u * pg.rb[0] + c * 16
+                                                   : pg.row0[1] + (size_t)u * pg.rb[1] + (c - cc) * 16);
       }
     }
-    __syncthreads();
+  } else {  // generic widths: q and the operands one element at a time
+    for (int i = tid; i < G * (RP + DRP); i += THREADS) {
+      const int hh = i / (RP + DRP), c = i % (RP + DRP);
+      float v = 0.f;
+      if (hh < gh) {
+        if (c < r) v = __bfloat162float(a.q_lat[((size_t)b * a.H + h0 + hh) * r + c]);
+        else if (c >= RP && c - RP < dr)
+          v = __bfloat162float(a.q_rope[((size_t)b * a.H + h0 + hh) * dr + c - RP]);
+      }
+      qs[hh * LP + c] = __float2bfloat16_rn(v);
+    }
+  }
+  for (int t = tid; t < TILE; t += THREADS) {  // each token's factors after the product
+    const PageOp* pg = t < n ? &pages[t / a.page] : nullptr;
+    post[t] = pg ? pg->post[0] : 0.f;
+    post[TILE + t] = pg ? pg->post[1] : 0.f;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
-    // v is the ckv view: the attention-weighted latent is the context
-    for (int i = tid; i < g * r; i += THREADS) {
-      const int gi = i / r, c = i % r;
-      float a = acc[i] * corr[gi];
-      for (int t = 0; t < t_hi; ++t) a += ps[gi * page + t] * cs[t * cp + c];
-      acc[i] = a;
+  // the operands, decoded once for the block's G heads
+  if constexpr (STORE != BF16 && VEC) {
+    constexpr int CC8 = R / 16, CR8 = DR / 16, CH = CC8 + CR8;
+    for (int i = tid; i < TILE * CH; i += THREADS) {
+      const int t = i / CH, c = i % CH;
+      __nv_bfloat16* row = op + t * LP;
+      if (t >= n) {  // zero rows past the valid tokens (P . V reads them at p = 0)
+        uint4* d = reinterpret_cast<uint4*>(row + (c < CC8 ? c * 16 : R + (c - CC8) * 16));
+        d[0] = d[1] = make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
+      const PageOp& pg = pages[t / a.page];
+      const uint4 w = *reinterpret_cast<const uint4*>(raw + t * rawp + c * 16);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+      if (STORE == FROZEN && pg.fp4) {  // 32 nibbles: dim 2m is byte m's low nibble
+        if (c >= (CC8 + CR8) / 2) continue;
+        const int part = c < CC8 / 2 ? 0 : 1;
+        const Operand dec(a.fz.fmt, pg.shift[part], pg.fast[part]);
+        uint32_t o[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          o[e] = pack_bf16(dec((int)(ws[e >> 2] << (28 - 8 * (e & 3)))),
+                           dec((int)(ws[e >> 2] << (24 - 8 * (e & 3)))));
+        uint4* d = reinterpret_cast<uint4*>(row + (part ? R : c * 32));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) d[k] = make_uint4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+      } else {  // 16 bytes, one code each
+        const int part = c < CC8 ? 0 : 1;
+        const Operand dec(a.act.fmt, pg.shift[part], pg.fast[part]);
+        uint32_t o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          o[e] = pack_bf16(dec((int)(ws[e >> 1] << (24 - 16 * (e & 1)))),
+                           dec((int)(ws[e >> 1] << (16 - 16 * (e & 1)))));
+        uint4* d = reinterpret_cast<uint4*>(row + (part ? R + (c - CC8) * 16 : c * 16));
+        d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+        d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+      }
+    }
+    __syncthreads();
+  } else if constexpr (!VEC) {
+    for (int i = tid; i < TILE * (RP + DRP); i += THREADS) {
+      const int t = i / (RP + DRP), c = i % (RP + DRP);
+      const int part = c < RP ? 0 : 1, dim = part ? c - RP : c, d = part ? dr : r;
+      float v = 0.f;
+      if (t < n && dim < d) {
+        const PageOp& pg = pages[t / a.page];
+        const uint8_t* src = pg.row0[part] + (size_t)(t % a.page) * pg.rb[part];
+        if (STORE == BF16) {
+          v = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(src)[dim]);
+        } else if (STORE == FROZEN && pg.fp4) {
+          const int code = dim & 1 ? src[dim >> 1] >> 4 : src[dim >> 1] & 15;
+          v = Operand(a.fz.fmt, pg.shift[part], pg.fast[part])((int)((unsigned)code << 28));
+        } else {
+          v = Operand(a.act.fmt, pg.shift[part], pg.fast[part])((int)((unsigned)src[dim] << 24));
+        }
+      }
+      op[t * LP + c] = __float2bfloat16_rn(v);
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < g * r; i += THREADS)
-    out[((size_t)b * H + h0) * r + i] = acc[i] / fmaxf(l_run[i / r], 1e-30f);
+  // scores of this warp's 16 tokens for the G heads, on the tensor cores
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3, w0 = warp * 16;
+  float sc[2][4];
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (w0 < n) {
+    float ac[2][4] = {}, ar[2][4] = {};
+    const __nv_bfloat16* qa = qs + (lane & 15) * LP + ((lane >> 4) << 3);
+    const __nv_bfloat16* kb = op + (w0 + (lane & 7) + ((lane >> 4) << 3)) * LP + (((lane >> 3) & 1) << 3);
+#pragma unroll 4
+    for (int kk = 0; kk < RP / 16; ++kk) {
+      uint32_t qf[4], kf[4];
+      ldsm_x4(qf, qa + kk * 16);
+      ldsm_x4(kf, kb + kk * 16);
+      mma_bf16(ac[0], qf, kf[0], kf[1]);
+      mma_bf16(ac[1], qf, kf[2], kf[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DRP / 16; ++kk) {
+      uint32_t qf[4], kf[4];
+      ldsm_x4(qf, qa + RP + kk * 16);
+      ldsm_x4(kf, kb + RP + kk * 16);
+      mma_bf16(ar[0], qf, kf[0], kf[1]);
+      mma_bf16(ar[1], qf, kf[2], kf[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = w0 + 8 * j + 2 * t4 + (e & 1);
+        const float x = (ac[j][e] * post[t] + ar[j][e] * post[TILE + t]) * a.scale;
+        sc[j][e] = t < n ? x : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    }
+  }
+  if (t4 == 0) {
+    red_m[warp * G + g] = mx[0];
+    red_m[warp * G + g + 8] = mx[1];
+  }
+  __syncthreads();
+
+  // the split's max of each head, p = exp(s - m) in f32, its sum, and
+  // p * post_c in three bf16 pieces for P . V
+  float m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = NEG;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) m[i] = fmaxf(m[i], red_m[w * G + g + 8 * i]);
+  }
+  if (w0 < n) {
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint32_t pw[PIECES][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x[2], pc[PIECES][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int t = w0 + 8 * j + 2 * t4 + e;
+          const float p = t < n ? expf(sc[j][2 * i + e] - m[i]) : 0.f;
+          ls[i] += p;
+          x[e] = p * post[t];
+#pragma unroll
+          for (int k = 0; k < PIECES; ++k) {
+            const __nv_bfloat16 piece = __float2bfloat16_rn(x[e]);
+            pc[k][e] = __bfloat162float(piece);
+            x[e] -= pc[k][e];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < PIECES; ++k) pw[k][i] = pack_bf16(pc[k][0], pc[k][1]);
+      }
+#pragma unroll
+      for (int k = 0; k < PIECES; ++k) {
+        __nv_bfloat16* pr = ps + (k * G + g) * PP_LD + w0 + 8 * j + 2 * t4;
+        *reinterpret_cast<uint32_t*>(pr) = pw[k][0];
+        *reinterpret_cast<uint32_t*>(pr + 8 * PP_LD) = pw[k][1];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ls[i] += __shfl_xor_sync(FULL, ls[i], 1);
+      ls[i] += __shfl_xor_sync(FULL, ls[i], 2);
+    }
+    if (t4 == 0) {
+      red_l[warp * G + g] = ls[0];
+      red_l[warp * G + g + 8] = ls[1];
+    }
+  } else if (t4 == 0) {
+    red_l[warp * G + g] = red_l[warp * G + g + 8] = 0.f;
+  }
+  __syncthreads();
+
+  // acc = (p * post_c) . ckv_op: this warp's column tiles, every valid k-step
+  const int nt = RP / 8, tpw = (nt + WARPS - 1) / WARPS, c0 = warp * tpw;
+  float o[MAX_TPW][4];
+#pragma unroll
+  for (int c = 0; c < MAX_TPW; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  const int nk = (n + 15) >> 4;
+  for (int kk = 0; kk < nk; ++kk) {
+    uint32_t pa[PIECES][4];
+#pragma unroll
+    for (int k = 0; k < PIECES; ++k)
+      ldsm_x4(pa[k], ps + (k * G + (lane & 15)) * PP_LD + kk * 16 + ((lane >> 4) << 3));
+    const __nv_bfloat16* vb = op + (kk * 16 + (lane & 15)) * LP;
+#pragma unroll
+    for (int c = 0; c < MAX_TPW; ++c) {
+      if (c >= tpw || c0 + c >= nt) break;
+      uint32_t b0, b1;
+      ldsm_x2_t(b0, b1, vb + (c0 + c) * 8);
+#pragma unroll
+      for (int k = 0; k < PIECES; ++k) mma_bf16(o[c], pa[k], b0, b1);
+    }
+  }
+
+  // the split's partials of the real heads
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int hh = g + 8 * i;
+    if (hh >= gh) continue;
+    const size_t idx = ((size_t)b * a.H + h0 + hh) * a.splits + s;
+    float* acc = a.part_acc + idx * r;
+#pragma unroll
+    for (int c = 0; c < MAX_TPW; ++c) {
+      if (c >= tpw || c0 + c >= nt) break;
+      const int col = (c0 + c) * 8 + 2 * t4;
+      if (col < r) acc[col] = o[c][2 * i];
+      if (col + 1 < r) acc[col + 1] = o[c][2 * i + 1];
+    }
+    if (warp == 0 && t4 == 0) {
+      float l = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) l += red_l[w * G + hh];
+      a.part_ml[2 * idx] = m[i];
+      a.part_ml[2 * idx + 1] = l;
+    }
+  }
 }
 
-template <bool FP8, bool FROZEN>
-int launch(const void* q_lat, const void* q_rope, const Pages& act, const Pages& fz,
-           const void* page_table, const void* kv_lens, void* out, int B, int H, int r,
-           int dr, int page, int PP, float scale, int base, int nfz, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * ((size_t)HG * (r + dr) + (size_t)page * (r + 1) +
-                                        (size_t)page * (dr + 1) + (size_t)HG * page +
-                                        (size_t)HG * r + 3 * HG);
-  auto kernel = mla_decode_attn_kernel<FP8, FROZEN>;
+template <int R, int DR, int STORE>
+int launch_split(const Args& a, int B, cudaStream_t stream) {
+  const int RP = (a.r + 15) & ~15, DRP = (a.dr + 15) & ~15;
+  const size_t bytes =
+      Layout(a.pps, RP + DRP + 8, (R != 0 && STORE != BF16) ? R + DR : 0).bytes;
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = mla_decode_split_kernel<R, DR, STORE>;
   if (bytes > 48 * 1024) {
-    cudaError_t e =
+    const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<dim3(B, (H + HG - 1) / HG), THREADS, bytes, stream>>>(
-      (const __nv_bfloat16*)q_lat, (const __nv_bfloat16*)q_rope, act, fz,
-      (const int*)page_table, (const int*)kv_lens, (float*)out, H, r, dr, page, PP, scale,
-      base, nfz);
+  kernel<<<dim3(a.splits, (a.H + G - 1) / G, B), THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+template <int R, int DR>
+int by_store(int store, const Args& a, int B, cudaStream_t s) {
+  return store == FROZEN ? launch_split<R, DR, FROZEN>(a, B, s)
+       : store == FP8    ? launch_split<R, DR, FP8>(a, B, s)
+                         : launch_split<R, DR, BF16>(a, B, s);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -303,7 +546,12 @@ int launch(const void* q_lat, const void* q_rope, const Pages& act, const Pages&
 // kv_lens (B,) int32; out (B, H, r) f32. frozen = 1 (fp8 pages only):
 // ckv/krope_fz (nfz+1, page, ceil(d/2)) packed codes of the grid (fz_*),
 // their smax (nfz+1,) f32 and shift (nfz+1, 1) int32; table ids >= P+1
-// address them. Every operand is contiguous. Returns cudaGetLastError().
+// address them. The launch plan (kernels/decode_attn.py::mla_decode_plan):
+// pps pages a split (pps * page <= 64 tokens), splits a row (ceil(PP /
+// pps)), group query heads a block (16), threads a block (128); part_ml
+// (B, H, splits, 2) and part_acc (B, H, splits, r) f32 the splits'
+// workspace. Every operand is contiguous. Launches the split kernel and the
+// combine on `stream`; returns cudaGetLastError().
 extern "C" int mla_decode_attn_launch(
     const void* q_lat, const void* q_rope, const void* ckv, const void* krope, int fp8,
     const void* ckv_smax, const void* ckv_shift, const void* krope_smax,
@@ -311,9 +559,12 @@ extern "C" int mla_decode_attn_launch(
     int H, int r, int dr, int page, int PP, float scale, int exp_bits, int man_bits, int bias,
     int frozen, const void* ckv_fz, const void* krope_fz, const void* ckv_fz_smax,
     const void* ckv_fz_shift, const void* krope_fz_smax, const void* krope_fz_shift,
-    int n_pages1, int nfz, int fz_exp_bits, int fz_man_bits, int fz_bias, void* stream) {
+    int n_pages1, int nfz, int fz_exp_bits, int fz_man_bits, int fz_bias, int pps, int splits,
+    int group, int threads, void* part_ml, void* part_acc, void* stream) {
   if (B <= 0 || H <= 0) return (int)cudaGetLastError();
-  if (r <= 0 || dr <= 0 || page <= 0 || (frozen && (!fp8 || nfz < 0)))
+  if (r <= 0 || dr <= 0 || r > 512 || dr > 512 || page <= 0 || pps <= 0 ||
+      pps * page > TILE || splits <= 0 || (long long)pps * splits < PP || group != G ||
+      threads != THREADS || (frozen && (!fp8 || nfz < 0)))
     return (int)cudaErrorInvalidValue;
   const int es = fp8 ? 1 : 2;
   const Pages act{(const uint8_t*)ckv, (const uint8_t*)krope, (const float*)ckv_smax,
@@ -323,8 +574,16 @@ extern "C" int mla_decode_attn_launch(
                  (const float*)krope_fz_smax, (const int*)ckv_fz_shift,
                  (const int*)krope_fz_shift, Grid{fz_exp_bits, fz_man_bits, fz_bias},
                  (r + 1) / 2, (dr + 1) / 2};
+  const Args a{(const __nv_bfloat16*)q_lat, (const __nv_bfloat16*)q_rope, act, fz,
+               (const int*)page_table, (const int*)kv_lens, (float*)part_ml, (float*)part_acc,
+               H, r, dr, page, PP, pps, splits, n_pages1, nfz, scale};
+  const int store = frozen ? FROZEN : fp8 ? FP8 : BF16;
+  const bool vec = r == 256 && dr == 32 && aligned16(q_lat) && aligned16(q_rope) &&
+                   aligned16(ckv) && aligned16(krope) &&
+                   (!frozen || (aligned16(ckv_fz) && aligned16(krope_fz)));
   cudaStream_t s = (cudaStream_t)stream;
-  auto run = frozen ? &launch<true, true> : fp8 ? &launch<true, false> : &launch<false, false>;
-  return run(q_lat, q_rope, act, fz, page_table, kv_lens, out, B, H, r, dr, page, PP, scale,
-             n_pages1, nfz, s);
+  const int rc = vec ? by_store<256, 32>(store, a, B, s) : by_store<0, 0>(store, a, B, s);
+  if (rc) return rc;
+  return launch_split_combine(part_ml, part_acc, kv_lens, out, B, H, r, splits, pps * page, PP,
+                              page, 0, s);
 }

@@ -1,6 +1,7 @@
 """Python bindings of the paged decode attention kernels: GQA
 (``csrc/decode_attn.cu``) and MLA's latent decode (``csrc/mla_decode_attn.cu``,
-``paged_mla_decode_attn_cuda`` at the end of this module).
+``paged_mla_decode_attn_cuda`` at the end of this module, planned by
+``mla_decode_plan``).
 
 ``paged_decode_attn_cuda`` checks its operands, allocates the output and
 the splits' workspace and launches the kernel (its split kernel and the
@@ -24,7 +25,7 @@ from . import build
 from .common import page_format
 from .w4a8_fused import SMS, _check
 
-__all__ = ["DecodePlan", "decode_attn_plan", "paged_decode_attn_cuda",
+__all__ = ["DecodePlan", "decode_attn_plan", "mla_decode_plan", "paged_decode_attn_cuda",
            "paged_mla_decode_attn_cuda"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -156,11 +157,43 @@ paged_decode_attn_cuda.launches = 0
 paged_decode_attn_cuda.frozen_launches = 0
 
 
+MLA_GROUP = 16               # query heads a block: one m16 tile (csrc/mla_decode_attn.cu)
+MLA_TILE = 64                # tokens a split block stages, at most: 16 a warp
+MLA_MAX_WIDTH = 512          # r and dr: a warp's share of P . V fits its registers
+SM_SMEM = 233472             # shared memory of an SM (228 KB), 1 KB of it reserved a block
+
+
+def _mla_block_bytes(r: int, dr: int, esize: int) -> int:
+    """A split block's shared memory (the kernel's Layout, at most): q and
+    the operand tile (bf16, dims padded to 16, rows padded by 8), p's three
+    bf16 pieces, the raw FP8 rows, and ~2 KB of page descriptors and sums."""
+    lp = -(-r // 16) * 16 + -(-dr // 16) * 16 + 8
+    raw = MLA_TILE * (r + dr) if esize == 1 else 0
+    return 2 * (MLA_GROUP + MLA_TILE) * lp + 3 * 2 * MLA_GROUP * (MLA_TILE + 8) + raw + 2048
+
+
+def mla_decode_plan(B: int, H: int, r: int, dr: int, page: int, PP: int,
+                    esize: int = 1) -> DecodePlan:
+    """The launch plan of MLA latent decode, from shapes alone (no length
+    is read, so a captured step replays it). Split s of a (row, group of
+    ``group`` query heads) takes pages [s * pps, (s + 1) * pps) of the
+    table. pps is the fewest pages that keep every split block of the launch
+    within one wave (the blocks an SM holds at once, by the shared memory
+    of a block at widths ``r``, ``dr`` and ``esize`` bytes a stored
+    element: 1 for FP8 pages, 2 for bf16), and no more than MLA_TILE tokens
+    (the 16 tokens of each of the 4 warps)."""
+    heads = B * -(-H // MLA_GROUP)
+    wave = SMS * max(1, SM_SMEM // (_mla_block_bytes(r, dr, esize) + 1024))
+    pps = max(1, -(-heads * PP // wave))
+    pps = min(pps, max(1, MLA_TILE // page), max(PP, 1))
+    return DecodePlan(pps, max(1, -(-PP // pps)), MLA_GROUP, THREADS)
+
+
 def _mla_lib():
     fn = build.load("mla_decode_attn").mla_decode_attn_launch
     if fn.argtypes is None:
         fn.argtypes = ([_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _I, _I, _I] + [_P] * 6 + [_I] * 5 + [_P])
+                        _F, _I, _I, _I, _I] + [_P] * 6 + [_I] * 5 + [_I] * 4 + [_P] * 3)
         fn.restype = _I
     return fn
 
@@ -202,6 +235,9 @@ def paged_mla_decode_attn_cuda(q_lat, q_rope, ckv, krope, ckv_smax, ckv_shift, k
     if tuple(q_rope.shape[:2]) != (b, h):
         raise ValueError(f"q_rope {tuple(q_rope.shape)} does not match q_lat {(b, h, r)}")
     p1, page = ckv.shape[:2]
+    if max(r, dr) > MLA_MAX_WIDTH or page > MLA_TILE:
+        raise NotImplementedError(f"r={r}, dr={dr}, page={page}: the kernel takes latent widths "
+                                  f"up to {MLA_MAX_WIDTH} and pages up to {MLA_TILE} tokens")
     pp = page_table.shape[1]
     store = torch.uint8 if pf.quantized else torch.bfloat16
     _check(ckv, "ckv", store, (p1, page, r), dev)
@@ -226,7 +262,10 @@ def paged_mla_decode_attn_cuda(q_lat, q_rope, ckv, krope, ckv_smax, ckv_shift, k
         for t, name in ((ckv_fz_shift, "ckv_fz_shift"), (krope_fz_shift, "krope_fz_shift")):
             _check(t, name, torch.int32, (f1, 1), dev)
     f, ff = pf.fmt, fz.fmt if fz is not None else None
+    plan = mla_decode_plan(b, h, r, dr, page, pp, esize=1 if pf.quantized else 2)
     out = torch.empty((b, h, r), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, h, plan.splits, 2), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, h, plan.splits, r), dtype=torch.float32, device=dev)
     ptr = lambda t, on: t.data_ptr() if on else None
     rc = _mla_lib()(q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(), krope.data_ptr(),
                     int(pf.quantized), ptr(ckv_smax, f), ptr(ckv_shift, f),
@@ -235,6 +274,7 @@ def paged_mla_decode_attn_cuda(q_lat, q_rope, ckv, krope, ckv_smax, ckv_shift, k
                     f.exp_bits if f else 0, f.man_bits if f else 0, f.bias if f else 0,
                     int(ff is not None), *(ptr(t, ff) for t in fz_ops), p1, nfz,
                     ff.exp_bits if ff else 0, ff.man_bits if ff else 0, ff.bias if ff else 0,
+                    *plan, part_ml.data_ptr(), part_acc.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"mla_decode_attn kernel launch failed: CUDA error {rc}")

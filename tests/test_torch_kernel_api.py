@@ -137,3 +137,111 @@ def test_flash_attention_plain_matches_oracle_f32(causal, s, tk):
     o = tref.flash_attention_ref(t(q), t(k), t(v), causal)
     np.testing.assert_allclose(to_np(o), np.asarray(j_flash_ref(q, k, v, causal)), rtol=1e-6,
                                atol=1e-6)
+
+
+def flash_tiles(b, s, h, hd, bf16):
+    """(query rows, keys) of the kernel's tiles (``csrc/flash_attn.cu``'s
+    ``Cfg``): 128 query rows where that grid still has a block for each of
+    the 132 SMs, with 64-key tiles at hd 96 (two slabs a warp) and 128
+    otherwise; 64 rows by 128 keys below; the f32 path 64 by 64."""
+    if not bf16:
+        return 64, 64
+    bq = 128 if b * h * -(-s // 128) >= 132 else 64
+    return bq, 64 if bq == 128 and -(-hd // 32) == 3 else 128
+
+
+def flash_emulation(q, k, v, causal, bq=None, bkv=None):
+    """``csrc/flash_attn.cu``'s dataflow in torch: q tiles of ``bq`` rows in
+    the kernel's launch order (longest first when causal), each walking the
+    KV tiles of ``bkv`` keys up to its last row (both by default the
+    kernel's own, ``flash_tiles``), keys past T zero (their
+    score -inf: out of the max and the sum); f32 scores, on the bf16 path
+    the exact products summed then scaled (f32: q scaled first); the mask
+    compared only on a tile that straddles the diagonal or holds keys past T
+    (elsewhere it must mask nothing); the online (m, l, acc) with p cast to
+    v's dtype before P . V, out = acc / max(l, 1e-30) in v's dtype. Returns
+    (out, the keys each q tile walks, in launch order)."""
+    b, s, h, hd = q.shape
+    t_len, dv = k.shape[1], v.shape[-1]
+    mma = q.dtype == torch.bfloat16
+    tiles = flash_tiles(b, s, h, hd, mma)
+    bq, bkv = bq or tiles[0], bkv or tiles[1]
+    scale = torch.tensor(1.0 / float(hd) ** 0.5, dtype=torch.float32)
+    nq = -(-s // bq)
+    out, walked = torch.empty((b, s, h, dv), dtype=v.dtype), []
+    for y in range(nq):
+        q0 = (nq - 1 - y if causal else y) * bq
+        qf = q[:, q0:q0 + bq].float().transpose(1, 2)  # (B, H, R, hd)
+        qf = qf if mma else qf * scale
+        rows = q0 + torch.arange(qf.shape[2])[:, None]
+        kv_end = min(t_len, s, q0 + bq) if causal else t_len
+        m = torch.full(qf.shape[:3], -1e30)
+        l = torch.zeros(qf.shape[:3])
+        acc = torch.zeros(qf.shape[:3] + (dv,))
+        walked.append(kv_end)
+        for k0 in range(0, kv_end, bkv):
+            pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, k0 + bkv - min(t_len, k0 + bkv)))
+            kt, vt = pad(k[:, k0:k0 + bkv]).transpose(1, 2), pad(v[:, k0:k0 + bkv]).transpose(1, 2)
+            sc = torch.einsum("bhrd,bhkd->bhrk", qf, kt.float())
+            sc = sc * scale if mma else sc
+            keys = k0 + torch.arange(bkv)[None]
+            masked = (keys > rows) if causal else torch.zeros_like(keys > rows)
+            if (causal and k0 + bkv - 1 > q0) or k0 + bkv > t_len:
+                sc = torch.where(keys >= t_len, -torch.inf, torch.where(masked, -1e30, sc))
+            else:
+                assert not masked.any() and not (keys >= t_len).any()
+            mn = torch.maximum(m, sc.amax(-1))
+            corr = torch.exp(m - mn)
+            p = torch.exp(sc - mn[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhrk,bhkd->bhrd",
+                                                       p.to(v.dtype).float(), vt.float())
+            m = mn
+        o = (acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2).to(v.dtype)
+        out[:, q0:q0 + bq] = o[:, :max(0, min(bq, s - q0))]
+    return out, walked
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(jnp.bfloat16, 3e-2), (jnp.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(1, 128, 2, 64, 64), (2, 96, 3, 32, 16)])
+def test_flash_emulation_matches_pallas(causal, dtype, tol, shape):
+    """The CUDA kernel's register dataflow (``flash_emulation``) against
+    repro's Pallas kernel in interpret mode, at the CPU shapes above."""
+    b, s, h, hd, dv = shape
+    rng = np.random.default_rng(b * s + h + hd)
+    q, k, v = _qkv(rng, b, s, s, h, hd, dv, dtype)
+    want = flash_attention_pallas(q, k, v, causal=causal, block_q=32, block_k=32, interpret=True)
+    got, walked = flash_emulation(t(q), t(k), t(v), causal)
+    assert got.dtype == t(v).dtype and got.shape == (b, s, h, dv)
+    np.testing.assert_allclose(to_np(got), np.asarray(want, np.float32), rtol=tol, atol=tol)
+    assert walked == sorted(walked, reverse=True)  # the longest q tiles first
+    if causal:
+        assert walked[0] > walked[-1]
+
+
+@pytest.mark.parametrize("s,tk", [(100, 100), (40, 72), (72, 40)])
+def test_flash_emulation_ragged_f32(s, tk):
+    """Ragged S and T != S, tiles of 32 so several straddle the edges:
+    within 1e-6 of the plain version in f32."""
+    rng = np.random.default_rng(s * tk)
+    q, k, v = _qkv(rng, 2, s, tk, 2, 20, 12, jnp.float32)
+    for causal in (True, False):
+        got, _ = flash_emulation(t(q), t(k), t(v), causal, bq=32, bkv=32)
+        want = tref.flash_attention_ref(t(q), t(k), t(v), causal)
+        np.testing.assert_allclose(to_np(got), to_np(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("hd,dv", [(64, 64), (96, 64), (128, 128)])
+def test_flash_emulation_wide_tiles(hd, dv):
+    """The kernel's 128-row tiles (at 132 blocks: B = 2, H = 33, S = 256,
+    trimmed to the rows the check reads) against the plain version: causal
+    bf16 within FLASH_TOL's 3e-2."""
+    b, s, h = 2, 256, 33
+    assert flash_tiles(b, s, h, hd, True)[0] == 128
+    rng = np.random.default_rng(hd + dv)
+    q, k, v = (t(x) for x in _qkv(rng, b, s, s, h, hd, dv, jnp.bfloat16))
+    got, walked = flash_emulation(q, k, v, True)
+    assert walked == sorted(walked, reverse=True)
+    want = tref.flash_attention_ref(q, k, v, True)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=3e-2, atol=3e-2)
