@@ -260,7 +260,10 @@ def _ptxas_table(out, nvcc):
 
 
 def _ptxas_summary(rows):
-    """A source's instantiations in brief, for the kernels line."""
+    """A source's instantiations in brief, for the kernels line; None when
+    no build log of the source was read."""
+    if not rows:
+        return None
     return {"instantiations": len(rows),
             "registers": [min((r["registers"] for r in rows), default=0),
                           max((r["registers"] for r in rows), default=0)],
@@ -841,12 +844,17 @@ def _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens, nan=False):
     return layer, table, kv_lens, n_frozen, q_lat, q_rope, scale, kernel, plain, err, what
 
 
+MLA_PAGES = (16, 48, 128)  # a split over 4 pages, over page edges off its own, half a page
+
+
 def _mla_edge_checks(torch, gen):
     """Row 3 where the split plan has edges, at MLA_SHAPE's widths, over each
     page variant: a row at kv_len 0 (must return 0) and one at 1, rows
     ending exactly on a split boundary and one token past it; NaN planted
     outside the valid tokens (stale page tails, the null page, the frozen
-    dummy row). Every check launches twice, bit-identical. Then the injected
+    dummy row). Then at each page size of MLA_PAGES, where a split's 64
+    tokens are not one page (frozen and FP8 pages mixed in one split at 16),
+    with NaN planted. Every check launches twice, bit-identical. Then the injected
     fault: the combine dropping each row's last split, read as the kernel
     over the tokens before that split's first (as such a combine would sum
     them) against the plain version on all of them; it must read above
@@ -854,7 +862,7 @@ def _mla_edge_checks(torch, gen):
     from repro_torch.kernels.decode_attn import mla_decode_plan
 
     h, r, dr, page = (MLA_SHAPE[k] for k in ("h", "r", "dr", "page"))
-    span = mla_decode_plan(4, h, r, dr, page, 32).pps * page
+    span = mla_decode_plan(4, h, r, dr, page, 32).span
     worst = {}
     for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False)):
         errs = []
@@ -865,6 +873,13 @@ def _mla_edge_checks(torch, gen):
             errs.append(err)
         errs.append(_mla_check(torch, gen, fmt, fz, 4, h, r, dr, page, MLA_SHAPE["lens"],
                                nan=True)[-2])
+        for pg in MLA_PAGES:
+            lens = [701, 2 * pg + 1, 3 * span, 0]
+            *_, kernel, _, err, what = _mla_check(torch, gen, fmt, fz, 4, h, r, dr, pg, lens,
+                                                  nan=True)
+            if bool(kernel()[3].ne(0).any()):
+                fail(f"{what} lens {lens}: the kv_len 0 row is not 0")
+            errs.append(err)
         worst[(fmt, fz)] = max(errs)
     layer, table, kv_lens, _, q_lat, q_rope, scale, _, plain, _, _ = _mla_check(
         torch, gen, "fp8_e4m3", True, 4, h, r, dr, page, MLA_SHAPE["lens"])
@@ -875,8 +890,9 @@ def _mla_edge_checks(torch, gen):
         fail(f"injected fault (the MLA combine without each row's last split) reads {fault:.3g} "
              f"<= {ATTN_TOL}: the check cannot tell it from a sound kernel")
     log(f"    paged_mla_decode_attn H={h} r={r} dr={dr}, split span {span} tokens: kv_len 0 and 1, "
-        f"lens on and past a split boundary, NaN outside the valid tokens, each launched twice "
-        f"(bit-identical): max|err| " + ", ".join(
+        f"lens on and past a split boundary, NaN outside the valid tokens, pages of {page} and "
+        f"{', '.join(map(str, MLA_PAGES))}, each launched twice (bit-identical): max|err| "
+        + ", ".join(
             f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''} {e:.3g}" for (fmt, fz), e in worst.items())
         + f"; injected fault, the combine without each row's last split: max|err| {fault:.3g} "
         f"(> {ATTN_TOL} required)")
@@ -976,7 +992,8 @@ def phase_kernels(torch):
                 f"scale_mode=m2 lorc_rank=8: max|err| {err:.3g}")
     mla = {(fmt, fz): _mla_case(torch, timer, gen, fmt, fz)
            for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False))}
-    for h, r, dr, page in ((3, 16, 8, 4), (3, 9, 5, 4)):  # tests/test_fp4_cache.py:268-272; odd widths
+    # tests/test_fp4_cache.py:268-272; odd widths; r past 512 (P . V in two column passes)
+    for h, r, dr, page in ((3, 16, 8, 4), (3, 9, 5, 4), (20, 600, 40, 32)):
         for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False)):
             *_, err, what = _mla_check(torch, gen, fmt, fz, 2, h, r, dr, page, [4 * page - 3, 2])
             mla[(fmt, fz)]["max_abs_err"] = max(mla[(fmt, fz)]["max_abs_err"], err)
@@ -2268,7 +2285,13 @@ def _flash_cases(torch, timer, gen):
                                               (1, 257, 130, 2, 40, 24, True, torch.bfloat16),
                                               (1, 100, 100, 2, 20, 12, True, torch.bfloat16),
                                               (2, 77, 77, 2, 64, 32, True, torch.float32),
-                                              (1, 100, 150, 3, 48, 80, False, torch.float32)):
+                                              (1, 100, 150, 3, 48, 80, False, torch.float32),
+                                              # 128-row tiles (B H ceil(S / 128) >= 132) with
+                                              # ragged S, T != S and narrow or unaligned widths
+                                              (1, 300, 257, 48, 96, 64, True, torch.bfloat16),
+                                              (1, 333, 400, 48, 128, 128, False, torch.bfloat16),
+                                              (2, 257, 200, 24, 64, 64, True, torch.bfloat16),
+                                              (1, 300, 300, 48, 20, 12, True, torch.bfloat16)):
         what = (f"B={b} S={s} T={t} H={h} hd={hd} dv={dv} {'causal' if causal else 'non-causal'} "
                 f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
         err, row_err = _flash_check(torch, *_flash_inputs(torch, gen, b, s, t, h, hd, dv, dtype),
@@ -2567,7 +2590,7 @@ def main():
     ]
     kernels += _api_entries(api_launches, act, split, versus, faults, flash)
     for k in kernels:  # its source's registers and spills, from phase 2's build log
-        k["ptxas"] = _ptxas_summary(PTXAS.get(Path(k["source"]).stem, []))
+        k["ptxas"] = _ptxas_summary(PTXAS.get(Path(k["source"]).stem))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -2,7 +2,7 @@
 """Device times of the attention and W4A8 GEMM kernel rows of another
 checkout, for a before/after comparison on one card.
 
-    python3 kernel_compare.py <root of a checkout> [--attention]
+    python3 kernel_compare.py <root of a checkout> [row ...]
 
 Builds the CUDA kernels of ``<root>/src/repro_torch`` and times them with
 this checkout's ``chip_smoke.py`` timing code: phase 11's flash-attention
@@ -14,9 +14,11 @@ of hd 128), then its W4A8 rows (row 1 at opt-125m's, MiniCPM3-4B's and
 OLMoE-1B-7B's shapes, rows 1b and 1c at E=40, row 1d at M=4 and 260, as
 served and dense), each held against its plain version, with its library
 call; then phase 11's split-vs-fused table. Every reading is device time
-from CUDA graphs beside the event-pair time. ``--attention`` stops after
-the attention rows (6, 3, 2, 2b). Run it on the checkout itself and on a
-copy of the parent commit in one call.
+from CUDA graphs beside the event-pair time. The optional ``row``
+arguments name the families to time, of ``6``, ``3``, ``2`` (rows 2 and
+2b) and ``1`` (the W4A8 rows and the split-vs-fused table); with none it
+times them all. Run it on the checkout itself and on a copy of the parent
+commit in one call.
 """
 import json
 import sys
@@ -25,9 +27,13 @@ from pathlib import Path
 import chip_smoke as cs
 
 
+FAMILIES = ("6", "3", "2", "1")
+
+
 def main():
-    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--attention"]):
-        cs.fail("usage: kernel_compare.py <root of a checkout> [--attention]")
+    families = set(sys.argv[2:]) or set(FAMILIES)
+    if len(sys.argv) < 2 or not families <= set(FAMILIES):
+        cs.fail(f"usage: kernel_compare.py <root of a checkout> [row ...], rows of {FAMILIES}")
     root = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -41,15 +47,18 @@ def main():
     timer = cs.Timer(torch)
     gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
     rows = {}
-    for tag, h, hd, dv, s in cs.FLASH_SHAPES:
-        rows[f"row6 {tag}"] = cs._flash_case(torch, timer, gen, tag, h, hd, dv, s)
-    for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False)):
-        rows[f"row3 {fmt or 'bf16'}{' + fp4 frozen' if fz else ''}"] = cs._mla_case(
-            torch, timer, gen, fmt, fz)
-    for kv, hd in ((12, 64), (16, 128)):
-        rows[f"row2 KV={kv} hd={hd}"] = cs._attn_case(torch, timer, "fp8_e4m3", gen, kv, hd)
-        rows[f"row2b KV={kv} hd={hd}"] = cs._attn_frozen_case(torch, timer, gen, kv, hd)
-    versus = None if sys.argv[2:] else _w4a8_rows(torch, timer, gen, rows)
+    if "6" in families:
+        for tag, h, hd, dv, s in cs.FLASH_SHAPES:
+            rows[f"row6 {tag}"] = cs._flash_case(torch, timer, gen, tag, h, hd, dv, s)
+    if "3" in families:
+        for fmt, fz in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False)):
+            rows[f"row3 {fmt or 'bf16'}{' + fp4 frozen' if fz else ''}"] = cs._mla_case(
+                torch, timer, gen, fmt, fz)
+    if "2" in families:
+        for kv, hd in ((12, 64), (16, 128)):
+            rows[f"row2 KV={kv} hd={hd}"] = cs._attn_case(torch, timer, "fp8_e4m3", gen, kv, hd)
+            rows[f"row2b KV={kv} hd={hd}"] = cs._attn_frozen_case(torch, timer, gen, kv, hd)
+    versus = _w4a8_rows(torch, timer, gen, rows) if "1" in families else None
     keep = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "max_abs_err")
     print(json.dumps({"root": str(root), "card": card,
                       "rows": {k: {f: r[f] for f in keep} for k, r in rows.items()},

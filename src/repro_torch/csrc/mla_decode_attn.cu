@@ -21,12 +21,14 @@
 // At a decode step a launch lasts as long as its blocks' chains of
 // dependent steps (page ids, the copies, two barriers, the combine), as
 // in decode_attn.cu, which this design follows.
-//  * Split-KV from shapes alone: a block takes `pps` pages (at most 64
-//    tokens) of one (row, group of G = 16 query heads);
-//    kernels/decode_attn.py::mla_decode_plan picks pps with no length read,
-//    so a captured step replays the launch. At B = 4, H = 40, PP = 32 it is
-//    one page: 4 x 3 x 32 = 384 blocks, one wave at three blocks an SM. A
-//    split wholly past kv_lens[b] exits at once.
+//  * Split-KV from shapes alone: a block takes `span` = 64 tokens of one
+//    (row, group of G = 16 query heads), tokens [s * span, (s + 1) * span)
+//    of the row, whatever the page size: several pages of 16, one of 64,
+//    half of one of 128, or the tail of one page and the head of the next.
+//    kernels/decode_attn.py::mla_decode_plan reads no length, so a captured
+//    step replays the launch. At B = 4, H = 40, PP = 32 pages of 64 it is
+//    4 x 3 x 32 = 384 blocks, one wave at three blocks an SM. A split
+//    wholly past kv_lens[b] exits at once.
 //  * A staged page serves 16 heads (the old kernel: 8). G = 16 is one m16
 //    tile of query rows; all 40 in one block would leave B * splits = 64
 //    blocks at the served PP = 16 for 132 SMs, so the grid's second axis
@@ -57,7 +59,8 @@
 //    pieces (hi, mid, lo: 24 bits, so a one-token row returns its latent
 //    to an f32 rounding; two pieces would leave post_c off by 2^-17),
 //    three mma.sync a k-step over the ckv operands (ldmatrix .trans), a
-//    warp owning 64 of the 256 columns. The softmax of a split: its max
+//    warp owning 64 of the 256 columns (a quarter of them at any width,
+//    at most 128 columns a pass). The softmax of a split: its max
 //    through shared memory (one barrier), exp in f32, the sum l per warp.
 //  * The splits' (m, l, acc) go to a workspace the wrapper allocates; a
 //    second kernel of the same call (split_combine.cuh) sums them in
@@ -76,7 +79,10 @@
 // for dr = 32; an odd width's pad nibble is never read into an operand.
 // r = 256 and dr = 32 (MiniCPM3) are the template widths; any other width,
 // or a store not aligned to 16 bytes, takes the generic path (operands
-// decoded one element at a time, dims padded to 16 with zeros).
+// decoded one element at a time, dims padded to 16 with zeros). Widths and
+// page sizes are limited only by a block's shared memory (q and a split's
+// operands, 160 (r + dr) bytes and ~8 KB besides: r + dr up to ~1350);
+// past it the launch returns cudaErrorInvalidValue.
 // Instantiated for bf16 pages, FP8 pages and FP8 pages with the FP4 frozen
 // region; bf16 queries only (the Python wrapper refuses the rest).
 
@@ -131,7 +137,7 @@ struct Args {
   Pages act, fz;
   const int *table, *lens;              // (B, PP), (B,)
   float *part_ml, *part_acc;            // (B, H, splits, 2) m and l; (B, H, splits, r) acc
-  int H, r, dr, page, PP, pps, splits;
+  int H, r, dr, page, PP, span, splits;
   int base, nfz;                        // first frozen id (P + 1); the dummy row
   float scale;
 };
@@ -164,7 +170,13 @@ struct Operand {
   }
 };
 
-// The block's shared memory: PageOp[pps] | post_c, post_r of each token |
+// The pages a split of at most TILE tokens touches, at most.
+__host__ __device__ inline int max_pages(int page) {
+  const int n = (page + TILE - 2) / page + 1;
+  return n < TILE ? n : TILE;
+}
+
+// The block's shared memory: PageOp[max_pages] | post_c, post_r of each token |
 // the warps' max and sum (WARPS x G each) | q (G x LP bf16) | p's pieces
 // (PIECES x G x PP_LD bf16) | the operands (TILE x LP bf16: ckv dims [0, RP),
 // krope dims [RP, RP + DRP)) | the raw rows (TILE x RAWP bytes; FP8 stores
@@ -173,8 +185,8 @@ constexpr int PP_LD = TILE + 8;
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 struct Layout {
   size_t post, red, q, p, opnd, raw, bytes;
-  __host__ __device__ Layout(int pps, int lp, int rawp) {
-    post = align16(sizeof(PageOp) * pps);
+  __host__ __device__ Layout(int npages, int lp, int rawp) {
+    post = align16(sizeof(PageOp) * npages);
     red = post + sizeof(float) * 2 * TILE;
     q = align16(red + sizeof(float) * 2 * WARPS * G);
     p = q + sizeof(__nv_bfloat16) * G * lp;
@@ -189,22 +201,23 @@ struct Layout {
 template <int R, int DR, int STORE>
 __global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a) {
   constexpr bool VEC = R != 0;
-  constexpr int MAX_TPW = VEC ? R / 32 : 16;  // n8 column tiles a warp (r <= 512)
+  constexpr int MAX_TPW = VEC ? R / 32 : 16;  // n8 column tiles a warp and pass
   asm volatile("griddepcontrol.launch_dependents;\n");  // the combine may start its prologue
   extern __shared__ __align__(16) uint8_t smem[];
   const int s = blockIdx.x, h0 = blockIdx.y * G, b = blockIdx.z, tid = threadIdx.x;
-  const int j0 = s * a.pps, jn = min(a.pps, a.PP - j0);
+  const int t0 = s * a.span, jp0 = t0 / a.page;  // the split's first token and its page
+  const int jn = min((t0 + a.span - 1) / a.page + 1, a.PP) - jp0;  // pages the split touches
   int pid = 0;
-  if (tid < jn) pid = a.table[(size_t)b * a.PP + j0 + tid];  // beside kv_lens, not after it
+  if (tid < jn) pid = a.table[(size_t)b * a.PP + jp0 + tid];  // beside kv_lens, not after it
   const int len = a.lens[b];
-  const int span = a.pps * a.page, lenc = min(len, a.PP * a.page);
-  const int n = min(span, lenc - s * span);  // valid tokens of the split: [0, n)
+  const int lenc = min(len, a.PP * a.page);
+  const int n = min(a.span, lenc - t0);  // valid tokens of the split: [0, n)
   if (n <= 0) return;
 
   const int r = VEC ? R : a.r, dr = VEC ? DR : a.dr;
   const int RP = (r + 15) & ~15, DRP = (dr + 15) & ~15, LP = RP + DRP + 8;
   const int rawp = (VEC && STORE != BF16) ? R + DR : 0;
-  const Layout lay(a.pps, LP, rawp);
+  const Layout lay(max_pages(a.page), LP, rawp);
   PageOp* pages = reinterpret_cast<PageOp*>(smem);
   float* post = reinterpret_cast<float*>(smem + lay.post);  // (2, TILE)
   float* red_m = reinterpret_cast<float*>(smem + lay.red);  // (WARPS, G)
@@ -215,8 +228,9 @@ __global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a)
   uint8_t* raw = smem + lay.raw;
   const int gh = min(G, a.H - h0);  // real heads of this group
 
-  // the split's pages with a valid token: where each lives (thread p)
-  const int npv = (n + a.page - 1) / a.page;
+  // the split's pages with a valid token: where each lives (thread p).
+  // Token t of the split is row (t0 + t) % page of pages[(t0 + t) / page - jp0].
+  const int npv = (t0 + n - 1) / a.page - jp0 + 1;
   if (tid < npv) {
     PageOp& pg = pages[tid];
     const bool frozen = STORE == FROZEN && pid >= a.base;
@@ -261,9 +275,9 @@ __global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a)
     if (STORE == BF16) {
       constexpr int CC = R / 8, CR = DR / 8;
       for (int i = tid; i < n * (CC + CR); i += THREADS) {
-        const int t = i / (CC + CR), c = i % (CC + CR);
-        const PageOp& pg = pages[t / a.page];
-        const int u = t % a.page;
+        const int t = i / (CC + CR), c = i % (CC + CR), j = (t0 + t) / a.page;
+        const PageOp& pg = pages[j - jp0];
+        const int u = t0 + t - j * a.page;
         cp_async16(op + t * LP + (c < CC ? c * 8 : R + (c - CC) * 8),
                    c < CC ? pg.row0[0] + (size_t)u * pg.rb[0] + c * 16
                           : pg.row0[1] + (size_t)u * pg.rb[1] + (c - CC) * 16);
@@ -275,9 +289,9 @@ __global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a)
       }
     } else {
       for (int i = tid; i < n * (CC8 + CR8); i += THREADS) {
-        const int t = i / (CC8 + CR8), c = i % (CC8 + CR8);
-        const PageOp& pg = pages[t / a.page];
-        const int u = t % a.page;
+        const int t = i / (CC8 + CR8), c = i % (CC8 + CR8), j = (t0 + t) / a.page;
+        const PageOp& pg = pages[j - jp0];
+        const int u = t0 + t - j * a.page;
         const int cc = pg.fp4 ? CC8 / 2 : CC8, cr = pg.fp4 ? CR8 / 2 : CR8;  // FP4: half
         if (c >= cc + cr) continue;
         cp_async16(raw + t * rawp + c * 16, c < cc ? pg.row0[0] + (size_t)u * pg.rb[0] + c * 16
@@ -297,7 +311,7 @@ __global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a)
     }
   }
   for (int t = tid; t < TILE; t += THREADS) {  // each token's factors after the product
-    const PageOp* pg = t < n ? &pages[t / a.page] : nullptr;
+    const PageOp* pg = t < n ? &pages[(t0 + t) / a.page - jp0] : nullptr;
     post[t] = pg ? pg->post[0] : 0.f;
     post[TILE + t] = pg ? pg->post[1] : 0.f;
   }
@@ -316,7 +330,7 @@ __global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a)
         d[0] = d[1] = make_uint4(0u, 0u, 0u, 0u);
         continue;
       }
-      const PageOp& pg = pages[t / a.page];
+      const PageOp& pg = pages[(t0 + t) / a.page - jp0];
       const uint4 w = *reinterpret_cast<const uint4*>(raw + t * rawp + c * 16);
       const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
       if (STORE == FROZEN && pg.fp4) {  // 32 nibbles: dim 2m is byte m's low nibble
@@ -351,8 +365,9 @@ __global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a)
       const int part = c < RP ? 0 : 1, dim = part ? c - RP : c, d = part ? dr : r;
       float v = 0.f;
       if (t < n && dim < d) {
-        const PageOp& pg = pages[t / a.page];
-        const uint8_t* src = pg.row0[part] + (size_t)(t % a.page) * pg.rb[part];
+        const int j = (t0 + t) / a.page;
+        const PageOp& pg = pages[j - jp0];
+        const uint8_t* src = pg.row0[part] + (size_t)(t0 + t - j * a.page) * pg.rb[part];
         if (STORE == BF16) {
           v = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(src)[dim]);
         } else if (STORE == FROZEN && pg.fp4) {
@@ -466,43 +481,51 @@ __global__ void __launch_bounds__(THREADS) mla_decode_split_kernel(const Args a)
   }
   __syncthreads();
 
-  // acc = (p * post_c) . ckv_op: this warp's column tiles, every valid k-step
-  const int nt = RP / 8, tpw = (nt + WARPS - 1) / WARPS, c0 = warp * tpw;
-  float o[MAX_TPW][4];
+  // acc = (p * post_c) . ckv_op: this warp's column tiles, MAX_TPW at a
+  // pass, every valid k-step; then the split's partials of the real heads
+  // (one pass of R / 32 tiles a warp on the template widths)
+  const int nt = RP / 8, tpw = VEC ? MAX_TPW : (nt + WARPS - 1) / WARPS, nk = (n + 15) >> 4;
+  const int c_end = VEC ? (warp + 1) * MAX_TPW : min(nt, (warp + 1) * tpw);
+  for (int c0 = warp * tpw; c0 < c_end; c0 += MAX_TPW) {
+    const int nc = VEC ? MAX_TPW : min(MAX_TPW, c_end - c0);
+    float o[MAX_TPW][4];
 #pragma unroll
-  for (int c = 0; c < MAX_TPW; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
-  const int nk = (n + 15) >> 4;
-  for (int kk = 0; kk < nk; ++kk) {
-    uint32_t pa[PIECES][4];
+    for (int c = 0; c < MAX_TPW; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+    for (int kk = 0; kk < nk; ++kk) {
+      uint32_t pa[PIECES][4];
 #pragma unroll
-    for (int k = 0; k < PIECES; ++k)
-      ldsm_x4(pa[k], ps + (k * G + (lane & 15)) * PP_LD + kk * 16 + ((lane >> 4) << 3));
-    const __nv_bfloat16* vb = op + (kk * 16 + (lane & 15)) * LP;
+      for (int k = 0; k < PIECES; ++k)
+        ldsm_x4(pa[k], ps + (k * G + (lane & 15)) * PP_LD + kk * 16 + ((lane >> 4) << 3));
+      const __nv_bfloat16* vb = op + (kk * 16 + (lane & 15)) * LP;
 #pragma unroll
-    for (int c = 0; c < MAX_TPW; ++c) {
-      if (c >= tpw || c0 + c >= nt) break;
-      uint32_t b0, b1;
-      ldsm_x2_t(b0, b1, vb + (c0 + c) * 8);
+      for (int c = 0; c < MAX_TPW; ++c) {
+        if (c >= nc) break;
+        uint32_t b0, b1;
+        ldsm_x2_t(b0, b1, vb + (c0 + c) * 8);
 #pragma unroll
-      for (int k = 0; k < PIECES; ++k) mma_bf16(o[c], pa[k], b0, b1);
+        for (int k = 0; k < PIECES; ++k) mma_bf16(o[c], pa[k], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int hh = g + 8 * i;
+      if (hh >= gh) continue;
+      float* acc = a.part_acc + (((size_t)b * a.H + h0 + hh) * a.splits + s) * r;
+#pragma unroll
+      for (int c = 0; c < MAX_TPW; ++c) {
+        if (c >= nc) break;
+        const int col = (c0 + c) * 8 + 2 * t4;
+        if (col < r) acc[col] = o[c][2 * i];
+        if (col + 1 < r) acc[col + 1] = o[c][2 * i + 1];
+      }
     }
   }
-
-  // the split's partials of the real heads
+  if (warp == 0 && t4 == 0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int hh = g + 8 * i;
-    if (hh >= gh) continue;
-    const size_t idx = ((size_t)b * a.H + h0 + hh) * a.splits + s;
-    float* acc = a.part_acc + idx * r;
-#pragma unroll
-    for (int c = 0; c < MAX_TPW; ++c) {
-      if (c >= tpw || c0 + c >= nt) break;
-      const int col = (c0 + c) * 8 + 2 * t4;
-      if (col < r) acc[col] = o[c][2 * i];
-      if (col + 1 < r) acc[col + 1] = o[c][2 * i + 1];
-    }
-    if (warp == 0 && t4 == 0) {
+    for (int i = 0; i < 2; ++i) {
+      const int hh = g + 8 * i;
+      if (hh >= gh) continue;
+      const size_t idx = ((size_t)b * a.H + h0 + hh) * a.splits + s;
       float l = 0.f;
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) l += red_l[w * G + hh];
@@ -516,7 +539,7 @@ template <int R, int DR, int STORE>
 int launch_split(const Args& a, int B, cudaStream_t stream) {
   const int RP = (a.r + 15) & ~15, DRP = (a.dr + 15) & ~15;
   const size_t bytes =
-      Layout(a.pps, RP + DRP + 8, (R != 0 && STORE != BF16) ? R + DR : 0).bytes;
+      Layout(max_pages(a.page), RP + DRP + 8, (R != 0 && STORE != BF16) ? R + DR : 0).bytes;
   if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
   auto kernel = mla_decode_split_kernel<R, DR, STORE>;
   if (bytes > 48 * 1024) {
@@ -547,8 +570,8 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // ckv/krope_fz (nfz+1, page, ceil(d/2)) packed codes of the grid (fz_*),
 // their smax (nfz+1,) f32 and shift (nfz+1, 1) int32; table ids >= P+1
 // address them. The launch plan (kernels/decode_attn.py::mla_decode_plan):
-// pps pages a split (pps * page <= 64 tokens), splits a row (ceil(PP /
-// pps)), group query heads a block (16), threads a block (128); part_ml
+// span tokens a split (at most 64), splits a row (ceil(PP * page / span)),
+// group query heads a block (16), threads a block (128); part_ml
 // (B, H, splits, 2) and part_acc (B, H, splits, r) f32 the splits'
 // workspace. Every operand is contiguous. Launches the split kernel and the
 // combine on `stream`; returns cudaGetLastError().
@@ -559,12 +582,12 @@ extern "C" int mla_decode_attn_launch(
     int H, int r, int dr, int page, int PP, float scale, int exp_bits, int man_bits, int bias,
     int frozen, const void* ckv_fz, const void* krope_fz, const void* ckv_fz_smax,
     const void* ckv_fz_shift, const void* krope_fz_smax, const void* krope_fz_shift,
-    int n_pages1, int nfz, int fz_exp_bits, int fz_man_bits, int fz_bias, int pps, int splits,
+    int n_pages1, int nfz, int fz_exp_bits, int fz_man_bits, int fz_bias, int span, int splits,
     int group, int threads, void* part_ml, void* part_acc, void* stream) {
   if (B <= 0 || H <= 0) return (int)cudaGetLastError();
-  if (r <= 0 || dr <= 0 || r > 512 || dr > 512 || page <= 0 || pps <= 0 ||
-      pps * page > TILE || splits <= 0 || (long long)pps * splits < PP || group != G ||
-      threads != THREADS || (frozen && (!fp8 || nfz < 0)))
+  if (r <= 0 || dr <= 0 || page <= 0 || PP <= 0 || span <= 0 || span > TILE || splits <= 0 ||
+      (long long)span * splits < (long long)PP * page || group != G || threads != THREADS ||
+      (frozen && (!fp8 || nfz < 0)))
     return (int)cudaErrorInvalidValue;
   const int es = fp8 ? 1 : 2;
   const Pages act{(const uint8_t*)ckv, (const uint8_t*)krope, (const float*)ckv_smax,
@@ -576,7 +599,7 @@ extern "C" int mla_decode_attn_launch(
                  (r + 1) / 2, (dr + 1) / 2};
   const Args a{(const __nv_bfloat16*)q_lat, (const __nv_bfloat16*)q_rope, act, fz,
                (const int*)page_table, (const int*)kv_lens, (float*)part_ml, (float*)part_acc,
-               H, r, dr, page, PP, pps, splits, n_pages1, nfz, scale};
+               H, r, dr, page, PP, span, splits, n_pages1, nfz, scale};
   const int store = frozen ? FROZEN : fp8 ? FP8 : BF16;
   const bool vec = r == 256 && dr == 32 && aligned16(q_lat) && aligned16(q_rope) &&
                    aligned16(ckv) && aligned16(krope) &&
@@ -584,6 +607,6 @@ extern "C" int mla_decode_attn_launch(
   cudaStream_t s = (cudaStream_t)stream;
   const int rc = vec ? by_store<256, 32>(store, a, B, s) : by_store<0, 0>(store, a, B, s);
   if (rc) return rc;
-  return launch_split_combine(part_ml, part_acc, kv_lens, out, B, H, r, splits, pps * page, PP,
-                              page, 0, s);
+  return launch_split_combine(part_ml, part_acc, kv_lens, out, B, H, r, splits, span, PP, page, 0,
+                              s);
 }

@@ -6,7 +6,9 @@ use, into ``build/kernels/`` at the root of the checkout. The library name
 carries a digest of the source, the shared headers of ``csrc/`` and the
 flags, so an edited source or header is rebuilt and a stale library is
 never loaded. ``build_all`` starts one
-``nvcc`` per missing source, all at once.
+``nvcc`` per missing source, all at once. nvcc's output (with the ptxas
+register and spill lines) is kept beside each library as ``<library>.log``
+and read back into ``build_logs`` when the library is already built.
 """
 from __future__ import annotations
 
@@ -32,6 +34,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # source name -> nvcc's output (ptxas register/spill lines)
 
 
+def _log(name: str) -> Path:
+    return _library(name).with_suffix(".log")
+
+
 def nvcc_path() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
@@ -53,8 +59,14 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     in parallel. Returns {source: wall seconds from the start until its
     nvcc's output was collected} (the sources are collected in order, so a
     later one may have finished earlier; empty when nothing was missing);
-    raises with nvcc's output if a build fails."""
+    raises with nvcc's output if a build fails. Fills ``build_logs`` for
+    every source of ``names`` built now, and for every one built before
+    whose log is kept."""
+    names = list(names)
     todo = [n for n in names if not _library(n).exists()]
+    for n in names:
+        if n not in todo and _log(n).exists():
+            build_logs[n] = _log(n).read_text()
     if not todo:
         return {}
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -75,6 +87,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            tmp_log = tmp.with_suffix(".log")
+            tmp_log.write_text(out)
+            os.replace(tmp_log, _log(name))  # the log first: a library never lacks its log
             os.replace(tmp, _library(name))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -25,8 +25,8 @@ from . import build
 from .common import page_format
 from .w4a8_fused import SMS, _check
 
-__all__ = ["DecodePlan", "decode_attn_plan", "mla_decode_plan", "paged_decode_attn_cuda",
-           "paged_mla_decode_attn_cuda"]
+__all__ = ["DecodePlan", "MLAPlan", "decode_attn_plan", "mla_decode_plan",
+           "paged_decode_attn_cuda", "paged_mla_decode_attn_cuda"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -158,35 +158,27 @@ paged_decode_attn_cuda.frozen_launches = 0
 
 
 MLA_GROUP = 16               # query heads a block: one m16 tile (csrc/mla_decode_attn.cu)
-MLA_TILE = 64                # tokens a split block stages, at most: 16 a warp
-MLA_MAX_WIDTH = 512          # r and dr: a warp's share of P . V fits its registers
-SM_SMEM = 233472             # shared memory of an SM (228 KB), 1 KB of it reserved a block
+MLA_SPAN = 64                # tokens a split: 16 for each of a block's 4 warps
 
 
-def _mla_block_bytes(r: int, dr: int, esize: int) -> int:
-    """A split block's shared memory (the kernel's Layout, at most): q and
-    the operand tile (bf16, dims padded to 16, rows padded by 8), p's three
-    bf16 pieces, the raw FP8 rows, and ~2 KB of page descriptors and sums."""
-    lp = -(-r // 16) * 16 + -(-dr // 16) * 16 + 8
-    raw = MLA_TILE * (r + dr) if esize == 1 else 0
-    return 2 * (MLA_GROUP + MLA_TILE) * lp + 3 * 2 * MLA_GROUP * (MLA_TILE + 8) + raw + 2048
+class MLAPlan(NamedTuple):
+    span: int     # tokens a split
+    splits: int   # splits of a (row, head group): ceil(PP * page / span)
+    group: int    # query heads a block, sharing each decoded latent row
+    threads: int  # threads a block
 
 
 def mla_decode_plan(B: int, H: int, r: int, dr: int, page: int, PP: int,
-                    esize: int = 1) -> DecodePlan:
+                    esize: int = 1) -> MLAPlan:
     """The launch plan of MLA latent decode, from shapes alone (no length
     is read, so a captured step replays it). Split s of a (row, group of
-    ``group`` query heads) takes pages [s * pps, (s + 1) * pps) of the
-    table. pps is the fewest pages that keep every split block of the launch
-    within one wave (the blocks an SM holds at once, by the shared memory
-    of a block at widths ``r``, ``dr`` and ``esize`` bytes a stored
-    element: 1 for FP8 pages, 2 for bf16), and no more than MLA_TILE tokens
-    (the 16 tokens of each of the 4 warps)."""
-    heads = B * -(-H // MLA_GROUP)
-    wave = SMS * max(1, SM_SMEM // (_mla_block_bytes(r, dr, esize) + 1024))
-    pps = max(1, -(-heads * PP // wave))
-    pps = min(pps, max(1, MLA_TILE // page), max(PP, 1))
-    return DecodePlan(pps, max(1, -(-PP // pps)), MLA_GROUP, THREADS)
+    ``group`` query heads) takes tokens [s * span, (s + 1) * span) of the
+    row, whatever the page size: several small pages, one page of 64, part
+    of a larger one. Only the context's length in pages (``PP * page``)
+    sets the number of splits; the other shapes leave the plan as it is.
+    At phase 3's B 4, H 40, PP 32 pages of 64 that is 4 x 3 x 32 = 384
+    blocks."""
+    return MLAPlan(MLA_SPAN, max(1, -(-PP * page // MLA_SPAN)), MLA_GROUP, THREADS)
 
 
 def _mla_lib():
@@ -235,9 +227,6 @@ def paged_mla_decode_attn_cuda(q_lat, q_rope, ckv, krope, ckv_smax, ckv_shift, k
     if tuple(q_rope.shape[:2]) != (b, h):
         raise ValueError(f"q_rope {tuple(q_rope.shape)} does not match q_lat {(b, h, r)}")
     p1, page = ckv.shape[:2]
-    if max(r, dr) > MLA_MAX_WIDTH or page > MLA_TILE:
-        raise NotImplementedError(f"r={r}, dr={dr}, page={page}: the kernel takes latent widths "
-                                  f"up to {MLA_MAX_WIDTH} and pages up to {MLA_TILE} tokens")
     pp = page_table.shape[1]
     store = torch.uint8 if pf.quantized else torch.bfloat16
     _check(ckv, "ckv", store, (p1, page, r), dev)

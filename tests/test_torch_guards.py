@@ -191,3 +191,30 @@ def test_build_lists_six_sources_and_digests_the_shared_header(tmp_path, monkeyp
     before = build._library("act_quant")
     (tmp_path / "quant_common.cuh").write_text("// edited\n")
     assert build._library("act_quant") != before
+
+
+def test_build_reads_back_the_log_of_a_library_built_before(tmp_path, monkeypatch):
+    """A library already built (a second run in one checkout) gives
+    ``build_logs`` the nvcc output kept beside it, with no nvcc started, so
+    the registers and spills chip_smoke.py reports are always read from a
+    build log; with no log kept its summary is None, never zeros."""
+    import importlib.util
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "build_logs", {})
+    monkeypatch.setattr(build.subprocess, "Popen", lambda *a, **k: pytest.fail("nvcc started"))
+    line = "ptxas info    : Used 40 registers, used 1 barriers, 472 bytes cmem[0]"
+    build._library("act_quant").write_bytes(b"")
+    build._log("act_quant").write_text(line)
+    build._library("flash_attn").write_bytes(b"")  # built with no log kept
+    assert build.build_all(["act_quant", "flash_attn"]) == {}
+    assert build.build_logs == {"act_quant": line}
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs._ptxas_summary(None) is None and cs._ptxas_summary([]) is None
+    row = {"fn": "k", "registers": 40, "spill_stores": 0, "spill_loads": 8}
+    assert cs._ptxas_summary([row]) == {"instantiations": 1, "registers": [40, 40],
+                                        "spill_bytes_max": 8}

@@ -2,11 +2,12 @@
 (``csrc/mla_decode_attn.cu``).
 
 * The launch plan (``kernels.decode_attn.mla_decode_plan``) reads shapes
-  only. At every shape ``chip_smoke.py`` drives, its blocks cover each page
-  index 0..PP-1 of every (row, query head) exactly once; at phase 3's
-  ``MLA_SHAPE`` (B 4, H 40, PP 32) and the served MiniCPM3-4B shapes (4
-  slots, PP 16: max_seq 1024 of pages of 64) the grid has at least one
-  block for each of the card's 132 SMs, in one wave.
+  only. At every shape ``chip_smoke.py`` drives, its blocks cover each
+  token 0..PP*page-1 of every (row, query head) exactly once, 64 tokens a
+  split whatever the page size; at phase 3's ``MLA_SHAPE`` (B 4, H 40, PP
+  32) and the served MiniCPM3-4B shapes (4 slots, PP 16: max_seq 1024 of
+  pages of 64) the grid has at least one block for each of the card's 132
+  SMs, in one wave (three blocks an SM, csrc/mla_decode_attn.cu).
 * Split, then combine: a torch emulation of the kernel's dataflow at its
   rounding points, by that plan (each split's operands the codes' exact
   bf16 grid values, or bf16 pages as they are; scores as f32 sums of exact
@@ -16,8 +17,9 @@
   split with no valid token is never read; the combine weighs split s by
   exp(m_s - M) in split order and divides by max(l, 1e-30)) equals the
   port's plain version and repro's oracle within 1e-5, over FP8, bf16 and
-  frozen pages, with contexts ending on a split boundary, kv_len 1 and 0,
-  and NaN planted where no valid token lies (``chip_smoke._stale_nan``:
+  frozen pages, at pages of 8 (8 a split), 24 (splits across page edges)
+  and 128 (half a page a split), with contexts ending on a split boundary,
+  kv_len 1 and 0, and NaN planted where no valid token lies (``chip_smoke._stale_nan``:
   stale page tails, the null page, the frozen dummy row). repro's oracle
   multiplies masked rows by 0, so a planted NaN would reach its output: it
   is given the same inputs before the NaN is planted.
@@ -60,32 +62,27 @@ _M = CS.MLA_SHAPE
 # (B, H, r, dr, page, PP) of every latent decode launch chip_smoke.py drives
 CHIP_SHAPES = [(_M["b"], _M["h"], _M["r"], _M["dr"], _M["page"], 32), (2, 3, 16, 8, 4, 4),
                (2, 3, 9, 5, 4, 4), (4, 40, 256, 32, 64, 3)]  # phase 3, its edge checks
+CHIP_SHAPES += [(4, 40, 256, 32, pg, -(-701 // pg)) for pg in CS.MLA_PAGES]
+PER_SM = 3  # split blocks an SM holds (csrc/mla_decode_attn.cu: 72 KB a block over FP8 pages)
 SERVED = [(4, 40, 256, 32, 64, 16), (2, 40, 256, 32, 64, 16)]  # phases 7 and 8
-
-
-def _blocks(shape, esize):
-    """(b, query head, page index) of every page each block of the launch reads."""
-    b_, h, r, dr, page, pp = shape
-    plan = mla_decode_plan(*shape, esize=esize)
-    out = []
-    for s in range(plan.splits):
-        for y in range(-(-h // plan.group)):
-            for b in range(b_):
-                heads = range(y * plan.group, min(h, (y + 1) * plan.group))
-                pages = range(s * plan.pps, min((s + 1) * plan.pps, pp))
-                assert len(pages) > 0
-                out += [(b, hd_, j) for hd_ in heads for j in pages]
-    return plan, out
 
 
 @pytest.mark.parametrize("esize", [1, 2])
 @pytest.mark.parametrize("shape", CHIP_SHAPES + SERVED, ids=lambda s: "x".join(map(str, s)))
 def test_plan_covers_each_page_once(shape, esize):
+    """Every token of every page goes to one split, and every query head to
+    one group: the grid (splits, groups, rows) covers each (row, head,
+    token) once, and no block is empty."""
     b, h, r, dr, page, pp = shape
-    plan, read = _blocks(shape, esize)
-    assert sorted(read) == [(x, q, j) for x in range(b) for q in range(h) for j in range(pp)]
+    plan = mla_decode_plan(*shape, esize=esize)
+    tokens = [range(s * plan.span, min((s + 1) * plan.span, pp * page))
+              for s in range(plan.splits)]
+    heads = [range(y * plan.group, min(h, (y + 1) * plan.group)) for y in range(-(-h // plan.group))]
+    assert all(len(t) > 0 for t in tokens) and all(len(g) > 0 for g in heads)
+    assert [t for r_ in tokens for t in r_] == list(range(pp * page))
+    assert [q for g in heads for q in g] == list(range(h))
     assert plan.threads == decode_attn.THREADS and plan.group == decode_attn.MLA_GROUP
-    assert plan.pps * page <= decode_attn.MLA_TILE
+    assert plan.span == decode_attn.MLA_SPAN == 64
 
 
 @pytest.mark.parametrize("esize", [1, 2])
@@ -94,8 +91,7 @@ def test_plan_fills_the_card_in_one_wave(shape, esize):
     b, h, r, dr, page, pp = shape
     plan = mla_decode_plan(*shape, esize=esize)
     blocks = b * -(-h // plan.group) * plan.splits
-    per_sm = decode_attn.SM_SMEM // (decode_attn._mla_block_bytes(r, dr, esize) + 1024)
-    assert SMS <= blocks <= SMS * per_sm, (plan, blocks, per_sm)
+    assert SMS <= blocks <= SMS * PER_SM, (plan, blocks)
 
 
 def test_plan_reads_shapes_only():
@@ -136,8 +132,8 @@ def split_combine(q_lat, q_rope, ckv, krope, ckv_smax, ckv_shift, krope_smax, kr
                   table, lens, scale, fmt=None, frozen=None, ckv_fz=None, krope_fz=None,
                   ckv_fz_smax=None, ckv_fz_shift=None, krope_fz_smax=None, krope_fz_shift=None):
     """The kernel's dataflow in torch, by ``mla_decode_plan``: split s of
-    row b holds its tokens [s * span, min((s + 1) * span, len)), span = pps *
-    page; only those rows become operands (the clamps of the plain version:
+    row b holds its tokens [s * span, min((s + 1) * span, len)), whichever
+    pages hold them; only those rows become operands (the clamps of the plain version:
     FP8 ids at min(pid, P), frozen ids >= P + 1 at row min(pid - P - 1,
     nfz)); its (m, l, acc) per query head; the combine over the splits that
     hold a token."""
@@ -148,20 +144,20 @@ def split_combine(q_lat, q_rope, ckv, krope, ckv_smax, ckv_shift, krope_smax, kr
     p1, page = ckv.shape[:2]
     pp = table.shape[1]
     plan = mla_decode_plan(b, h, r, dr, page, pp, esize=1 if pf.quantized else 2)
-    span = plan.pps * page
+    span = plan.span
     out = torch.zeros((b, h, r))
 
-    def page_ops(pid, n):
+    def page_ops(pid, rows):
         if fz is not None and pid >= p1:
             f = min(pid - p1, ckv_fz.shape[0] - 1)
-            return [_operands(fz, c[f, :n], sh[f, 0], sm[f], d) for c, sh, sm, d in
+            return [_operands(fz, c[f, rows], sh[f, 0], sm[f], d) for c, sh, sm, d in
                     ((ckv_fz, ckv_fz_shift, ckv_fz_smax, r), (krope_fz, krope_fz_shift,
                                                               krope_fz_smax, dr))]
         a = min(pid, p1 - 1) if fz is not None else pid
         if not pf.quantized:
-            return [_operands(pf, ckv[a, :n], None, None, r),
-                    _operands(pf, krope[a, :n], None, None, dr)]
-        return [_operands(pf, c[a, :n], sh[a, 0], sm[a], d) for c, sh, sm, d in
+            return [_operands(pf, ckv[a, rows], None, None, r),
+                    _operands(pf, krope[a, rows], None, None, dr)]
+        return [_operands(pf, c[a, rows], sh[a, 0], sm[a], d) for c, sh, sm, d in
                 ((ckv, ckv_shift, ckv_smax, r), (krope, krope_shift, krope_smax, dr))]
 
     for row in range(b):
@@ -172,13 +168,16 @@ def split_combine(q_lat, q_rope, ckv, krope, ckv_smax, ckv_shift, krope_smax, kr
             if n <= 0:
                 continue  # never read
             oc, orr, pc, pr = [], [], [], []
-            for j in range(s * plan.pps, s * plan.pps + -(-n // page)):
-                k = min(page, n - (j - s * plan.pps) * page)
-                (c, post_c), (rr, post_r) = page_ops(int(table[row, j]), k)
+            t = s * span
+            while t < s * span + n:  # the split's tokens, a page's run at a time
+                j, u = divmod(t, page)
+                k = min(page - u, s * span + n - t)
+                (c, post_c), (rr, post_r) = page_ops(int(table[row, j]), slice(u, u + k))
                 oc.append(c)
                 orr.append(rr)
                 pc.append(post_c.expand(k))
                 pr.append(post_r.expand(k))
+                t += k
             oc, orr, pc, pr = (torch.cat(x) for x in (oc, orr, pc, pr))
             s_c = torch.einsum("hr,tr->ht", q_lat[row].float(), oc)
             s_r = torch.einsum("hd,td->ht", q_rope[row].float(), orr)
@@ -254,19 +253,19 @@ def _call(fn, q_lat, q_rope, layer, table, lens, store, scale, arr=lambda x: x):
               arr(lens), scale=scale, fmt=fmt, **kw)
 
 
+@pytest.mark.parametrize("page,pp", [(8, 24), (24, 8), (128, 2)], ids=lambda x: str(x))
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("store", STORES, ids=lambda s: s or "bf16")
-def test_split_combine_matches_references(store, case, monkeypatch):
-    """At small widths (20 heads: groups of 16 and 4; r 32, dr 16; pages of
-    8, 12 a row) with the card cut to 3 SMs, so the plan puts 4 pages in a
-    split."""
-    monkeypatch.setattr(decode_attn, "SMS", 3)
-    h, r, dr, page, pp = 20, 32, 16, 8, 12
+def test_split_combine_matches_references(store, case, page, pp):
+    """At small widths (20 heads: groups of 16 and 4; r 32, dr 16) and 192
+    or 256 tokens a row: pages of 8 (8 a split), of 24 (splits across page
+    edges) and of 128 (half a page a split)."""
+    h, r, dr = 20, 32, 16
     plan = mla_decode_plan(4, h, r, dr, page, pp, esize=1 if store else 2)
-    span = plan.pps * page
-    assert plan.pps > 1 and plan.splits > 2
+    span = plan.span
+    assert plan.splits > 2
     lens = [min(pp * page, s * span + t) for s, t in CASES[case]]
-    rng = np.random.default_rng(STORES.index(store) * 10 + len(case))
+    rng = np.random.default_rng(STORES.index(store) * 10 + len(case) + page)
     layer, table = _pool(rng, store, r, dr, page, pp, lens)
     q_lat = torch.from_numpy(rng.normal(size=(4, h, r)).astype(np.float32)).to(torch.bfloat16)
     q_rope = torch.from_numpy(rng.normal(size=(4, h, dr)).astype(np.float32)).to(torch.bfloat16)
@@ -295,7 +294,7 @@ def test_split_combine_at_phase3_shape(store):
     lens = _M["lens"]
     rng = np.random.default_rng(7)
     layer, table = _pool(rng, store, 256, 32, 64, 32, lens)
-    assert mla_decode_plan(4, 40, 256, 32, 64, 32).pps == 1
+    assert mla_decode_plan(4, 40, 256, 32, 64, 32)[:2] == (64, 32)
     q_lat = torch.from_numpy(rng.normal(size=(4, 40, 256)).astype(np.float32)).to(torch.bfloat16)
     q_rope = torch.from_numpy(rng.normal(size=(4, 40, 32)).astype(np.float32)).to(torch.bfloat16)
     kv_lens = torch.tensor(lens, dtype=torch.int32)
