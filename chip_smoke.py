@@ -80,9 +80,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               plain version (act_quant bit-identical, the split GEMM within
               1e-4 of max|y|, flash attention within 3e-2 bf16 / 1e-4 f32
               and each query row within 2^-7 / 1e-5 of its norm), timed with
-              its bound and one PyTorch call (act_quant also by its device
-              time from CUDA graphs, without launch overhead), its other
-              variants checked,
+              its bound and one PyTorch call, also by device time from CUDA
+              graphs, without launch overhead; act_quant beside the launch
+              floor (a one-element fill_ timed the same way), its bound's
+              share printed raw and above the floor, and checked
+              bit-identical on every path of its launch plan (block, and
+              clusters of 2 to 8 blocks, odd sizes included; 4-element and
+              one-element accesses; scalar heads and tails; NaN and Inf rows;
+              E5M2); the others' variants checked,
               injected faults (the split GEMM without its s_max finalize;
               the causal mask one key short; one KV tile past key 1024
               staged twice), and the split
@@ -1970,8 +1975,11 @@ def phase_moe_cpu(torch, cfg, packed):
 # -- phase 11: the kernel API ------------------------------------------------------
 # token-wise FP8 activation quantization: (rows, features) as opt-125m (768),
 # OLMoE-1B-7B (2048) and MiniCPM3-4B's d_ff (6400) feed a GEMM, at a decode
-# step's 4 rows and a 256-token prefill chunk
-ACT_QUANT_SHAPES = ((4, 768), (256, 768), (4, 2048), (256, 2048), (256, 6400))
+# step's 4 rows and a 256-token prefill chunk; MiniCPM3's d_ff at a
+# 2048-token prefill, and 16 rows of the widest feature dim repro documents
+# (73728, src/repro/kernels/act_quant.py:14)
+ACT_QUANT_SHAPES = ((4, 768), (256, 768), (4, 2048), (256, 2048), (256, 6400), (2048, 6400),
+                    (16, 73728))
 # the split GEMM at opt-125m's 768->768, 768->3072, 3072->768 and OLMoE's
 # 2048->2048, at M = 4 and 256: (M, K, N)
 SPLIT_GEMMS = tuple((m, k, n) for m in (4, 256)
@@ -2035,57 +2043,169 @@ def _bits_equal(torch, a, b):
     return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
-def _act_quant_check(torch, x, fmt, what):
+def _act_quant_plan_of(x):
+    """The launch plan the wrapper gives ``x``, or None where the checkout's
+    wrapper plans nothing (an earlier commit's, timed by kernel_compare.py)."""
+    from repro_torch.kernels import act_quant
+
+    return act_quant.plan_of(x) if hasattr(act_quant, "plan_of") else None
+
+
+def _bits_equal_nan(torch, a, b):
+    """Bit-identical where not NaN, NaN at the same places (a NaN's payload
+    is the platform's)."""
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and _bits_equal(torch, a.masked_fill(na, 0), b.masked_fill(nb, 0))
+
+
+def _act_quant_check(torch, x, fmt, what, nan=False):
+    """The kernel against its plain version on ``x``, values and scales
+    bit-identical (NaN where and only where the plain version has NaN, when
+    ``nan``). Returns (values, scales, the plan or None)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.act_quant import act_quant_cuda
 
     (qk, sk), (qp, sp) = act_quant_cuda(x, fmt), ref.act_quant_ref(x, fmt)
     torch.cuda.synchronize()
-    if not (_bits_equal(torch, qk, qp) and _bits_equal(torch, sk, sp)):
+    same = (lambda a, b: _bits_equal_nan(torch, a, b)) if nan else \
+        (lambda a, b: _bits_equal(torch, a, b))
+    if not (same(qk, qp) and same(sk, sp)):
         fail(f"act_quant {what} {fmt} is not bit-identical to its plain version: max |err| "
-             f"{float((qk - qp).abs().max())} (values), {float((sk - sp).abs().max())} (scales)")
-    return qk, sk
+             f"{float((qk - qp).nan_to_num().abs().max())} (values), "
+             f"{float((sk - sp).nan_to_num().abs().max())} (scales), NaN in "
+             f"{int(qk.isnan().sum())} values, plain {int(qp.isnan().sum())}")
+    return qk, sk, _act_quant_plan_of(x)
 
 
-def _act_quant_cases(torch, timer, gen):
+def _plan_text(plan):
+    if plan is None:
+        return "no plan"
+    access = f"{plan.vec}-element accesses" if plan.vec > 1 else "1-element accesses"
+    return (f"{plan.path} path, {access}, {plan.blocks} blocks of {plan.threads}, "
+            f"{plan.per_thread} vector(s) a thread"
+            + (f", clusters of {plan.cluster}" if plan.cluster > 1 else ""))
+
+
+def _launch_floor(torch, timer):
+    """The device time of a one-element ``fill_``, timed as _device_ms
+    times a kernel: what any launch costs the device."""
+    one = torch.empty(1, device=DEV)
+    return _device_ms(torch, timer, lambda: one.fill_(1.0))
+
+
+def _act_quant_case(torch, timer, gen, m, d, floor_ms):
+    """act_quant at one timed (rows, d), bf16 -> fp8_e4m3: checked
+    bit-identical, timed beside its plain version and the nearest library
+    route, with its bound's share of the device time, raw and above the
+    launch floor ``floor_ms``. Returns its row."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.act_quant import act_quant_cuda
 
-    rows = {}
-    for m, d in ACT_QUANT_SHAPES:
-        x = (torch.randn((m, d), generator=gen, device=DEV) * 13.0).to(torch.bfloat16)
-        _act_quant_check(torch, x, "fp8_e4m3", f"({m}, {d}) bf16")
+    x = (torch.randn((m, d), generator=gen, device=DEV) * 13.0).to(torch.bfloat16)
+    plan = _act_quant_check(torch, x, "fp8_e4m3", f"({m}, {d}) bf16")[2]
 
-        def library(x=x):  # the nearest PyTorch route: OCP E4M3 (448), not this grid (480)
-            s = x.abs().amax(-1, keepdim=True).float() * (1.0 / 448.0)
-            return (x / s).to(torch.float8_e4m3fn), s
+    def library():  # the nearest PyTorch route: OCP E4M3 (448), not this grid (480)
+        s = x.abs().amax(-1, keepdim=True).float() * (1.0 / 448.0)
+        return (x / s).to(torch.float8_e4m3fn), s
 
-        nbytes = m * d * 2 + m * d * 4 + m * 4
-        b_ms, by = bound(nbytes, 0, "f32")
-        kernel = lambda: act_quant_cuda(x, "fp8_e4m3")
-        row = dict(**_timed(torch, timer, kernel, lambda: ref.act_quant_ref(x, "fp8_e4m3"),
-                            library),
-                   graph_ms=timer.ms(_graphed(torch, kernel)), bound_ms=b_ms, bound_by=by,
-                   max_abs_err=0.0, bytes=nbytes, flops=0, kind="f32")
-        rows[(m, d)] = row
-        log(f"    act_quant ({m:3d}, {d:4d}) bf16 -> fp8_e4m3: kernel {row['ms']:.4f} ms (from a "
-            f"CUDA graph {row['graph_ms']:.4f} ms; device time {row['device_ms']:.5f} ms)  plain "
-            f"{row['plain_ms']:.4f} ms  library(amax + cast to float8_e4m3fn; nearest, not the "
-            f"same function) {row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; "
-            f"{nbytes} B)  bit-identical")
-    # checked, not timed: f32 rows, E5M2, an outlier row, an all-zero row, odd widths
-    x = torch.randn((256, 768), generator=gen, device=DEV) * 13.0
-    _act_quant_check(torch, x, "fp8_e4m3", "(256, 768) f32")
-    _act_quant_check(torch, x[:3, :100].contiguous(), "fp8_e5m2", "(3, 100) f32")
-    _act_quant_check(torch, x.to(torch.bfloat16), "fp8_e5m2", "(256, 768) bf16")
+    nbytes = m * d * 2 + m * d * 4 + m * 4
+    b_ms, by = bound(nbytes, 0, "f32")
+    kernel = lambda: act_quant_cuda(x, "fp8_e4m3")
+    row = dict(**_timed(torch, timer, kernel, lambda: ref.act_quant_ref(x, "fp8_e4m3"), library),
+               graph_ms=timer.ms(_graphed(torch, kernel)), bound_ms=b_ms, bound_by=by,
+               max_abs_err=0.0, bytes=nbytes, flops=0, kind="f32", floor_ms=floor_ms,
+               path=plan.path if plan else None)
+    dev = row["device_ms"]
+    above = dev - floor_ms
+    row["share_above_floor"] = b_ms / above if above > 0 else None
+    log(f"    act_quant ({m:4d}, {d:5d}) bf16 -> fp8_e4m3 [{_plan_text(plan)}]: device "
+        f"{dev * 1e3:.3f} us, bound {b_ms * 1e3:.3f} us ({by}; {nbytes} B), share "
+        f"{b_ms / dev:.3f} raw, "
+        + (f"{row['share_above_floor']:.3f}" if above > 0 else "n/a")
+        + f" above the floor ({floor_ms * 1e3:.3f} us); event pairs {row['ms']:.4f} ms (from a "
+        f"CUDA graph {row['graph_ms']:.4f} ms); plain {row['plain_ms']:.4f} ms; library (amax + "
+        f"cast to float8_e4m3fn; nearest, not the same function) device "
+        f"{row['library_device_ms'] * 1e3:.3f} us, event pairs {row['library_ms']:.4f} ms; "
+        "bit-identical")
+    return row
+
+
+def _act_quant_cases(torch, timer, gen):
+    """The launch floor; act_quant timed at ACT_QUANT_SHAPES; then checked,
+    not timed, on every path of its plan: block and cluster, each with
+    4-element and with 1-element accesses (a misaligned contiguous view),
+    clusters of 2, 3, 5, 7 and 8 blocks, scalar heads and tails (d = 100,
+    127, 2052, 2101, 4101, 6401), f32 and bf16, E4M3 and E5M2, NaN and Inf
+    rows, an outlier row and zero rows."""
+    floor_ms = _launch_floor(torch, timer)
+    log(f"    launch floor: a one-element fill_, device time from CUDA graphs, "
+        f"{floor_ms * 1e3:.3f} us")
+    rows = {(m, d): _act_quant_case(torch, timer, gen, m, d, floor_ms)
+            for m, d in ACT_QUANT_SHAPES}
+    rnd = lambda m, d, dtype=torch.float32: (
+        torch.randn((m, d), generator=gen, device=DEV) * 13.0).to(dtype)
+
+    def off(m, d, dtype):  # contiguous, one element past 16-byte alignment
+        return rnd(1 + m * d, 1, dtype).view(-1)[1:].view(m, d)
+
+    def with_nan_inf(x):  # a NaN in row 0, an Inf in row 1, a -Inf in row 2
+        x = x.clone()
+        x[0, x.shape[1] // 3], x[1, 0], x[2, -1] = float("nan"), float("inf"), float("-inf")
+        return x
+
+    bf16 = torch.bfloat16
+    cases = [((256, 768), rnd(256, 768), "fp8_e4m3", False),
+             ((256, 768), rnd(256, 768, bf16), "fp8_e5m2", False),
+             ((3, 100), rnd(3, 100), "fp8_e5m2", False),
+             ((301, 100), rnd(301, 100, bf16), "fp8_e4m3", False),
+             ((301, 127), rnd(301, 127), "fp8_e4m3", False),
+             ((7, 2101), rnd(7, 2101), "fp8_e4m3", False),
+             ((4, 4101), rnd(4, 4101), "fp8_e4m3", False),
+             ((8192, 2052), rnd(8192, 2052, bf16), "fp8_e4m3", False),
+             ((16, 73728), rnd(16, 73728, bf16), "fp8_e4m3", False),
+             ((16, 73728), rnd(16, 73728), "fp8_e4m3", False),
+             ((16, 73728), rnd(16, 73728, bf16), "fp8_e5m2", False),
+             ((300, 30), off(300, 30, bf16), "fp8_e4m3", False),
+             ((5, 100), off(5, 100, bf16), "fp8_e4m3", False),
+             ((256, 768), off(256, 768, bf16), "fp8_e4m3", False),
+             ((16, 73728), off(16, 73728, torch.float32), "fp8_e4m3", False),
+             ((8, 768), with_nan_inf(rnd(8, 768, bf16)), "fp8_e4m3", True),
+             ((256, 6400), with_nan_inf(rnd(256, 6400, bf16)), "fp8_e4m3", True),
+             ((16, 73728), with_nan_inf(rnd(16, 73728)), "fp8_e5m2", True),
+             # clusters of odd and middling sizes: 4 decode rows of MiniCPM3-4B's
+             # d_ff (3 blocks), of 10240 (5) and of Llama-3-8B's d_ff 14336 (7)
+             ((4, 6400), rnd(4, 6400, bf16), "fp8_e4m3", False),
+             ((4, 6401), rnd(4, 6401, bf16), "fp8_e4m3", False),
+             ((4, 1600), off(4, 1600, bf16), "fp8_e4m3", False),
+             ((4, 10240), with_nan_inf(rnd(4, 10240, bf16)), "fp8_e4m3", True),
+             ((4, 14336), rnd(4, 14336), "fp8_e5m2", False)]
+    paths, clusters = set(), set()
+    for (m, d), x, fmt, nan in cases:
+        kind = "bf16" if x.dtype == bf16 else "f32"
+        aligned = x.data_ptr() % 16 == 0
+        what = f"({m}, {d}) {kind}{'' if aligned else ', 1 element past 16-byte alignment'}" + (
+            ", NaN and Inf rows" if nan else "")
+        qk, sk, plan = _act_quant_check(torch, x, fmt, what, nan)
+        if nan and not (bool(qk[0].isnan().all()) and bool(sk[0].isnan().all())
+                        and bool(qk[1].isnan().any()) and bool(qk[2].isnan().any())):
+            fail(f"act_quant {what}: the NaN row is not NaN throughout, or an Inf is not NaN")
+        paths.add((plan.path, plan.vec > 1))
+        clusters.add(plan.cluster)
+        log(f"    act_quant {what} -> {fmt} [{_plan_text(plan)}]: bit-identical")
+    want = {(p, v) for p in ("block", "cluster") for v in (True, False)}
+    if not want <= paths:
+        fail(f"act_quant: the checks took the plan's paths {sorted(paths)}, not all of "
+             f"{sorted(want)}")
+    if not {3, 5, 7, 8} <= clusters:
+        fail(f"act_quant: the checks launched clusters of {sorted(clusters)} blocks, not all of "
+             "3, 5, 7 and 8")
     out = torch.cat([torch.full((1, 127), 0.01, device=DEV), torch.full((1, 1), 100.0, device=DEV)], 1)
     zero = torch.zeros((2, 128), device=DEV)
-    qk, _ = _act_quant_check(torch, torch.cat([out, zero]), "fp8_e4m3", "outlier and zero rows")
+    qk = _act_quant_check(torch, torch.cat([out, zero]), "fp8_e4m3", "outlier and zero rows")[0]
     if float(qk[0, -1]) != 480.0 or bool(qk[1:].any()):
         fail(f"act_quant: the outlier reads {float(qk[0, -1])}, not the grid's top 480, or a "
              "zero row is not zero")
-    log("    act_quant checked bit-identical, not timed: (256, 768) f32 -> fp8_e4m3; (3, 100) f32 "
-        "and (256, 768) bf16 -> fp8_e5m2; an outlier row (-> 480) and two zero rows (-> 0)")
+    log("    act_quant an outlier row (-> 480) and two zero rows (-> 0): bit-identical")
     return rows
 
 
@@ -2425,8 +2545,8 @@ def _api_entries(launches, act, split, versus, faults, flash):
     shapes = lambda rows: {" ".join(map(str, key)) if isinstance(key, tuple) else key:
                            {f: r[f] for f in ("ms", "graph_ms", "device_ms", "plain_ms",
                                               "library_ms", "library_device_ms", "bound_ms",
-                                              "max_abs_err",
-                                              "max_row_rel_err") if f in r}
+                                              "max_abs_err", "max_row_rel_err", "path",
+                                              "floor_ms", "share_above_floor") if f in r}
                            for key, r in rows.items()}
     return [
         {**entry(list(act.values()), 1, name="act_quant", route="cuda",
@@ -2435,8 +2555,9 @@ def _api_entries(launches, act, split, versus, faults, flash):
                  per="the sum of one launch at each (rows, d) of " + str(ACT_QUANT_SHAPES)
                      + ", bf16 -> fp8_e4m3; bit-identical to the plain version; library: amax + "
                        "cast to float8_e4m3fn (448 grid), nearest, not the same function; "
-                       "device_ms: the kernel's own time after an L2 flush, from CUDA "
-                       "graphs of 30 launches less their flushes"),
+                       "device_ms and library_device_ms: the call's own time after an L2 flush, "
+                       "from CUDA graphs of 30 calls less their flushes; per_shape floor_ms: a "
+                       "one-element fill_ timed the same way"),
          "path": path, "per_shape": shapes(act)},
         {**entry(list(split.values()), 1, name="w4a8_matmul_split", route="cuda",
                  source="src/repro_torch/csrc/w4a8_matmul.cu",

@@ -2,7 +2,8 @@
 // by w4a8_fused.cu and w4a8_matmul.cu) and the token-wise activation
 // quantizer (act_quant.cu), so that all of them round and decode
 // identically: the device half of kernels/common.py (round_to_grid,
-// decode_e2m1, decode_e3m0). flash_attn.cu takes to_f32 and nan_max.
+// decode_e2m1, decode_e3m0). flash_attn.cu takes to_f32 and nan_max. The
+// streaming accesses at the end serve act_quant.cu.
 //
 // The grid is the repo's saturating ExMy grid, not OCP's: its E4M3 tops out
 // at 480, where the hardware __nv_fp8_e4m3 type (and torch.float8_e4m3fn)
@@ -11,6 +12,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -35,19 +38,22 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 
 // RNE onto the saturating ExMy grid. floor(log2|v|) is read from the f32
-// exponent bits; where that differs from a rounded log2 (values a hair
-// below a power of two) both steps round to the same grid point. v / step
-// is taken as v * (1 / step): both are powers of two inside the f32 normal
-// range (the exponent is clamped to the grid's), so the product is the
-// quotient exactly, without a division.
+// exponent bits (a zero or subnormal |v| reads -127, below every grid's
+// min_exp); where that differs from a rounded log2 (values a hair below a
+// power of two) both steps round to the same grid point. The step
+// 2^(e - man_bits) and its inverse are built from their exponent bits: the
+// exponent clamped to the grid's keeps both well inside the f32 normal
+// range for the FP8 grids the kernels take (|man_bits - e| <= 16), so
+// v / step is the product v * (1 / step) exactly, without a division. NaN
+// stays v and zero is +0, by selects, so a run of calls is straight-line
+// code the compiler can interleave.
 __device__ __forceinline__ float round_to_grid(float v, const Grid& g) {
-  if (v != v) return v;
-  float a = fabsf(v);
-  if (a == 0.f) return 0.f;
-  int e = ((__float_as_int(fmaxf(a, 1e-38f)) >> 23) & 0xff) - 127;
-  e = max(g.min_exp, min(g.max_exp, e));
-  float q = rintf(v * pow2i(g.man_bits - e)) * pow2i(e - g.man_bits);
-  return fminf(fmaxf(q, -g.max_value), g.max_value);
+  const float a = fabsf(v);
+  const int e = max(g.min_exp, min(g.max_exp, (__float_as_int(a) >> 23) - 127));
+  const float inv_step = __int_as_float((127 + g.man_bits - e) << 23);
+  const float step = __int_as_float((127 - g.man_bits + e) << 23);
+  const float q = fminf(fmaxf(rintf(v * inv_step) * step, -g.max_value), g.max_value);
+  return v != v ? v : a == 0.f ? 0.f : q;
 }
 
 // 4-bit E2M1 code -> {0, .5, 1, 1.5, 2, 3, 4, 6} with sign
@@ -64,6 +70,41 @@ __device__ __forceinline__ float decode_e3m0(int c) {
   const int exp = c & 7;
   const float val = exp == 0 ? 0.f : pow2i(exp - 3);
   return (c >> 3) & 1 ? -val : val;
+}
+
+// Streaming accesses for act_quant.cu: 8 bytes (4 bf16) or 16 bytes (4 f32)
+// read once with a cache-streaming (evict-first) load, 4 f32 written with
+// one 16-byte evict-first store. p is aligned to the access.
+__device__ __forceinline__ uint2 ld_stream8(const void* p) {
+  return __ldcs(reinterpret_cast<const uint2*>(p));
+}
+
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  return __ldcs(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void st_stream4(float* p, float a, float b, float c, float d) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+}
+
+// element i (0..3) of 4 bf16 packed in 8 bytes, exactly, as f32
+__device__ __forceinline__ float bf16x4_at(const uint2& w, int i) {
+  const uint32_t u = i < 2 ? w.x : w.y;
+  return __uint_as_float(i & 1 ? u & 0xffff0000u : u << 16);
+}
+
+// nan_max of |x| over 4 bf16 packed in 8 bytes, exactly, as f32: the packed
+// NaN-propagating max of the two bf16 pairs, then of the pair's halves
+__device__ __forceinline__ float bf16x4_absmax(const uint2& w) {
+  __nv_bfloat162 h[2];
+  memcpy(h, &w, 8);  // register moves
+  const __nv_bfloat162 m = __hmax2_nan(__habs2(h[0]), __habs2(h[1]));
+  return nan_max(__low2float(m), __high2float(m));
+}
+
+// element i (0..3) of 4 f32 packed in 16 bytes
+__device__ __forceinline__ float f32x4_at(const uint4& w, int i) {
+  return __uint_as_float(i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w);
 }
 
 }  // namespace

@@ -32,7 +32,7 @@ from repro_torch.core.formats import FORMATS
 from . import build
 
 __all__ = ["w4a8_fused_matmul_cuda", "w4a8_fused_batched_cuda", "gemm_plan", "chunk_ranges",
-           "W_FORMATS", "A_FORMATS"]
+           "grid_args", "W_FORMATS", "A_FORMATS"]
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -83,9 +83,24 @@ def _refuse(w_fmt, a_fmt, transpose_w=False):
             "served path quantizes them there")
 
 
-def _grid(a_fmt):
-    g = FORMATS[a_fmt or "fp8_e4m3"]
+def grid_args(fmt_name):
+    """(man_bits, min_exp, max_exp, max_value, 1 / max_value) of a grid for
+    ``csrc/quant_common.cuh``'s ``round_to_grid``, which builds 2^(e -
+    man_bits) and its inverse from f32 exponent bits for every e in [min_exp,
+    max_exp]; refuses a grid whose steps leave the f32 normal range (the
+    FP8 grids are far inside it; bf16's is not)."""
+    g = FORMATS[fmt_name]
+    fields = [127 + s * (e - g.man_bits) for s in (1, -1) for e in (g.min_exp, g.max_exp)]
+    if not all(1 <= f <= 254 for f in fields):
+        raise NotImplementedError(
+            f"{fmt_name}: its grid steps 2^({g.min_exp} - {g.man_bits}) .. 2^({g.max_exp} - "
+            f"{g.man_bits}) or their inverses are not f32 normals, as the CUDA rounding "
+            "needs them")
     return g.man_bits, g.min_exp, g.max_exp, g.max_value, 1.0 / g.max_value
+
+
+def _grid(a_fmt):
+    return grid_args(a_fmt or "fp8_e4m3")
 
 
 def _lib():
