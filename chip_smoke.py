@@ -94,7 +94,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               pipeline against the fused kernel on the same packed weights,
               timed at every GEMM shape and the kernel microbench's m256,
               decode64 and lorc16 (names w4a8_split_<tag> / w4a8_fused_<tag>,
-              with the ratio split / fused; the ratio is reported, not gated).
+              with the ratio split / fused; the ratio is reported, not gated);
+12. pressure -- opt-125m on phase 6's server and 8 requests, all submitted
+              at once (two at priority 1, one with a deadline), on 16 active
+              pages (6 frozen pages, no headroom page), a spill budget of 8
+              pages and a fault plan (a NaN decode row, the second spill's
+              bytes flipped, two blanked allocator ticks), audited every
+              step: at least 2 preemptions, a resume from bytes, a spill
+              eviction and exactly 1 integrity failure; only the poisoned
+              request fails; every restored page equals its spill byte for
+              byte; the launches equal phase 6's invariants; every stream no
+              fault hit equals a fully backed, fault-free run's, up to one
+              tie (top-2 gap under 2^-4 of the largest |logit|); the median
+              spill and restore time a page are printed, not gated.
 
 Phase 3 also checks and times MiniCPM3's kernels (the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
@@ -1531,16 +1543,19 @@ def _live_pool_check(torch, srv, gen):
     return err, fault
 
 
-def _default_server(torch, cfg, packed):
+def _default_server(torch, cfg, packed, faults=None, frozen_pages=64, **knobs):
     """The reference Server's default path: mixed engine, prefix cache,
-    FP8 pages with an FP4 frozen region of 64 pages, 4 slots."""
+    FP8 pages with an FP4 frozen region of 64 pages, 4 slots; ``knobs``
+    (pool_pages, audit_every, scheduler), ``frozen_pages`` and ``faults``
+    for phase 12."""
     from repro_torch.runtime import serve
 
     config = serve.ServerConfig(
         slots=4, max_seq=1024, page_size=64, a_fmt="fp8_e4m3",
-        cache=serve.CachePolicy(active_fmt="fp8_e4m3", frozen_fmt="fp4_e2m1", frozen_pages=64),
-        prefix_cache=True)
-    srv = serve.Server(packed, cfg, config)
+        cache=serve.CachePolicy(active_fmt="fp8_e4m3", frozen_fmt="fp4_e2m1",
+                                frozen_pages=frozen_pages),
+        prefix_cache=True, **knobs)
+    srv = serve.Server(packed, cfg, config, faults=faults)
     if srv.engine != "mixed":
         fail(f"the default engine is {srv.engine!r}, not the mixed engine")
     return srv
@@ -2515,6 +2530,232 @@ def phase_kernel_api(torch):
     return launches, act, split, versus, (split_fault, *flash_faults), flash
 
 
+# -- phase 12: pressure ------------------------------------------------------------
+# Phase 6's server and 8 requests cannot steal as they are: the system prompt
+# leaves the active pool once frozen into the FP4 region, a row then holds 1-4
+# private pages, its 32 new tokens cross at most one page boundary, which the
+# admission's headroom page covers, and the pool cannot shrink below 12 pages
+# (a 744-token request's worst case). So phase 12 changes three knobs: 16
+# active pages, no headroom page (a row crossing a page boundary allocates
+# while decoding) and a frozen region of 6 pages, smaller than the 8-page
+# system prompt, so each row holds its last 2 system pages privately too.
+# Then growth steals with no fault's help: twice (ticks 33 and 48) in a
+# fault-free rehearsal on the CPU with a stub model (the scheduling does not
+# read the logits).
+PRESSURE_POOL = 16
+PRESSURE_FROZEN = 6
+# one FP8 page of opt-125m over 12 layers: 1,179,648 bytes of codes and 1,248
+# of scales. The budget holds 8 pages: one stolen row's 3-5 pages fit, the
+# first two spills (5 + 4 pages) do not, and spills past it are evicted
+# oldest first
+PRESSURE_SPILL_BUDGET = 8 * 1_180_896
+PRESSURE_DEADLINE = 80  # rid 2's deadline_step: meetable, so it shields rid 2
+# a NaN on a decoding row (step 46, slot 1), the second spill's bytes flipped,
+# and two blanked allocator ticks (engine ticks, counting every step() call):
+# tick 50 is a growth tick, so it steals two rows more
+PRESSURE_FAULTS = dict(nan_logits=((46, 1),), corrupt_spills=(1,), alloc_fail_ticks=(16, 50))
+GAP_TOL = 2.0 ** -4  # tests/test_torch_mixed_engine.py's compare_streams rule
+
+
+def _pressure_traffic(cfg):
+    """Phase 6's 8 requests (the same draws), all submitted at once: rids 0
+    and 1 at priority 1, rid 2 with a deadline, the rest at priority 0."""
+    import numpy as np
+
+    from repro_torch.runtime import serve
+
+    rng = np.random.default_rng(SEED + 2)
+    system = rng.integers(2, cfg.vocab_size, 512).tolist()
+    tails = rng.integers(16, 201, size=8)
+    return [serve.Request(rid=i, max_new=32, prompt=system + rng.integers(
+        2, cfg.vocab_size, int(tails[i])).tolist(), priority=1 if i < 2 else 0,
+        deadline_step=PRESSURE_DEADLINE if i == 2 else None) for i in range(8)]
+
+
+def _record_gaps(torch, srv):
+    """Wraps ``srv``'s program and token emission: the top-2 logit gap, as a
+    share of the row's largest |logit|, of the row behind each token it
+    emits, ``gaps[(rid, index)]`` (the rule ``compare_streams`` reads)."""
+    gaps, last = {}, {}
+    run, emit = srv._run, srv._emit_token
+
+    def run_(tokens, state, pmask=None):
+        logits = run(tokens, state, pmask)
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        last["gap"] = ((top2[:, 0] - top2[:, 1]) / logits.abs().amax(-1)).cpu().tolist()
+        return logits
+
+    def emit_(req, token):
+        g = last["gap"]
+        row = (0 if len(g) == 1 else srv.slots if len(g) == srv.slots + 1 and not req.out
+               else next(s for s, r in enumerate(srv.active) if r is req))
+        gaps[(req.rid, len(req.out))] = g[row]
+        emit(req, token)
+
+    srv._run, srv._emit_token = run_, emit_
+    return gaps
+
+
+def _watch_spills(torch, srv):
+    """Wraps ``srv``'s preemption and resume: each spill's engine tick and
+    its time and each restore's time per page (device synchronized around
+    them), a copy of every payload as it went to the host, and after each
+    resume the restored pages read back and held against that copy byte
+    for byte."""
+    from repro_torch.runtime import kv_cache as kvc
+
+    seen = {"spill_ms": [], "restore_ms": [], "spill_bytes": 0, "restored": 0, "ticks": []}
+    kept = {}
+    preempt, resume = srv._preempt, srv._resume
+
+    def preempt_(slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preempt(slot)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        seen["ticks"].append(srv._tick)
+        sp = srv.preempted[-1]
+        npg = kvc.pages_needed(sp.ctx_len, srv.page_size) - sp.shared_pages
+        seen["spill_ms"].append(dt * 1e3 / max(npg, 1))
+        seen["spill_bytes"] += sp.nbytes
+        kept[sp.req.rid] = [{k: a.copy() for k, a in part.items()} for part in sp.payload]
+
+    def resume_(slot, spill, shared_pids, need):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resume(slot, spill, shared_pids, need)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        npg = kvc.pages_needed(spill.ctx_len, srv.page_size) - spill.shared_pages
+        seen["restore_ms"].append(dt * 1e3 / max(npg, 1))
+        ids = torch.as_tensor(srv.slot_pages[slot][spill.shared_pages:spill.shared_pages + npg],
+                              device=srv.device)
+        back = [kvc.spill_pages(pool, ids) for pool in srv.pools]
+        for part, want in zip(back, kept.pop(spill.req.rid)):
+            if {k: a.tobytes() for k, a in part.items()} != {k: a.tobytes() for k, a in want.items()}:
+                fail(f"pressure: request {spill.req.rid}'s restored pages differ from its spill")
+        seen["restored"] += 1
+
+    srv._preempt, srv._resume = preempt_, resume_
+    return seen
+
+
+def _drain_audited(torch, srv, reqs):
+    """Submit every request, then step to the drain, auditing once after
+    every step: ``audit_every=1`` audits each step that ran a program, and
+    this each step that did not (or every step without it). Returns the
+    wall seconds, instrumentation included."""
+    for r in reqs:
+        srv.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        went = srv.step()
+        if not (went and srv.audit_every == 1):
+            srv.audit()
+        if not went and not srv.queue and not srv.preempted:
+            break
+        if not went and not srv._alloc_faulted:
+            fail(f"pressure: serving starved ({len(srv.queue)} queued, "
+                 f"{len(srv.preempted)} spilled)")
+    else:
+        fail("pressure: no drain in 2000 steps")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _first_differences(got, want, gaps_got, gaps_want, skip):
+    """Per request that no fault hit: the index of its first token that
+    differs from the fully backed run, with both runs' gaps there."""
+    out = []
+    for rid in sorted(want):
+        if rid in skip:
+            continue
+        a, b = got[rid], want[rid]
+        if len(a) != len(b):
+            fail(f"pressure: request {rid} emitted {len(a)} tokens, the fully backed run {len(b)}")
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is not None:
+            out.append((rid, i, gaps_got[(rid, i)], gaps_want[(rid, i)]))
+    return out
+
+
+def phase_pressure(torch, cfg, packed, card):
+    """Phase 6's server and 8 requests, all at once with priorities and a
+    deadline, on a 16-page active pool with a spill budget and a fault plan,
+    audited at every step; against a fully backed, fault-free run of the
+    same requests on the same server config."""
+    from repro_torch.runtime import serve
+
+    knobs = dict(frozen_pages=PRESSURE_FROZEN, scheduler=serve.SchedulerConfig(
+        headroom_pages=0, steal_cooldown=2, spill_budget_bytes=PRESSURE_SPILL_BUDGET))
+    full = _default_server(torch, cfg, packed, **knobs)
+    want_gaps = _record_gaps(torch, full)
+    _drain_audited(torch, full, _pressure_traffic(cfg))
+    want = {r.rid: list(r.out) for r in full.finished}
+    if full.stats["preemptions"] or not all(r.status == "ok" for r in full.finished):
+        fail(f"pressure: the fully backed run stole or failed: {full.stats}")
+    del full
+    plan = serve.FaultPlan(**PRESSURE_FAULTS)
+    srv = _default_server(torch, cfg, packed, pool_pages=PRESSURE_POOL, audit_every=1,
+                          faults=plan, **knobs)
+    gaps = _record_gaps(torch, srv)
+    seen = _watch_spills(torch, srv)
+    reqs = _pressure_traffic(cfg)
+    _set_counts(dict.fromkeys(_counts(), 0))
+    wall = _drain_audited(torch, srv, reqs)
+    launches = _counts()
+    st, n_layers = srv.stats, cfg.n_layers
+    want_launches = {**dict.fromkeys(launches, 0), "w4a8_fused": 6 * n_layers * st["programs"],
+                     "paged_decode_attn_frozen": n_layers * st["steps"]}
+    if launches != want_launches or st["programs"] != st["steps"]:
+        fail(f"pressure: kernel launches {launches}, want {want_launches} ({st['programs']} "
+             f"programs, {st['steps']} steps)")
+    if not (st["preemptions"] >= 2 and st["resumes"] >= 1 and st["spill_evictions"] >= 1
+            and st["spill_integrity_failures"] == 1 and seen["restored"] == st["resumes"]):
+        fail(f"pressure: want >= 2 preemptions, >= 1 resume, >= 1 spill eviction and exactly "
+             f"1 integrity failure: {st}")
+    unforced = [t for t in seen["ticks"] if t not in PRESSURE_FAULTS["alloc_fail_ticks"]]
+    if not unforced:
+        fail(f"pressure: every preemption fell on a blanked allocator tick {seen['ticks']}: "
+             f"the pool never ran dry by itself")
+    if len(plan.nan_hits) != 1 or plan.blocked_ticks != list(PRESSURE_FAULTS["alloc_fail_ticks"]):
+        fail(f"pressure: the fault plan did not land: nan_hits {plan.nan_hits}, blocked ticks "
+             f"{plan.blocked_ticks}")
+    poisoned = plan.nan_hits[0][2]
+    status = {r.rid: r.status for r in srv.finished}
+    if len(status) != 8 or {rid for rid, s in status.items() if s != "ok"} != {poisoned} \
+            or status[poisoned] != "failed":
+        fail(f"pressure: want only request {poisoned} failed: {status}")
+    got = {r.rid: list(r.out) for r in srv.finished if r.status == "ok"}
+    diffs = _first_differences(got, want, gaps, want_gaps, {poisoned, *plan.corrupted_rids})
+    log(f"[12 pressure] opt-125m W4A8, phase 6's server and 8 requests at once (rids 0-1 "
+        f"priority 1, rid 2 deadline step {PRESSURE_DEADLINE}) on {PRESSURE_POOL} active pages, "
+        f"{PRESSURE_FROZEN} frozen pages, no headroom page, spill budget "
+        f"{PRESSURE_SPILL_BUDGET} B, steal cooldown 2, audited every step, faults "
+        f"{PRESSURE_FAULTS}, on {card}:")
+    log(f"    {st['steps']} steps, {wall:.2f} s wall with the phase's own instrumentation "
+        f"(not a throughput baseline); preemptions {st['preemptions']} at ticks {seen['ticks']} "
+        f"({len(unforced)} on no blanked tick; {st['pages_stolen']} pages stolen), resumes {st['resumes']}, spill evictions "
+        f"{st['spill_evictions']} (integrity failures {st['spill_integrity_failures']}, resume "
+        f"fallbacks {st['resume_fallbacks']}), failed {st['failed']} (rid {poisoned}); "
+        f"{seen['spill_bytes']} bytes spilled; median spill "
+        f"{statistics.median(seen['spill_ms']):.3f} ms a page over {len(seen['spill_ms'])}, "
+        f"median restore {statistics.median(seen['restore_ms']):.3f} ms a page over "
+        f"{len(seen['restore_ms'])}; restored bytes equal the spills; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for rid, i, g_got, g_want in diffs:
+        log(f"    request {rid}: token {i} differs from the fully backed run; top-2 gap "
+            f"{g_got:.3g} here, {g_want:.3g} there (of the largest |logit|)")
+    if len(diffs) > 1 or any(g >= GAP_TOL for _, _, _, g in diffs):
+        fail(f"pressure: streams differ from the fully backed run beyond one tie under "
+             f"{GAP_TOL}: {diffs}")
+    log(f"    streams of the {len(got) - len(plan.corrupted_rids)} requests no fault hit equal "
+        f"the fully backed run's, {len(diffs)} tie(s) under {GAP_TOL}")
+    return launches
+
+
 def step_sum(rows, n_layers, key):
     """One decode step's sum of a kernel's per-launch rows."""
     if key == "bound_ms":  # the bound of the whole step's bytes and operations
@@ -2606,7 +2847,6 @@ def main():
     lap(5)
     launches_6, live = phase_prefix(torch, cfg, packed, card)
     lap(6)
-    del packed
     launches_7, live_7 = phase_mla(torch, card)
     lap(7)
     phase_mla_cpu(torch)
@@ -2617,6 +2857,10 @@ def main():
     lap(10)
     del packed_9
     api_launches, act, split, versus, faults, flash = phase_kernel_api(torch)
+    lap(11)
+    launches_12 = phase_pressure(torch, cfg, packed, card)
+    lap(12)
+    del packed
 
     for r in gemm.values():
         r["kind"] = "bf16"
@@ -2650,7 +2894,9 @@ def main():
                              "from phase 7"},
          "olmoe": {**entry(olmoe_layer, 16), "launches": launches_9["w4a8_fused"],
                    "per": "one OLMoE-1B-7B decode step: 64 launches at M=4, 2048->2048; "
-                          "launches from phase 9"}},
+                          "launches from phase 9"},
+         "pressure": {"launches": launches_12["w4a8_fused"],
+                      "per": "phase 12: phase 6's traffic on a 16-page pool, stolen and resumed"}},
         {"name": "paged_decode_attn", "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131",
          "launches": launches["paged_decode_attn"],
@@ -2669,7 +2915,9 @@ def main():
          "olmoe": {**per_olmoe_attn(olmoe_attn["frozen"],
                                     "16 launches (one per layer), KV=H=16, hd 128, otherwise as "
                                     "above; launches from phase 9"),
-                   "launches": launches_9["paged_decode_attn_frozen"]}},
+                   "launches": launches_9["paged_decode_attn_frozen"]},
+         "pressure": {"launches": launches_12["paged_decode_attn_frozen"],
+                      "per": "phase 12: phase 6's traffic on a 16-page pool, stolen and resumed"}},
         entry([batched[False]], 62, name="w4a8_fused_batched", route="cuda",
               source="src/repro_torch/csrc/w4a8_fused.cu",
               replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt=None)",

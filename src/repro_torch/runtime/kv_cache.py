@@ -39,9 +39,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import zlib
 from collections import OrderedDict
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.formats import f32, fp_encode, pack_nibbles, quantize_to_grid
@@ -53,7 +55,7 @@ __all__ = ["CachePolicy", "PagedState", "PrefixCache", "page_key", "init_gqa_poo
            "init_mla_pool", "pool_keys", "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
            "dequantize_pages", "transcode_page", "append_paged", "append_prefill_chunk",
            "gather_pages", "gather_history", "pool_bytes_per_token", "page_bytes",
-           "pages_needed"]
+           "pages_needed", "spill_pages", "restore_pages", "payload_checksum"]
 
 _EPS = 1e-12
 
@@ -558,3 +560,43 @@ def page_bytes(pool: Dict, frozen: bool = False) -> float:
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
     return max(1, math.ceil(n_tokens / page_size))
+
+
+# ---------------------------------------------------------------------------
+# Spill payloads (preemption by page steal)
+# ---------------------------------------------------------------------------
+def spill_pages(pool: Dict, ids: torch.Tensor) -> Dict[str, np.ndarray]:
+    """Host copy of pages ``ids`` (every stacked layer) of the active
+    stores: one pool's part of a spill payload. The frozen region's leaves
+    and the zero-size ``_fp4`` marker are left out (a spilled page is
+    private, so active-class). bf16 has no numpy dtype: such a leaf travels
+    as its int16 view, the same bytes."""
+    out = {}
+    for name, leaf in pool.items():
+        if "_fz" in name or not leaf.numel():
+            continue
+        part = leaf[:, ids]
+        out[name] = (part.view(torch.int16) if part.dtype == torch.bfloat16 else part).cpu().numpy()
+    return out
+
+
+def restore_pages(pool: Dict, part: Dict[str, np.ndarray], ids: torch.Tensor):
+    """Write a ``spill_pages`` part back into pages ``ids``, in place (the
+    pool's leaves keep their addresses)."""
+    for name, arr in part.items():
+        leaf = pool[name]
+        leaf[:, ids] = torch.from_numpy(np.ascontiguousarray(arr)).to(leaf.device).view(leaf.dtype)
+
+
+def payload_checksum(payload: List[Dict[str, np.ndarray]]) -> int:
+    """CRC32 over a spill payload (one leaf dict per pool): each part's
+    leaf names in sorted order, each followed by its bytes. Computed at
+    preemption on the pristine bytes and checked again before a resume
+    restores them, so bit rot while spilled is caught. The same bytes give
+    ``repro.runtime.kv_cache.payload_checksum``'s value."""
+    crc = 0
+    for part in payload:
+        for name in sorted(part):
+            crc = zlib.crc32(name.encode(), crc)
+            crc = zlib.crc32(np.ascontiguousarray(part[name]).tobytes(), crc)
+    return crc
