@@ -65,7 +65,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               batched expert GEMMs with FP8 activations and 16 frozen GQA
               decode launches at hd 128 a step), the live-pool check with an
               injected fault, and a profiled decode step;
-10. moe cpu -- phase 9's model cut to 2 layers against the CPU plain path,
+10. moe cpu -- phase 9's model cut to 2 layers against the CPU plain path
+              (2 requests: a prefill chunk and 1 decode step),
               free-running and teacher-forced at each MoE layer and each
               expert GEMM call, with the router's experts compared and two
               injected faults (wd's LoRC dropped, one expert of wu reading
@@ -106,7 +107,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               byte; the launches equal phase 6's invariants; every stream no
               fault hit equals a fully backed, fault-free run's, up to one
               tie (top-2 gap under 2^-4 of the largest |logit|); the median
-              spill and restore time a page are printed, not gated.
+              spill and restore time a page are printed, not gated;
+13. sampling -- opt-125m on phase 6's server and traffic with 4 of the 8
+              requests sampled (top-k / top-p / temperature mixes, seeds 0,
+              2^31, 2^32 - 1, 12345): every request ok, phase 6's launch
+              invariants, the greedy streams equal to phase 6's up to one
+              tie; the sampler teacher-forced on one of its decode steps'
+              logits (B = 4, V = 50272) under 4 mixes x 5 (seed, count), the
+              threefry bits and Gumbel noise bit-identical and the tokens
+              identical on the card and on the CPU, JAX's known answers on
+              the card, and the sampler's time a call; a sampled request
+              solo (1 slot) and the traffic on phase 12's 16-page pool (two
+              sampled requests stolen and resumed) against the batched and
+              a fully backed run, up to one tie (a sampled row's margin: the
+              top-2 gap of its masked, scaled logits plus its Gumbel noise);
+              then the front-end: 4 concurrent ``AsyncServer.generate``
+              streams (2 sampled), each equal to its ``RequestResult``, and
+              one SSE request to ``serve_http`` on 127.0.0.1; the median
+              TTFT and ITL are printed, not gated. At most 60 s.
 
 Phase 3 also checks and times MiniCPM3's kernels (the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
@@ -1546,15 +1564,15 @@ def _live_pool_check(torch, srv, gen):
 def _default_server(torch, cfg, packed, faults=None, frozen_pages=64, **knobs):
     """The reference Server's default path: mixed engine, prefix cache,
     FP8 pages with an FP4 frozen region of 64 pages, 4 slots; ``knobs``
-    (pool_pages, audit_every, scheduler), ``frozen_pages`` and ``faults``
-    for phase 12."""
+    (slots, pool_pages, audit_every, scheduler), ``frozen_pages`` and
+    ``faults`` for phases 12 and 13."""
     from repro_torch.runtime import serve
 
-    config = serve.ServerConfig(
-        slots=4, max_seq=1024, page_size=64, a_fmt="fp8_e4m3",
-        cache=serve.CachePolicy(active_fmt="fp8_e4m3", frozen_fmt="fp4_e2m1",
-                                frozen_pages=frozen_pages),
-        prefix_cache=True, **knobs)
+    config = serve.ServerConfig(**{
+        "slots": 4, "max_seq": 1024, "page_size": 64, "a_fmt": "fp8_e4m3",
+        "cache": serve.CachePolicy(active_fmt="fp8_e4m3", frozen_fmt="fp4_e2m1",
+                                   frozen_pages=frozen_pages),
+        "prefix_cache": True, **knobs})
     srv = serve.Server(packed, cfg, config, faults=faults)
     if srv.engine != "mixed":
         fail(f"the default engine is {srv.engine!r}, not the mixed engine")
@@ -1674,7 +1692,7 @@ def phase_prefix(torch, cfg, packed, card):
         f"(tolerance {ATTN_TOL}); injected fault k_fz_shift + 1 reads {live[1]:.3g} "
         f"(>= {10 * ATTN_TOL} required)")
     _profile_hits(torch, srv, cfg, system, rng)
-    return launches, live
+    return launches, live, {r.rid: list(r.tokens) for r in results}
 
 
 def _random_packed(torch, name, n_layers=None, seed=SEED):
@@ -1941,14 +1959,14 @@ def phase_moe_cpu(torch, cfg, packed):
     cut = lambda t: t.apply(lambda a: a[:n]) if isinstance(t, PackedLinear) else t[:n]
     packed = {**packed, "segments": [tree_map(cut, seg, is_leaf=lambda x: isinstance(x, PackedLinear))
                                      for seg in packed["segments"]]}
-    # 2 decode steps, not 4: the CPU's plain expert GEMMs (a dequantized f32
-    # copy of 64 experts a call) take most of this phase
-    kw = dict(logit_rtol=MOE_LOGIT_RTOL, n_dec=2)
+    # 1 decode step, not 4: the CPU's plain expert GEMMs (a dequantized f32
+    # copy of 64 experts a call) take most of this phase, ~20 s a program
+    kw = dict(logit_rtol=MOE_LOGIT_RTOL, n_dec=1)
     routes = _routes(torch, packed, "moe")
     show = lambda rd, key, f=".4g": ", ".join(f"{n} {rd[n][key]:{f}}" for n in routes if n != "cpu")
     free, agree = _compare(torch, cfg, routes, forced=False, **kw)
-    log(f"[10 moe cpu] OLMoE at full width, 2 layers: 2 requests (1 prefill chunk + 2 decode "
-        f"steps) against the CPU plain path, on two seeds")
+    log(f"[10 moe cpu] OLMoE at full width, 2 layers: 2 requests (1 prefill chunk + 1 decode "
+        f"step) against the CPU plain path, on two seeds")
     log(f"    free-running (seed {SEED}), largest |logit err| / largest |logit| (gross bound "
         f"{MOE_LOGIT_RTOL}): {show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, "
         f"all {agree[1]} decisive ones")
@@ -2572,28 +2590,65 @@ def _pressure_traffic(cfg):
         deadline_step=PRESSURE_DEADLINE if i == 2 else None) for i in range(8)]
 
 
-def _record_gaps(torch, srv):
-    """Wraps ``srv``'s program and token emission: the top-2 logit gap, as a
-    share of the row's largest |logit|, of the row behind each token it
-    emits, ``gaps[(rid, index)]`` (the rule ``compare_streams`` reads)."""
-    gaps, last = {}, {}
-    run, emit = srv._run, srv._emit_token
+def _draw_margins(torch, logits, arrs):
+    """By how much each row's token won, as a share of the row's largest
+    |logit| (``compare_streams``' tie rule): a greedy row's top-2 logit gap;
+    a sampled row's top-2 gap of its masked, scaled logits plus its Gumbel
+    noise, over the largest |scaled logit| it kept. ``arrs``: the rows'
+    ``sampling.slot_arrays``."""
+    from repro_torch.runtime import sampling as smp
+    from repro_torch.runtime import threefry as tf
 
-    def run_(tokens, state, pmask=None):
-        logits = run(tokens, state, pmask)
-        top2 = torch.topk(logits.float(), 2, dim=-1).values
-        last["gap"] = ((top2[:, 0] - top2[:, 1]) / logits.abs().amax(-1)).cpu().tolist()
-        return logits
+    temps, top_ks, top_ps, seeds, counts = smp.as_tuple(arrs, logits.device)
+    logits = logits.float()
+    top2 = torch.topk(logits, 2, dim=-1).values
+    greedy = (top2[:, 0] - top2[:, 1]) / logits.abs().amax(-1)
+    scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
+    keep = smp.sampling_mask(scaled, top_ks, top_ps)
+    noise = tf.gumbel(tf.fold_in(tf.seed_key(seeds), counts), logits.shape[-1:])
+    z = torch.topk(noise + torch.where(keep, scaled, -torch.inf), 2, dim=-1).values
+    sampled = (z[:, 0] - z[:, 1]) / torch.where(keep, scaled.abs(), 0.0).amax(-1)
+    return torch.where(temps > 0, sampled, greedy)
+
+
+class _Margins:
+    """The winning margin (``_draw_margins``) of the row behind each token a
+    server emitted, ``margins[(rid, index)]``. Each program's logits and
+    sampling arrays are kept on the card and read only for the tokens asked
+    for, so recording costs the step no sampler work."""
+
+    def __init__(self, torch):
+        self.torch, self.programs, self.rows = torch, [], {}
+
+    def __getitem__(self, key):
+        i, row = self.rows[key]
+        return _draw_margins(self.torch, *self.programs[i])[row].item()
+
+
+def _record_margins(torch, srv):
+    """Wraps ``srv``'s token pick and emission to fill a ``_Margins``.
+    Returns (the margins, a function that unwraps)."""
+    from repro_torch.runtime import sampling as smp
+
+    margins = _Margins(torch)
+    pick, emit = srv._pick, srv._emit_token
+
+    def pick_(logits, samp=None):
+        arrs = smp.slot_arrays(len(logits)) if samp is None else samp
+        margins.programs.append((logits, {k: a.copy() for k, a in arrs.items()}))
+        return pick(logits, samp)
 
     def emit_(req, token):
-        g = last["gap"]
-        row = (0 if len(g) == 1 else srv.slots if len(g) == srv.slots + 1 and not req.out
+        n = len(margins.programs[-1][0])
+        row = (0 if n == 1 else srv.slots if n == srv.slots + 1 and not req.out
                else next(s for s, r in enumerate(srv.active) if r is req))
-        gaps[(req.rid, len(req.out))] = g[row]
+        margins.rows[(req.rid, len(req.out))] = (len(margins.programs) - 1, row)
         emit(req, token)
 
-    srv._run, srv._emit_token = run_, emit_
-    return gaps
+    def unwrap():
+        del srv._pick, srv._emit_token
+    srv._pick, srv._emit_token = pick_, emit_
+    return margins, unwrap
 
 
 def _watch_spills(torch, srv):
@@ -2691,7 +2746,7 @@ def phase_pressure(torch, cfg, packed, card):
     knobs = dict(frozen_pages=PRESSURE_FROZEN, scheduler=serve.SchedulerConfig(
         headroom_pages=0, steal_cooldown=2, spill_budget_bytes=PRESSURE_SPILL_BUDGET))
     full = _default_server(torch, cfg, packed, **knobs)
-    want_gaps = _record_gaps(torch, full)
+    want_gaps, _ = _record_margins(torch, full)
     _drain_audited(torch, full, _pressure_traffic(cfg))
     want = {r.rid: list(r.out) for r in full.finished}
     if full.stats["preemptions"] or not all(r.status == "ok" for r in full.finished):
@@ -2700,7 +2755,7 @@ def phase_pressure(torch, cfg, packed, card):
     plan = serve.FaultPlan(**PRESSURE_FAULTS)
     srv = _default_server(torch, cfg, packed, pool_pages=PRESSURE_POOL, audit_every=1,
                           faults=plan, **knobs)
-    gaps = _record_gaps(torch, srv)
+    gaps, _ = _record_margins(torch, srv)
     seen = _watch_spills(torch, srv)
     reqs = _pressure_traffic(cfg)
     _set_counts(dict.fromkeys(_counts(), 0))
@@ -2754,6 +2809,303 @@ def phase_pressure(torch, cfg, packed, card):
     log(f"    streams of the {len(got) - len(plan.corrupted_rids)} requests no fault hit equal "
         f"the fully backed run's, {len(diffs)} tie(s) under {GAP_TOL}")
     return launches
+
+
+# -- phase 13: sampled decoding and the front-end -----------------------------------
+SAMPLING_BUDGET_S = 60
+# the phase-6 requests that sample (the others stay greedy), each with a seed
+# of its own and one of the mixes tests/test_torch_sampling.py holds against
+# repro; on the tight pool rids 3 and 7 are stolen and resumed
+SAMPLED = {1: dict(temperature=0.8, top_k=50, top_p=0.9, seed=2 ** 32 - 1),
+           3: dict(temperature=1.0, seed=0),
+           5: dict(temperature=0.7, top_p=0.5, seed=2 ** 31),
+           7: dict(temperature=0.8, top_k=50, top_p=0.9, seed=12345)}
+SAMPLER_MIXES = {"greedy": {}, "t0.8_k50_p0.9": dict(temperature=0.8, top_k=50, top_p=0.9),
+                 "t1.0": dict(temperature=1.0), "t0.7_p0.5": dict(temperature=0.7, top_p=0.5)}
+SAMPLER_KEYS = ((0, 0), (1, 5), (12345, 17), (2 ** 31, 33), (2 ** 32 - 1, 64))  # (seed, count)
+SSE_TOKENS = 8
+
+
+def _sampled_requests(cfg, pressure=False):
+    """Phase 6's 8 requests (the same draws), those of SAMPLED sampling; with
+    ``pressure`` phase 12's priorities and deadline, else none."""
+    from repro_torch.runtime import serve
+
+    reqs = _pressure_traffic(cfg)
+    for r in reqs:
+        if not pressure:
+            r.priority, r.deadline_step = 0, None
+        if r.rid in SAMPLED:
+            r.sampling = serve.SamplingParams(**SAMPLED[r.rid])
+    return reqs
+
+
+def _drain_all(torch, srv, reqs):
+    """Submit ``reqs`` and drain; returns the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _within_one_tie(got, want, margins, what, skip=()):
+    """At most one stream of ``got`` differs from ``want``, and at its first
+    difference the row's margin (``margins`` of the run that reads it) is
+    under GAP_TOL. Returns [(rid, index, margin)]."""
+    diffs = []
+    for rid in sorted(want):
+        if rid in skip:
+            continue
+        a, b = got[rid], want[rid]
+        if len(a) != len(b):
+            fail(f"{what}: request {rid} emitted {len(a)} tokens, want {len(b)}")
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is not None:
+            diffs.append((rid, i, margins[(rid, i)]))
+    if len(diffs) > 1 or any(m >= GAP_TOL for *_, m in diffs):
+        fail(f"{what}: streams differ beyond one tie under {GAP_TOL}: {diffs}")
+    return diffs
+
+
+def _sampler_check(torch, logits):
+    """One decode step's card logits (B, V), each row under every mix of
+    SAMPLER_MIXES and every (seed, count) of SAMPLER_KEYS: the random bits
+    and the Gumbel noise bit-identical on the card and on the CPU, the tokens
+    identical; then the known answers on the card, and the sampler's time a
+    call at B rows beside the argmax's (CUDA events). Returns the readings."""
+    from repro_torch.runtime import sampling as smp
+    from repro_torch.runtime import serve
+    from repro_torch.runtime import threefry as tf
+
+    b, vocab = logits.shape
+    rows = [(r, mix, seed, count) for mix in SAMPLER_MIXES for seed, count in SAMPLER_KEYS
+            for r in range(b)]
+    arrs = smp.slot_arrays(len(rows))
+    for i, (_, mix, seed, count) in enumerate(rows):
+        smp.fill_slot(arrs, i, serve.SamplingParams(**SAMPLER_MIXES[mix], seed=seed), count)
+    x = logits[torch.as_tensor([r for r, *_ in rows], device=logits.device)]
+    out = {}
+    for dev in (DEV, "cpu"):
+        args = smp.as_tuple(arrs, dev)
+        keys = tf.fold_in(tf.seed_key(args[3]), args[4])
+        out[dev] = [smp.sample_tokens(x.to(dev), *args), tf.random_bits(keys, (vocab,)),
+                    tf.gumbel(keys, (vocab,)).view(torch.int32)]
+        out[dev] = [a.cpu() for a in out[dev]]
+    for name, a, c in zip(("tokens", "random bits", "gumbel noise"), out[DEV], out["cpu"]):
+        if not torch.equal(a, c):
+            fail(f"sampler: {name} on the card differ from the CPU's in "
+                 f"{int((a != c).sum())} of {a.numel()}")
+    sampled = torch.as_tensor(arrs["temperature"] > 0)
+    if bool((out["cpu"][0][sampled] == x.argmax(-1).cpu()[sampled]).all()):
+        fail("sampler: every sampled row took its argmax")
+    kat = [int(v) for v in tf.threefry2x32(*(torch.tensor(w, device=DEV) for w in (
+        0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3)))]
+    fold = tf.fold_in(tf.seed_key(21, device=DEV), 5).tolist()
+    if kat != [0xC4923A9C, 0x483DF7A0] or fold != [3621222503, 3534982896]:
+        fail(f"sampler: known answers on the card: threefry {kat}, fold_in(PRNGKey(21), 5) {fold}")
+    step = smp.slot_arrays(b)
+    for i in range(b):
+        smp.fill_slot(step, i, serve.SamplingParams(**list(SAMPLER_MIXES.values())[i % 4],
+                                                    seed=i), 3)
+    args = smp.as_tuple(step, DEV)
+    ms = {}
+    for name, fn in (("sample_tokens", lambda: smp.sample_tokens(logits, *args)),
+                     ("argmax", lambda: smp.greedy_tokens(logits))):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / 20
+    return {"rows": len(rows), "vocab": vocab, "ms": ms}
+
+
+def _sse(front, prompt, body):
+    """One SSE request to ``serve_http`` on 127.0.0.1, port 0: the raw
+    response."""
+    import asyncio
+    import json
+
+    from repro_torch.runtime.frontend import serve_http
+
+    async def post():
+        http = await serve_http(front, host="127.0.0.1", port=0)
+        port = http.sockets[0].getsockname()[1]
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            data = json.dumps({"prompt": prompt, **body}).encode()
+            writer.write(b"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                         b"Content-Type: application/json\r\n"
+                         + f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+            await writer.drain()
+            raw = (await reader.read()).decode()
+            writer.close()
+            return raw
+        finally:
+            http.close()
+            await http.wait_closed()
+    return post()
+
+
+def _frontend(torch, srv, cfg):
+    """The first wave of phase 6's requests (rids 1 and 3 sampled) through
+    ``AsyncServer.generate``, 4 at once, on ``srv`` (its system prompt frozen
+    and parked from the served mix), each streamed token equal to its
+    ``RequestResult``; then one SSE request, rid 1's prompt and sampling for
+    SSE_TOKENS tokens. Returns (results, SSE tokens)."""
+    import asyncio
+    import json
+
+    from repro_torch.runtime.frontend import AsyncServer
+
+    reqs = _sampled_requests(cfg)[:4]
+
+    async def main():
+        front = AsyncServer(srv)
+
+        async def stream(r):
+            toks = []
+            async for ev in front.generate(r.prompt, max_new=r.max_new, sampling=r.sampling,
+                                           rid=100 + r.rid):
+                if not ev.finished:
+                    toks.append(ev.token)
+            return toks
+        try:
+            streams = await asyncio.gather(*[stream(r) for r in reqs])
+            raw = await _sse(front, reqs[1].prompt,
+                             {"max_tokens": SSE_TOKENS, "stream": True, **SAMPLED[1]})
+        finally:
+            await front.close()
+        return streams, [front.result(100 + r.rid) for r in reqs], raw
+
+    streams, results, raw = asyncio.run(main())
+    for toks, res in zip(streams, results):
+        if res is None or not res.ok or list(res.tokens) != toks or len(toks) != 32:
+            fail(f"front-end: request {res and res.rid} streamed {toks}, its result {res}")
+    chunks = [json.loads(ln[6:]) for ln in raw.splitlines() if ln.startswith("data: {")]
+    sse = [c["choices"][0]["token"] for c in chunks if c["choices"][0].get("token") is not None]
+    if not raw.startswith("HTTP/1.1 200") or "text/event-stream" not in raw or \
+            len(sse) != SSE_TOKENS or chunks[-1]["choices"][0]["finish_reason"] != "stop" \
+            or not raw.rstrip().endswith("data: [DONE]"):
+        fail(f"front-end: the SSE response is not {SSE_TOKENS} token chunks and [DONE]: "
+             f"{raw[:400]}")
+    return results, sse
+
+
+def phase_sampling(torch, cfg, packed, card, greedy_streams):
+    """Sampled decoding on phase 6's server: the served mix (half the
+    requests sampled) with phase 6's launch invariants and its greedy
+    streams; the sampler teacher-forced on one of its decode steps' logits,
+    card against CPU; a sampled stream solo and on a tight pool (stolen and
+    resumed) against the served one; then the front-end."""
+    from repro_torch.runtime import serve
+
+    t0 = time.perf_counter()
+    srv = _default_server(torch, cfg, packed)
+    margins, unwrap = _record_margins(torch, srv)
+    step_logits = {}
+    run = srv._run
+
+    def run_(tokens, state, pmask=None):  # keeps the first step where 4 rows decode
+        logits = run(tokens, state, pmask)
+        if "x" not in step_logits and state.prefill is None and \
+                all(r is not None for r in srv.active):
+            step_logits["x"] = logits.clone()
+        return logits
+    srv._run = run_
+    reqs = _sampled_requests(cfg)
+    _set_counts(dict.fromkeys(_counts(), 0))
+    waves = [reqs[:4], reqs[4:]]
+    wall = sum(_drain_all(torch, srv, wave) for wave in waves)
+    launches = _counts()
+    del srv._run
+    unwrap()
+    st, n_layers = dict(srv.stats), cfg.n_layers
+    want = {**dict.fromkeys(launches, 0), "w4a8_fused": 6 * n_layers * st["steps"],
+            "paged_decode_attn_frozen": n_layers * st["steps"]}
+    if launches != want or st["programs"] != st["steps"]:
+        fail(f"sampling: kernel launches {launches}, want {want} ({st['steps']} steps)")
+    mix = {r.rid: list(r.out) for r in srv.finished}
+    if len(mix) != 8 or not all(r.status == "ok" for r in srv.finished):
+        fail(f"sampling: not every request ended ok: {[(r.rid, r.status) for r in srv.finished]}")
+    greedy = {rid: toks for rid, toks in greedy_streams.items() if rid not in SAMPLED}
+    ties_greedy = _within_one_tie(mix, greedy, margins, "sampling: greedy streams vs phase 6")
+    moved = [rid for rid in SAMPLED if mix[rid] != greedy_streams[rid]]
+    if len(moved) < len(SAMPLED) // 2:
+        fail(f"sampling: only requests {moved} of {sorted(SAMPLED)} left their greedy streams")
+    t_mix = time.perf_counter() - t0
+
+    if "x" not in step_logits:
+        fail("sampling: no decode step had all 4 rows decoding")
+    sampler = _sampler_check(torch, step_logits["x"])
+
+    t1 = time.perf_counter()
+    solo = _default_server(torch, cfg, packed, slots=1)
+    solo_margins, _ = _record_margins(torch, solo)
+    solo_reqs = _sampled_requests(cfg)[:2]
+    solo_reqs[0].max_new = 1  # rid 0 only freezes the system prompt, as it does in the mix
+    _drain_all(torch, solo, solo_reqs)
+    ties_solo = _within_one_tie({1: list(solo_reqs[1].out)}, {1: mix[1]}, solo_margins,
+                                "sampling: rid 1 solo vs batched")
+
+    knobs = dict(frozen_pages=PRESSURE_FROZEN, scheduler=serve.SchedulerConfig(
+        headroom_pages=0, steal_cooldown=2, spill_budget_bytes=PRESSURE_SPILL_BUDGET))
+    full = _default_server(torch, cfg, packed, **knobs)
+    full_margins, _ = _record_margins(torch, full)
+    _drain_all(torch, full, _sampled_requests(cfg, pressure=True))
+    if full.stats["preemptions"]:
+        fail(f"sampling: the fully backed run stole: {full.stats}")
+    tight = _default_server(torch, cfg, packed, pool_pages=PRESSURE_POOL, **knobs)
+    tight_margins, _ = _record_margins(torch, tight)
+    _drain_all(torch, tight, _sampled_requests(cfg, pressure=True))
+    stolen = sorted(r.rid for r in tight.finished if r.preemptions and r.rid in SAMPLED)
+    # a steal not answered by an eviction was resumed from its spilled bytes
+    resumed = [r.rid for r in tight.finished if r.rid in SAMPLED and r.preemptions > r.evictions]
+    if not resumed or not all(r.status == "ok" for r in tight.finished):
+        fail(f"sampling: no sampled request was stolen and resumed on {PRESSURE_POOL} pages "
+             f"({tight.stats}, statuses {[(r.rid, r.status) for r in tight.finished]})")
+    got = {r.rid: list(r.out) for r in tight.finished}
+    ref = {r.rid: list(r.out) for r in full.finished}
+    diffs = _first_differences(got, ref, tight_margins, full_margins, ())
+    if len(diffs) > 1 or any(m >= GAP_TOL for *_, m in diffs):
+        fail(f"sampling: the tight pool's streams differ from the fully backed run beyond one "
+             f"tie under {GAP_TOL}: {diffs}")
+    t_repro = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    results, sse = _frontend(torch, srv, cfg)
+    t_front = time.perf_counter() - t2
+    ttft = [r.ttft * 1e3 for r in results]
+    itl = [g * 1e3 for r in results for g in r.itl]
+
+    log(f"[13 sampling] opt-125m W4A8 on phase 6's server, rids {sorted(SAMPLED)} of its 8 "
+        f"requests sampled ({SAMPLED}), on {card}:")
+    log(f"    served mix: {st['steps']} steps, {wall:.2f} s wall; every "
+        f"request ok; launches {({k: v for k, v in launches.items() if v})} = phase 6's "
+        f"invariants; greedy streams vs phase 6's: {len(ties_greedy)} tie(s) {ties_greedy}; "
+        f"sampled streams that left their greedy ones {moved} ({t_mix:.1f} s)")
+    log(f"    sampler, teacher-forced on one decode step's card logits ({sampler['rows']} rows of "
+        f"{sampler['vocab']}: 4 rows x {len(SAMPLER_MIXES)} mixes x {len(SAMPLER_KEYS)} (seed, "
+        f"count)): random bits and Gumbel noise bit-identical card vs CPU, tokens identical; "
+        f"threefry known answer and fold_in(PRNGKey(21), 5) on the card; sample_tokens "
+        f"{sampler['ms']['sample_tokens']:.3f} ms a call at B=4 (argmax "
+        f"{sampler['ms']['argmax']:.3f} ms; CUDA events over 20 calls)")
+    log(f"    reproducibility: rid 1 solo (slots=1) vs batched {len(ties_solo)} tie(s) "
+        f"{ties_solo}; on {PRESSURE_POOL} active pages ({PRESSURE_FROZEN} frozen) "
+        f"preemptions {tight.stats['preemptions']}, resumes {tight.stats['resumes']}, spill "
+        f"evictions {tight.stats['spill_evictions']}, sampled requests stolen {stolen}, resumed "
+        f"from their bytes {resumed}; streams "
+        f"vs the fully backed run {len(diffs)} tie(s) {diffs} ({t_repro:.1f} s)")
+    log(f"    front-end: AsyncServer.generate x4 at once (rids 1, 3 sampled), every streamed "
+        f"token equal to its RequestResult; SSE on 127.0.0.1 {len(sse)} token chunks + [DONE] "
+        f"(rid 1's first {SSE_TOKENS}: {'equal' if sse == mix[1][:SSE_TOKENS] else 'differ'}); "
+        f"median TTFT {statistics.median(ttft):.2f} ms, median ITL {statistics.median(itl):.2f} "
+        f"ms over {len(itl)} gaps, on {card} ({t_front:.1f} s)")
 
 
 def step_sum(rows, n_layers, key):
@@ -2845,7 +3197,7 @@ def main():
     lap(4)
     phase_cpu(torch, cfg, packed)
     lap(5)
-    launches_6, live = phase_prefix(torch, cfg, packed, card)
+    launches_6, live, streams_6 = phase_prefix(torch, cfg, packed, card)
     lap(6)
     launches_7, live_7 = phase_mla(torch, card)
     lap(7)
@@ -2860,6 +3212,11 @@ def main():
     lap(11)
     launches_12 = phase_pressure(torch, cfg, packed, card)
     lap(12)
+    t13 = time.perf_counter()
+    phase_sampling(torch, cfg, packed, card, streams_6)
+    lap(13)
+    if time.perf_counter() - t13 > SAMPLING_BUDGET_S:
+        fail(f"phase 13 took {time.perf_counter() - t13:.1f} s > {SAMPLING_BUDGET_S} s")
     del packed
 
     for r in gemm.values():

@@ -1,2 +1,2 @@
-"""repro_torch.runtime — the paged KV pool, greedy sampling and the
-serving engine."""
+"""repro_torch.runtime — the paged KV pool, sampling (JAX's threefry), the
+serving engine and its asyncio/SSE front-end."""

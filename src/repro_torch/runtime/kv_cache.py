@@ -54,8 +54,8 @@ from repro_torch.kernels.common import PageFormat, page_format
 __all__ = ["CachePolicy", "PagedState", "PrefixCache", "page_key", "init_gqa_pool",
            "init_mla_pool", "pool_keys", "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
            "dequantize_pages", "transcode_page", "append_paged", "append_prefill_chunk",
-           "gather_pages", "gather_history", "pool_bytes_per_token", "page_bytes",
-           "pages_needed", "spill_pages", "restore_pages", "payload_checksum"]
+           "gather_pages", "gather_history", "pool_bytes_per_token", "bf16_bytes_per_token",
+           "page_bytes", "pages_needed", "spill_pages", "restore_pages", "payload_checksum"]
 
 _EPS = 1e-12
 
@@ -544,6 +544,16 @@ def pool_bytes_per_token(pool: Dict) -> float:
             continue
         total += _nbytes(leaf) * (leaf.shape[1] - 1) / leaf.shape[1]
     return total / ((p1 - 1) * page)
+
+
+def bf16_bytes_per_token(pool: Dict) -> float:
+    """What the same pool geometry would cost per token holding bf16 values
+    (the cache the FP8 pool replaces): 2 bytes a feature, every layer."""
+    total = 0
+    for name in pool_keys(pool):
+        leaf = pool[name]
+        total += math.prod(leaf.shape[3:]) * leaf.shape[0] * 2
+    return float(total)
 
 
 def page_bytes(pool: Dict, frozen: bool = False) -> float:

@@ -64,10 +64,19 @@ so the pool's addresses never change.
 The model is a decoder with GQA attention over K/V pages (learned
 positions or rope) or MLA over latent pages (``init_mla_pool``: c_kv and
 the rope key, no head axis), its ffn an MLP or an MoE layer that routes
-per token; the engine is the same for all. Not ported yet, and refused with
-``NotImplementedError`` naming the ROADMAP item: sampled decoding (item 9),
-the front-end (item 10), the recurrent and enc-dec families (item 12) and
-meshes (item 14).
+per token; the engine is the same for all. Not ported yet: the recurrent
+and enc-dec families, refused with ``NotImplementedError`` naming ROADMAP
+item 12 as their params are built, and meshes (item 14): ``ServerConfig``
+has no ``mesh`` field, so ``ServerConfig(mesh=...)`` raises ``TypeError``.
+
+Sampling (``Request.sampling``): each step draws every row's token from
+its logits with the row's ``SamplingParams`` (``runtime.sampling``); a
+step whose rows are all greedy takes the argmax and nothing else. The
+draw at emitted-token index ``i`` is keyed by ``fold_in(PRNGKey(seed),
+i)``, so a stream does not depend on the batch, the slot, or a steal and
+resume. ``collect_events`` buffers a ``TokenEvent`` for every emitted
+token and every retirement, drained by ``pop_events`` (the front-end,
+``runtime.frontend``, switches it on).
 """
 from __future__ import annotations
 
@@ -88,12 +97,13 @@ from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import segments_for
 from repro_torch.runtime import kv_cache as kvc
 from repro_torch.runtime.faults import FaultPlan, PoolCorruptionError, ServingError
+from repro_torch.runtime import sampling as smp
 from repro_torch.runtime.kv_cache import CachePolicy
-from repro_torch.runtime.sampling import SamplingParams, greedy_tokens
+from repro_torch.runtime.sampling import SamplingParams
 
-__all__ = ["Request", "RequestResult", "Server", "ServerConfig", "SchedulerConfig",
-           "CachePolicy", "SamplingParams", "FaultPlan", "PoolCorruptionError",
-           "ServingError"]
+__all__ = ["Request", "RequestResult", "TokenEvent", "Server", "ServerConfig",
+           "SchedulerConfig", "CachePolicy", "SamplingParams", "FaultPlan",
+           "PoolCorruptionError", "ServingError"]
 
 
 def _next_pow2(n: int) -> int:
@@ -117,10 +127,13 @@ class SchedulerConfig:
       protected from preemption (unless no other victim exists).
     * ``spill_budget_bytes``: cap on host bytes held by spills; over it the
       oldest spill is evicted and its request re-prefills (None: no cap).
-    * ``prefill_chunk_pages``: the streaming prefill chunk, in pages, so
-      chunk starts stay page-aligned (the mixed step's piggyback budget
-      too).
+    * ``prefill_chunk_pages``: the streaming prefill chunk, in pages, where
+      ``prefill_token_budget`` is None.
     * ``engine``: ``"mixed"`` or ``"alternating"``.
+    * ``prefill_token_budget``: the prefill chunk in tokens for both engines
+      (the mixed step's piggyback cap, the alternating stream's chunk),
+      rounded down to a page multiple and at least one page, so chunk
+      starts stay page-aligned (None: ``prefill_chunk_pages`` worth).
 
     Both watermarks are waived when nothing runs."""
 
@@ -132,6 +145,7 @@ class SchedulerConfig:
     prefill_chunk_pages: int = 4
     spill_budget_bytes: Optional[int] = None
     engine: str = "mixed"
+    prefill_token_budget: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,11 +176,26 @@ class ServerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One engine emission: a token of a request (``index`` 0 is the
+    prefill's seed token), or with ``finished=True`` and ``token=None`` the
+    request's terminal event carrying its ``status``. ``t`` is the host
+    clock at emission. Buffered only while ``Server.collect_events`` is on."""
+
+    rid: int
+    token: Optional[int]
+    index: int
+    t: float
+    finished: bool = False
+    status: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class RequestResult:
     """Immutable outcome of one served request. ``status`` is ``"ok"``
     (hit max_new), ``"truncated"`` (retired at the max_seq bound) or
     ``"failed"`` (quarantined; ``error`` says why); ``token_times`` are
-    the host clock at each emitted token."""
+    the host clock at each emitted token, read by ``ttft`` and ``itl``."""
 
     rid: int
     tokens: Tuple[int, ...]
@@ -185,6 +214,17 @@ class RequestResult:
     @property
     def truncated(self) -> bool:
         return self.status == "truncated"
+
+    @property
+    def ttft(self) -> Optional[float]:
+        """Seconds from submit to the first token (None if none came)."""
+        return self.token_times[0] - self.submitted_at if self.token_times else None
+
+    @property
+    def itl(self) -> Tuple[float, ...]:
+        """Seconds between consecutive tokens (empty with < 2 tokens)."""
+        ts = self.token_times
+        return tuple(b - a for a, b in zip(ts, ts[1:]))
 
 
 @dataclasses.dataclass
@@ -231,6 +271,11 @@ class _Spill:
     payload: List[Dict[str, np.ndarray]]  # per pool: leaf -> host array
     nbytes: int  # host bytes held (spill budget accounting)
     crc: int = 0  # kvc.payload_checksum of the pristine payload
+    # the stream's RNG state at preemption: token i's key is
+    # fold_in(PRNGKey(seed), i), so (seed, tokens emitted) is all of it;
+    # _resume checks it against the request
+    rng_seed: int = 0
+    emitted: int = 0
 
 
 def _to_device(params, device):
@@ -270,7 +315,10 @@ class Server:
         self.resume_watermark = sched.resume_watermark
         self.steal_cooldown = sched.steal_cooldown
         self.spill_budget_bytes = sched.spill_budget_bytes
-        self.prefill_token_budget = sched.prefill_chunk_pages * page
+        budget = sched.prefill_token_budget
+        if budget is None:
+            budget = sched.prefill_chunk_pages * page
+        self.prefill_token_budget = max(page, budget // page * page)
         self.strict = config.strict
         self.audit_every = config.audit_every
         self.faults = faults
@@ -325,6 +373,12 @@ class Server:
         self._tick = 0
         self._alloc_faulted = False
         self._spill_bytes = 0
+        # per-row sampling arrays: one a slot, and the mixed step's chunk row
+        self._samp = smp.slot_arrays(self.slots)
+        self._samp_m = smp.slot_arrays(self.slots + 1)
+        # emissions for a streaming front-end, buffered only while it listens
+        self.collect_events = False
+        self._events: List[TokenEvent] = []
 
     @property
     def engine(self) -> str:
@@ -610,11 +664,15 @@ class Server:
             logits = torch.where(poison[:, None], torch.full_like(logits, math.nan), logits)
         return logits
 
-    @staticmethod
-    def _pick(logits: torch.Tensor):
-        """Each row's greedy token and whether all its logits are finite."""
-        return (greedy_tokens(logits).cpu().numpy(),
-                torch.isfinite(logits).all(-1).cpu().numpy())
+    def _pick(self, logits: torch.Tensor, samp: Optional[dict] = None):
+        """Each row's token and whether all its logits are finite. ``samp``
+        (``sampling.slot_arrays``, one entry a row): the rows' sampling
+        params; a step whose rows are all greedy takes the argmax alone."""
+        if samp is None or not (samp["temperature"] > 0).any():
+            nxt = smp.greedy_tokens(logits)
+        else:
+            nxt = smp.sample_tokens(logits, *smp.as_tuple(samp, logits.device))
+        return nxt.cpu().numpy(), torch.isfinite(logits).all(-1).cpu().numpy()
 
     def _prefill_slot(self, slot: int, req: Request):
         """Alternating engine: stream the context (the prompt, or an evicted
@@ -629,13 +687,17 @@ class Server:
             self._prefix.assert_unfrozen(self.slot_pages[slot][start // page:
                                                                kvc.pages_needed(n, page)],
                                          frozen_base=self._frozen_base)
+        # the final chunk's draw seeds a fresh stream, at its index len(out)
+        samp = smp.slot_arrays(1)
+        smp.fill_slot(samp, 0, req.sampling, len(req.out))
         nxt, ok = None, True
         while pos < n:
             take, padded, w, table = self._chunk_plan(slot, n, pos, self.prefill_token_budget)
             toks = [ctx[pos: pos + take] + [0] * (padded - take)]
             state = kvc.PagedState(self._tensor(table), self._tensor([pos]),
                                    chunk_len=self._tensor([take]))
-            nxt, row_ok = self._pick(self._run(toks, state))
+            last = fresh and pos + take == n
+            nxt, row_ok = self._pick(self._run(toks, state), samp if last else None)
             ok = ok and bool(row_ok[0])
             self.prefill_traces.add((padded, w))
             pos += take
@@ -723,7 +785,8 @@ class Server:
             payload = self.faults.spill_payload(req.rid, payload)
         req.since = self._step_no  # re-enters the wait line now
         self.preempted.append(_Spill(req=req, ctx_len=ctx_len, shared_pages=shared,
-                                     payload=payload, nbytes=nbytes, crc=crc))
+                                     payload=payload, nbytes=nbytes, crc=crc,
+                                     rng_seed=req.sampling.seed, emitted=len(req.out)))
         self._spill_bytes += nbytes
         req.preemptions += 1
         self.stats["preemptions"] += 1
@@ -768,6 +831,12 @@ class Server:
         for pool, part in zip(self.pools, spill.payload):
             kvc.restore_pages(pool, part, ids)
         self.lengths[slot] = spill.ctx_len
+        # the next draw's key is recomputed from the request; the spill's
+        # copy of the stream position must agree with it
+        assert spill.rng_seed == spill.req.sampling.seed
+        assert spill.emitted == len(spill.req.out), (
+            f"request {spill.req.rid}: spill recorded {spill.emitted} emitted tokens but the "
+            f"request holds {len(spill.req.out)}: the resumed RNG stream would diverge")
         self.stats["resumes"] += 1
 
     def _steal(self) -> bool:
@@ -853,8 +922,24 @@ class Server:
                     break
 
     def _emit_token(self, req: Request, token: int):
+        t = time.perf_counter()
         req.out.append(token)
-        req.token_times.append(time.perf_counter())
+        req.token_times.append(t)
+        if self.collect_events:
+            self._events.append(TokenEvent(rid=req.rid, token=token, index=len(req.out) - 1, t=t))
+
+    def _emit_finished(self, req: Request):
+        if self.collect_events:
+            self._events.append(TokenEvent(rid=req.rid, token=None, index=len(req.out),
+                                           t=time.perf_counter(), finished=True,
+                                           status=req.status))
+
+    def pop_events(self) -> List[TokenEvent]:
+        """Drain the buffered emissions (empty unless ``collect_events`` is
+        on): one event a token in emission order, and a terminal event for
+        every retirement (ok, truncated or failed)."""
+        ev, self._events = self._events, []
+        return ev
 
     def step(self) -> bool:
         """One engine step: admit what fits, grow (stealing where the pool
@@ -904,8 +989,14 @@ class Server:
         for s, req in enumerate(self.active):
             if req is not None and req.out:
                 tok[s, 0] = req.out[-1]
+            if req is not None:
+                # the draw's RNG index is the tokens emitted so far, read off
+                # the request each step: it survives steals and resumes
+                smp.fill_slot(self._samp, s, req.sampling, len(req.out))
+            else:
+                smp.clear_slot(self._samp, s)
         state = kvc.PagedState(self._tensor(self.page_table), self._tensor(self.lengths))
-        nxt, ok = self._pick(self._run(tok, state, pmask))
+        nxt, ok = self._pick(self._run(tok, state, pmask), self._samp)
         for s, req in enumerate(self.active):
             if req is not None:
                 self._finish_decode_row(s, req, ok[s], nxt[s], pmask)
@@ -942,16 +1033,23 @@ class Server:
         is_decoding = np.zeros(self.slots, bool)
         is_decoding[decoding] = True
         tok = np.zeros((1, self.slots + padded), np.int32)
-        for s in decoding:
-            tok[0, s] = self.active[s].out[-1]
+        for s in range(self.slots):
+            if is_decoding[s]:
+                tok[0, s] = self.active[s].out[-1]
+                smp.fill_slot(self._samp_m, s, self.active[s].sampling, len(self.active[s].out))
+            else:
+                smp.clear_slot(self._samp_m, s)
         tok[0, self.slots: self.slots + take] = ctx[pos: pos + take]
+        # the chunk row draws at index len(out): a fresh stream's final chunk
+        # emits it as the seed token; any other chunk's draw is discarded
+        smp.fill_slot(self._samp_m, self.slots, req.sampling, len(req.out))
         pre = kvc.PagedState(self._tensor(table), self._tensor([pos]),
                              chunk_len=self._tensor([take]))
         state = kvc.PagedState(self._tensor(self.page_table),
                                self._tensor(np.where(is_decoding, self.lengths, 0)),
                                prefill=pre)
         rows = None if pmask is None else np.concatenate([pmask, pmask[pf_slot:pf_slot + 1]])
-        nxt, ok = self._pick(self._run(tok, state, rows))
+        nxt, ok = self._pick(self._run(tok, state, rows), self._samp_m)
         self.prefill_traces.add((padded, w))
         self.lengths[pf_slot] = pos + take
         self.stats["prefill_tokens"] += take
@@ -976,6 +1074,7 @@ class Server:
         length before requantizing."""
         req.done = True
         self.finished.append(req)
+        self._emit_finished(req)
         self._release_slot(slot)
 
     # -- request-level failure isolation -----------------------------------------
@@ -1013,6 +1112,7 @@ class Server:
         req.done = True
         self.stats["failed"] += 1
         self.finished.append(req)
+        self._emit_finished(req)
 
     def _fail_pending(self, reason: str):
         """Non-strict starvation: fail every queued and spilled request one
@@ -1164,6 +1264,28 @@ class Server:
                 "frozen_free": len(self.free_frozen),
                 "slabs_owned": 0, "slabs_free": 0,  # no recurrent family yet (item 12)
                 "active": sum(r is not None for r in self.active), "violations": 0}
+
+    def utilization(self) -> float:
+        """Mean share of the slots that decoded a token per engine step."""
+        if not self.stats["steps"]:
+            return 0.0
+        return self.stats["slot_steps"] / (self.stats["steps"] * self.slots)
+
+    def engine_utilization(self) -> float:
+        """Decoded tokens per program, over the slot count: what the mixed
+        engine raises over the alternating one, whose prefill chunks run
+        programs that decode nothing."""
+        if not self.stats["programs"]:
+            return 0.0
+        return self.stats["decoded_tokens"] / (self.stats["programs"] * self.slots)
+
+    def kv_bytes_per_token(self) -> float:
+        """Active-pool bytes per token slot across the layer stack."""
+        return sum(kvc.pool_bytes_per_token(p) for p in self.pools)
+
+    def kv_bf16_bytes_per_token(self) -> float:
+        """What the same pools would cost per token holding bf16 values."""
+        return sum(kvc.bf16_bytes_per_token(p) for p in self.pools)
 
     @property
     def reusable_pages(self) -> List[int]:

@@ -2,6 +2,7 @@
 package, and its entry points never fall back to the CPU on their own."""
 import ast
 import dataclasses
+import re
 from pathlib import Path
 
 import pytest
@@ -46,11 +47,16 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
     ("encoder_layers", 2, "item 12"), ("temperature", 0.7, "item 9")])
 def test_unported_serving_options_raise(field, value, item):
     """What the port still refuses names its ROADMAP item: the enc-dec
-    family (queue 1, item 12; refused as its params are built) and sampled
-    decoding (item 9)."""
+    family (queue 1, item 12; refused as its params are built). Sampled
+    decoding (item 9) is ported: ``temperature > 0`` validates, and the
+    bounds checks still raise."""
     if field == "temperature":
-        with pytest.raises(NotImplementedError, match=item):
-            serve.SamplingParams(temperature=value).validate()
+        assert serve.SamplingParams(temperature=value).validate().temperature == value
+        for bad, match in ((dict(temperature=-value), "temperature"),
+                           (dict(temperature=value, top_p=0.0), "top_p"),
+                           (dict(temperature=value, top_k=-1), "top_k")):
+            with pytest.raises(ValueError, match=match):
+                serve.SamplingParams(**bad).validate()
         return
     cfg = dataclasses.replace(SMOKE, **{field: value})
     with pytest.raises(NotImplementedError, match=item):
@@ -58,6 +64,15 @@ def test_unported_serving_options_raise(field, value, item):
                            serve.ServerConfig(slots=1, max_seq=64, page_size=8), device="cpu")
         srv.submit(serve.Request(rid=0, prompt=[1, 2, 3], max_new=2))
         srv.run_until_drained()
+
+
+def test_no_refusal_names_sampling_or_frontend():
+    """Sampled decoding and the front-end are ported: no module of the port
+    names ROADMAP queue 1, item 9 or item 10."""
+    src = ROOT / "src" / "repro_torch"
+    named = [str(p.relative_to(src)) for p in sorted(src.rglob("*.py"))
+             if re.search(r"item\s+(9|10)\b", p.read_text())]
+    assert named == []
 
 
 def _batched_operands(e=4, n=64, k=256, m=3):

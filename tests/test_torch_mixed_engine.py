@@ -98,14 +98,17 @@ class StrictReference:
     are the reference's logits over the stream up to that token, so where
     the port's stream first differs, they tell a tie from a fault."""
 
-    def __init__(self, jsrv, jcfg, a_fmt):
+    def __init__(self, jsrv, jcfg, a_fmt, step_and_gap=_step_and_gap):
+        """``step_and_gap``: the step with its gap reading (the sampling
+        suite passes one that reads a sampled row's gap)."""
         self.gaps = {}
         self._last = None
-        step = jax.jit(functools.partial(_step_and_gap, cfg=jcfg, a_fmt=a_fmt))
+        step = jax.jit(functools.partial(step_and_gap, cfg=jcfg, a_fmt=a_fmt))
 
         def decode(params, pools, *args):
             leaves = jax.tree_util.tree_leaves((pools, args))
-            key = (jcfg, a_fmt, str(jax.tree_util.tree_structure((pools, args))),
+            key = (step_and_gap.__name__, jcfg, a_fmt,
+                   str(jax.tree_util.tree_structure((pools, args))),
                    tuple((jnp.shape(a), str(jnp.result_type(a))) for a in leaves))
             if key not in _COMPILED:
                 _COMPILED[key] = step.lower(params, pools, *args).compile(
@@ -374,7 +377,7 @@ def test_server_config_defaults_match_reference():
     assert t_cfg.scheduler.headroom_pages == j_cfg.scheduler.headroom_pages
     # the preemption, fault and audit knobs, and the request fields they read
     for name in ("policy", "low_watermark", "resume_watermark", "steal_cooldown",
-                 "spill_budget_bytes"):
+                 "spill_budget_bytes", "prefill_token_budget"):
         assert getattr(t_cfg.scheduler, name) == getattr(j_cfg.scheduler, name), name
     for name in ("pool_pages", "strict", "audit_every"):
         assert getattr(t_cfg, name) == getattr(j_cfg, name), name
@@ -384,6 +387,8 @@ def test_server_config_defaults_match_reference():
         assert getattr(t_req, name) == getattr(j_req, name), name
     assert set(f.name for f in dataclasses.fields(tserve.RequestResult)) <= \
         set(f.name for f in dataclasses.fields(jserve.RequestResult))
+    assert [f.name for f in dataclasses.fields(tserve.TokenEvent)] == \
+        [f.name for f in dataclasses.fields(jserve.TokenEvent)]
 
 
 def test_no_refusal_names_engine_robustness():
