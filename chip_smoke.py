@@ -54,10 +54,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               GQA attention), the live latent-pool check with an injected
               fault, and a profiled decode step;
 8. mla cpu -- MiniCPM3 at full width cut to 2 layers against the CPU plain
-              path, free-running, teacher-forced at each attention block
-              and at each batched-GEMM and latent-decode call, with two
-              injected faults (wk_b's LoRC dropped in the batched kernel,
-              the latent decode one token short);
+              path (2 requests: a prefill chunk and 1 decode step),
+              free-running, teacher-forced at each attention block and at
+              each batched-GEMM and latent-decode call, with two injected
+              faults (wk_b's LoRC dropped in the batched kernel, the latent
+              decode one token short);
 9. moe     -- OLMoE-1B-7B (64 experts top-8, 16 layers) at full width,
               random weights initialized and packed on the card, on phase
               6's server and traffic: every request ok, every route's
@@ -70,7 +71,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               free-running and teacher-forced at each MoE layer and each
               expert GEMM call, with the router's experts compared and two
               injected faults (wd's LoRC dropped, one expert of wu reading
-              its neighbour's weights);
+              its neighbour's weights), on phase 9's seed alone;
 11. kernel api -- the kernels no served path reaches, through the kernel
               API's entry points: the split W4A8 pipeline (ops.act_quant,
               the bf16 cast, ops.w4a8_matmul_split, LoRC by two bf16
@@ -124,7 +125,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               then the front-end: 4 concurrent ``AsyncServer.generate``
               streams (2 sampled), each equal to its ``RequestResult``, and
               one SSE request to ``serve_http`` on 127.0.0.1; the median
-              TTFT and ITL are printed, not gated. At most 60 s.
+              TTFT and ITL are printed, not gated. At most 60 s;
+14. ptq -- the paper's PTQ pipeline on opt-125m at full width, random
+              weights from a seed on the card: the calibration stream (4 x
+              8 x 2048 tokens, a quarter of the paper's), GPTQ over all 12
+              layers (FP4 E2M1, group 256, M2, LoRC 8, damp 0.01), timed in
+              total and per layer; each weight's Hessian-weighted error
+              tr(dW H dW^T) before LoRC against RTN's under the same M2
+              constraint on the same Hessian (every layer's sum at or below
+              RTN's, the model's below it); layer 0's wq and down again on
+              the CPU (M2 s_max bit-identical, shifts and codes equal on at
+              least 99.9 %); those two packed (``pack_linear(w, policy,
+              qt=qt)``) through row 1's kernel at M = 4 and 256, within
+              W4A8_TOL of its plain version and of the GPTQ dense result,
+              with a doubled group scale read 10x above it; perplexity of
+              W16, RTN and GPTQ W4A8 on 2 held-out batches, printed, not
+              gated. At most 60 s.
 
 Phase 3 also checks and times MiniCPM3's kernels (the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
@@ -140,6 +156,7 @@ every column.
 The last two lines are the card line and ``{"ok": true, "device": ...}``.
 The script imports nothing of jax and nothing of the JAX package.
 """
+import dataclasses
 import json
 import math
 import re
@@ -1200,8 +1217,6 @@ def _routes(torch, packed, family="dense"):
     attention one token short (the plain version; MLA: the MLA decode
     kernel); MoE has ``expert_swap`` instead: expert 0 of every ``wu``
     stack reads expert 1's weights (through the kernel)."""
-    import dataclasses
-
     from repro_torch.kernels import ops
     from repro_torch.models.layers import PackedLinear
     from repro_torch.models.params import tree_map
@@ -1257,10 +1272,9 @@ def _pools(cfg, n_pages, page, device):
                               "fp8_e4m3", device=device) for seg in segments_for(cfg)]
 
 
-def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_dec=4,
-             seed=SEED):
+def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_dec=4):
     """Two requests (one prefill chunk, then ``n_dec`` decode steps; prompts
-    from ``seed``) along every
+    from SEED + 1) along every
     route, each with a pool of its own, all fed the card's greedy tokens.
     With ``forced``, every site of every route takes the card's input to
     that site, so a difference cannot compound. ``site`` "block" forces and
@@ -1285,7 +1299,7 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
     from repro_torch.runtime import kv_cache as kvc
 
     page, pp = 64, 4
-    rng = np.random.default_rng(seed + 1)
+    rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in (100, 37)]
     pools = {name: _pools(cfg, 2 * pp, page, d) for name, (_, d, _) in routes.items()}
     table = np.arange(2 * pp, dtype=np.int32).reshape(2, pp)
@@ -1695,13 +1709,11 @@ def phase_prefix(torch, cfg, packed, card):
     return launches, live, {r.rid: list(r.tokens) for r in results}
 
 
-def _random_packed(torch, name, n_layers=None, seed=SEED):
+def _random_packed(torch, name, n_layers=None):
     """A config of the port at its published widths (``n_layers`` cuts the
-    depth), random weights from ``seed``, initialized on the card and
+    depth), random weights from SEED, initialized on the card and
     packed there by the port's ``pack_params``. Returns (cfg, packed,
     seconds)."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.core.ptq import pack_params
@@ -1713,7 +1725,7 @@ def _random_packed(torch, name, n_layers=None, seed=SEED):
     policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256, scale_mode="m2",
                          lorc_rank=8)
     t0 = time.perf_counter()
-    packed = pack_params(api.init_params(cfg, seed=seed), cfg, policy)
+    packed = pack_params(api.init_params(cfg, seed=SEED), cfg, policy)
     torch.cuda.synchronize()
     return cfg, packed, time.perf_counter() - t0
 
@@ -1819,13 +1831,16 @@ def phase_mla_cpu(torch):
       must read at most MLA_WVB_RTOL."""
     cfg, packed, _ = _random_packed(torch, "minicpm3-4b", n_layers=2)
     routes = _routes(torch, packed, "mla")
-    free, agree = _compare(torch, cfg, routes, forced=False, logit_rtol=MLA_LOGIT_RTOL)
-    forced, _ = _compare(torch, cfg, routes, forced=True, site="mixer",
-                         logit_rtol=MLA_LOGIT_RTOL)
-    op, _ = _compare(torch, cfg, routes, forced=True, site="ops", logit_rtol=MLA_LOGIT_RTOL)
+    # 1 decode step, not 4 (since phase 14 came): each pass runs 3 programs
+    # a route instead of 6, and every decode-only site (wk_b, wv_b, the
+    # latent attention) still runs on both requests
+    kw = dict(logit_rtol=MLA_LOGIT_RTOL, n_dec=1)
+    free, agree = _compare(torch, cfg, routes, forced=False, **kw)
+    forced, _ = _compare(torch, cfg, routes, forced=True, site="mixer", **kw)
+    op, _ = _compare(torch, cfg, routes, forced=True, site="ops", **kw)
     show = lambda rd, key: ", ".join(f"{n} {rd[n][key]:.4g}" for n in routes if n != "cpu")
-    log(f"[8 mla cpu] MiniCPM3 at full width, 2 layers: 2 requests (1 prefill chunk + 4 "
-        f"decode steps) against the CPU plain path")
+    log(f"[8 mla cpu] MiniCPM3 at full width, 2 layers: 2 requests (1 prefill chunk + 1 "
+        f"decode step) against the CPU plain path")
     log(f"    free-running, largest |logit err| / largest |logit| (tolerance {MLA_LOGIT_RTOL}): "
         f"{show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, all {agree[1]} "
         f"decisive ones")
@@ -1937,20 +1952,18 @@ def phase_moe_cpu(torch, cfg, packed):
     plain path (see phase_cpu): the kernels, the plain versions on the
     card, the CPU, and two faults through the kernels -- ``no_lorc`` drops
     wd's LoRC correction, ``expert_swap`` makes expert 0 of wu read expert
-    1's weights. Two seeds: phase 9's weights (its first 2 layers) with
-    prompts from SEED, and 2 layers packed anew from SEED + 1 with prompts
-    from it. Each is read teacher-forced at each MoE layer and each expert
-    GEMM call, fed the card's operands: every wu, wg and wd call of the
-    sound routes within MOE_OP_RTOL of the CPU's output, ``no_lorc`` above
-    it on wd and ``expert_swap`` on wu (the MoE layer's reading shows what
-    its last call and the combine add; the forcing hides wu's fault
-    there); the router, fed the card's hidden states, picks the CPU's
-    experts for every token but where the CPU's gap between its 8th and
-    9th probability is below MOE_TIE. The first seed is also read
-    free-running, a gross check of the whole path: the sound routes within
-    MOE_LOGIT_RTOL, which no fault has to exceed."""
-    import dataclasses
-
+    1's weights. Phase 9's weights (its first 2 layers), prompts from SEED,
+    read teacher-forced at each MoE layer and each expert GEMM call, fed
+    the card's operands: every wu, wg and wd call of the sound routes
+    within MOE_OP_RTOL of the CPU's output, ``no_lorc`` above it on wd and
+    ``expert_swap`` on wu (the MoE layer's reading shows what its last call
+    and the combine add; the forcing hides wu's fault there); the router,
+    fed the card's hidden states, picks the CPU's experts for every token
+    but where the CPU's gap between its 8th and 9th probability is below
+    MOE_TIE. Also read free-running, a gross check of the whole path: the
+    sound routes within MOE_LOGIT_RTOL, which no fault has to exceed. (A
+    second seed, 2 layers packed anew from SEED + 1, was read the same way
+    until phase 14 took its time.)"""
     from repro_torch.models.layers import PackedLinear
     from repro_torch.models.params import tree_map
 
@@ -1966,7 +1979,7 @@ def phase_moe_cpu(torch, cfg, packed):
     show = lambda rd, key, f=".4g": ", ".join(f"{n} {rd[n][key]:{f}}" for n in routes if n != "cpu")
     free, agree = _compare(torch, cfg, routes, forced=False, **kw)
     log(f"[10 moe cpu] OLMoE at full width, 2 layers: 2 requests (1 prefill chunk + 1 decode "
-        f"step) against the CPU plain path, on two seeds")
+        f"step) against the CPU plain path")
     log(f"    free-running (seed {SEED}), largest |logit err| / largest |logit| (gross bound "
         f"{MOE_LOGIT_RTOL}): {show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, "
         f"all {agree[1]} decisive ones")
@@ -1974,35 +1987,27 @@ def phase_moe_cpu(torch, cfg, packed):
         if free[name]["logits"] > MOE_LOGIT_RTOL:
             fail(f"free-running logits of route {name} differ from the CPU plain path by "
                  f"{free[name]['logits']:.4g} of the largest |logit| > {MOE_LOGIT_RTOL}")
-    ops = {}
-    for seed in (SEED, SEED + 1):
-        if seed != SEED:
-            _, packed, _ = _random_packed(torch, "olmoe-1b-7b", n_layers=n, seed=seed)
-            routes = _routes(torch, packed, "moe")
-        op, _ = _compare(torch, cfg, routes, forced=True, site="moe_ops", seed=seed, **kw)
-        ops[seed] = op
+    op, _ = _compare(torch, cfg, routes, forced=True, site="moe_ops", **kw)
+    for key in ("wu", "wg", "wd"):
+        log(f"    teacher-forced expert GEMM calls (row 1d), {key}, largest |output err| / "
+            f"|output| (bound {MOE_OP_RTOL}): {show(op, key)}")
+    log(f"    teacher-forced MoE layers, largest |output err| / |output|: {show(op, 'moe')}")
+    log(f"    router, fed the card's hidden states: tokens whose experts differ from the CPU's "
+        f"{show(op, 'router_flips', 'd')} of {op['card']['router_tokens']} per route; largest "
+        f"CPU probability gap among them {show(op, 'router_gap', '.3g')} (tie below {MOE_TIE})")
+    for name in ("card", "card_plain"):
         for key in ("wu", "wg", "wd"):
-            log(f"    seed {seed}: teacher-forced expert GEMM calls (row 1d), {key}, largest |output "
-                f"err| / |output| (bound {MOE_OP_RTOL}): {show(op, key)}")
-        log(f"    seed {seed}: teacher-forced MoE layers, largest |output err| / |output|: "
-            f"{show(op, 'moe')}")
-        log(f"    seed {seed}: router, fed the card's hidden states: tokens whose experts differ "
-            f"from the CPU's {show(op, 'router_flips', 'd')} of {op['card']['router_tokens']} per "
-            f"route; largest CPU probability gap among them {show(op, 'router_gap', '.3g')} (tie "
-            f"below {MOE_TIE})")
-        for name in ("card", "card_plain"):
-            for key in ("wu", "wg", "wd"):
-                if op[name][key] > MOE_OP_RTOL:
-                    fail(f"seed {seed}: the {key} calls of route {name} differ from the CPU plain "
-                         f"path by {op[name][key]:.4g} of their output > {MOE_OP_RTOL}")
-            if op[name]["router_gap"] >= MOE_TIE:
-                fail(f"seed {seed}: route {name} picks other experts than the CPU where the CPU's "
-                     f"probability gap is {op[name]['router_gap']:.3g} >= {MOE_TIE}")
-        for name, key in (("no_lorc", "wd"), ("expert_swap", "wu")):
-            if op[name][key] <= MOE_OP_RTOL:
-                fail(f"seed {seed}: injected fault {name} reads {op[name][key]:.4g} <= "
-                     f"{MOE_OP_RTOL} on {key}: the comparison cannot tell it from a sound card path")
-    return free, ops
+            if op[name][key] > MOE_OP_RTOL:
+                fail(f"the {key} calls of route {name} differ from the CPU plain path by "
+                     f"{op[name][key]:.4g} of their output > {MOE_OP_RTOL}")
+        if op[name]["router_gap"] >= MOE_TIE:
+            fail(f"route {name} picks other experts than the CPU where the CPU's probability gap "
+                 f"is {op[name]['router_gap']:.3g} >= {MOE_TIE}")
+    for name, key in (("no_lorc", "wd"), ("expert_swap", "wu")):
+        if op[name][key] <= MOE_OP_RTOL:
+            fail(f"injected fault {name} reads {op[name][key]:.4g} <= {MOE_OP_RTOL} on {key}: "
+                 f"the comparison cannot tell it from a sound card path")
+    return free, op
 
 
 # -- phase 11: the kernel API ------------------------------------------------------
@@ -3108,6 +3113,221 @@ def phase_sampling(torch, cfg, packed, card, greedy_streams):
         f"ms over {len(itl)} gaps, on {card} ({t_front:.1f} s)")
 
 
+# -- phase 14: post-training quantization (GPTQ) -------------------------------------
+PTQ_BUDGET_S = 60
+# 4 batches of 8 x 2048 tokens: 65,536, a quarter of the paper's calibration
+# set (128 x 2048, QuantPolicy.calib_tokens), cut to fit the time limit
+PTQ_CALIB = dict(n_batches=4, batch=8, seq=2048)
+PTQ_EVAL_SEED = 1777  # the held-out batches' seed (not the calibration's)
+PTQ_AGREEMENT = 0.999  # card against CPU: shifts of groups, codes of elements
+PTQ_FAULT = 10.0  # the injected fault must read this many tolerances
+
+
+def _ptq_policy():
+    """The paper's headline W4A8 scheme (PRESETS["deploy_w4a8"] with its
+    damp spelled out): FP4 E2M1 weights by GPTQ, group 256, M2, LoRC 8,
+    FP8 E4M3 activations."""
+    from repro_torch.core.policy import QuantPolicy
+
+    return QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256, scale_mode="m2",
+                       lorc_rank=8, method="gptq", damp=0.01)
+
+
+def _hessian_err(w, w_hat, h):
+    """tr(dW H dW^T), the layer-output error GPTQ minimizes, in f64."""
+    dw = w.double() - w_hat.double()
+    return float(((dw @ h.double()) * dw).sum())
+
+
+def _excess(y, want):
+    """The largest |y - want| over W4A8_TOL * (1 + |want|): at most 1 where
+    ``allclose(rtol=atol=W4A8_TOL)`` holds."""
+    y, want = y.float(), want.float()
+    return float(((y - want).abs() / (W4A8_TOL * (1 + want.abs()))).max())
+
+
+def _rtn_dense(params, policy):
+    """``params`` with every Fig.-1 weight round-to-nearest under
+    ``policy`` (its M2 scales and LoRC), dense in its own dtype."""
+    from repro_torch.core.ptq import _FIG1_WEIGHTS, _leaf, quantize_one
+    from repro_torch.models.params import tree_map
+
+    rtn = dataclasses.replace(policy, method="rtn")
+    stack = tree_map(lambda a: a.clone(), params["segments"][0])
+    for keys, _ in _FIG1_WEIGHTS:
+        leaf = _leaf(stack, keys)
+        for li in range(leaf.shape[0]):
+            leaf[li] = quantize_one(leaf[li], None, rtn)[0]
+    return {**params, "segments": [stack]}
+
+
+def _perplexity(params, cfg, batches):
+    """exp of the mean nll over ``batches``: forward_hidden at FP8 E4M3
+    activations, then chunked_xent against the tied head."""
+    from repro_torch.models import api
+    from repro_torch.models.losses import chunked_xent
+
+    nll = []
+    for b in batches:
+        hidden = api.forward_hidden(params, cfg, b, a_fmt="fp8_e4m3")[0]
+        nll.append(float(chunked_xent(hidden, api._head_w(params, cfg),
+                                      b["labels"].to(hidden.device))[0]))
+    return math.exp(sum(nll) / len(nll))
+
+
+def _ptq_card_vs_cpu(torch, w, hessian, qt, policy, what):
+    """One weight's GPTQ again on the CPU from the card's float weight and
+    Hessian: M2's s_max bit-identical, shifts and codes equal on at least
+    PTQ_AGREEMENT of the groups and elements (cuSOLVER's factor against
+    LAPACK's). Returns (shift rate, code rate)."""
+    from repro_torch.core.gptq import HessianState
+    from repro_torch.core.ptq import quantize_one
+    from repro_torch.core.scales import constrain_scales_m2
+
+    _, qc = quantize_one(w.cpu(), HessianState(hessian.h.cpu(), hessian.n.cpu()), policy)
+    m2, m2c = constrain_scales_m2(qt.scale.cpu()), constrain_scales_m2(qc.scale)
+    if not torch.equal(m2.s_max, m2c.s_max):
+        fail(f"{what}: M2 s_max differs card against CPU in "
+             f"{int((m2.s_max != m2c.s_max).sum())} rows")
+    shifts = float((m2.shifts == m2c.shifts).float().mean())
+    codes = float((qt.values.cpu() == qc.values).float().mean())
+    if shifts < PTQ_AGREEMENT or codes < PTQ_AGREEMENT:
+        fail(f"{what}: card against CPU, shifts equal on {shifts:.6f} of groups, codes on "
+             f"{codes:.6f} of elements < {PTQ_AGREEMENT}")
+    return shifts, codes
+
+
+def _ptq_packed_check(torch, w, qt, w_hat, policy, gen, what):
+    """A GPTQ result packed (``pack_linear(w, policy, qt=qt)``) through row
+    1's kernel at M = 4 and 256: within W4A8_TOL of its plain version and of
+    the GPTQ dense result (FP8 activations times the pipeline's weight, LoRC
+    included); the group contributing most to the output, its packed scale
+    doubled (a shift one less), must read PTQ_FAULT tolerances or more.
+    Returns {M: (kernel vs plain, vs dense, fault vs dense)} in tolerances."""
+    from repro_torch.core.ptq import pack_linear
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import quant_act
+
+    p = pack_linear(w, policy, qt=qt)
+    out = {}
+    for m in (4, 256):
+        x = torch.randn((m, w.shape[1]), generator=gen, device=DEV).to(torch.bfloat16)
+        xq = quant_act(x, policy.a_fmt).float()
+        y_k = ops.w4a8_matmul(x, p)
+        y_p = ref.w4a8_matmul_ref(x, p.codes, p.scale, p.lorc_a, p.lorc_b, w_fmt=p.w_fmt,
+                                  a_fmt=p.a_fmt, group_size=p.group_size)
+        y_d = xq @ w_hat.float().t()
+        g = p.group_size
+        contrib = torch.einsum("mgk,ngk->mng", xq.reshape(m, -1, g),
+                               qt.dequantize().reshape(w.shape[0], -1, g)).abs().amax(0)
+        contrib = torch.where(p.shifts >= 1, contrib, torch.zeros_like(contrib))
+        n, grp = divmod(int(contrib.argmax()), contrib.shape[1])
+        scale, shifts = p.scale.clone(), p.shifts.clone()
+        scale[n, grp] *= 2
+        shifts[n, grp] -= 1
+        y_f = ops.w4a8_matmul(x, dataclasses.replace(p, scale=scale, shifts=shifts))
+        out[m] = (_excess(y_k, y_p), _excess(y_k, y_d), _excess(y_f, y_d))
+        if out[m][0] > 1 or out[m][1] > 1:
+            fail(f"{what} M={m}: row 1's kernel on the packed GPTQ weight reads "
+                 f"{out[m][0]:.3g} / {out[m][1]:.3g} tolerances against its plain version / the "
+                 f"GPTQ dense result (W4A8_TOL {W4A8_TOL})")
+        if out[m][2] < PTQ_FAULT:
+            fail(f"{what} M={m}: the doubled group scale reads {out[m][2]:.3g} < {PTQ_FAULT} "
+                 f"tolerances: the comparison cannot tell it from the sound packing")
+    return out
+
+
+def phase_ptq(torch, card, cfg=None, calib=PTQ_CALIB):
+    """The paper's PTQ pipeline on opt-125m at full width (random weights
+    from SEED on the card): the calibration stream, GPTQ over every layer
+    (captures through the quantized prefix, error-fed FP4 rounding under M2
+    scales, LoRC), each weight's Hessian-weighted error against RTN's on the
+    same Hessian, layer 0's wq and down again on the CPU, those two packed
+    through row 1's kernel, and perplexity of W16 / RTN / GPTQ (printed)."""
+    from repro_torch.core.ptq import _rtn, gptq_quantize_lm
+    from repro_torch.data.pipeline import calibration_stream
+    from repro_torch.models import api
+
+    if cfg is None:
+        from repro_torch.configs.opt_125m import CONFIG as cfg
+    policy = _ptq_policy()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=SEED, device=DEV)
+    batches = calibration_stream(cfg, **calib)
+    held_out = calibration_stream(cfg, 2, calib["batch"], calib["seq"], seed=PTQ_EVAL_SEED)
+    t_data = time.perf_counter() - t0
+    seen, stamps = [], {}
+
+    def observe(layer, name, w, hessian, qt):
+        torch.cuda.synchronize()
+        stamps[layer] = time.perf_counter()
+        seen.append((layer, name, w, hessian, qt))
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    quantized = gptq_quantize_lm(params, cfg, batches, policy, observe=observe)
+    torch.cuda.synchronize()
+    t_gptq = time.perf_counter() - start
+    per_layer = [stamps[li] - (stamps[li - 1] if li else start) for li in range(cfg.n_layers)]
+    n_tok = sum(b["tokens"].numel() for b in batches)
+    log(f"[14 ptq] opt-125m at full width ({cfg.n_layers} layers, {len(seen)} weights), random "
+        f"weights from seed {SEED}; calibration_stream {calib['n_batches']} x {calib['batch']} x "
+        f"{calib['seq']} = {n_tok} tokens; GPTQ fp4_e2m1, group {policy.group_size}, M2, LoRC "
+        f"{policy.lorc_rank}, damp {policy.damp}")
+    log(f"    GPTQ over the model {t_gptq:.2f} s on {card}: per layer (captures, 6 weights, "
+        f"propagation) " + ", ".join(f"{s:.2f}" for s in per_layer) + " s; data "
+        f"{t_data:.2f} s (numpy)")
+
+    # b. the Hessian-weighted error tr(dW H dW^T), GPTQ (before LoRC) against RTN
+    rows, keep = [], {}
+    for layer, name, w, hessian, qt in seen:
+        e_g = _hessian_err(w.float(), qt.dequantize(), hessian.h)
+        e_r = _hessian_err(w.float(), _rtn(w.float(), policy, qt.group_size).dequantize(),
+                           hessian.h)
+        rows.append((layer, name, e_g, e_r))
+        if layer == 0 and name in ("mixer/attn/wq", "ffn/mlp/down"):
+            keep[name] = (w, hessian, qt)
+    for layer in range(cfg.n_layers):
+        mine = [r for r in rows if r[0] == layer]
+        g, r = sum(x[2] for x in mine), sum(x[3] for x in mine)
+        log(f"    layer {layer:2d}: tr(dW H dW^T) GPTQ / RTN " + ", ".join(
+            f"{n.split('/')[-1]} {e_g:.4g}/{e_r:.4g}" for _, n, e_g, e_r in mine)
+            + f"; sum {g:.4g} / {r:.4g} ({g / r:.3f})")
+        if not g <= r:
+            fail(f"layer {layer}: GPTQ's Hessian-weighted error {g:.6g} > RTN's {r:.6g}")
+    g, r = sum(x[2] for x in rows), sum(x[3] for x in rows)
+    log(f"    model: GPTQ {g:.6g} / RTN {r:.6g} = {g / r:.4f}")
+    if not g < r:
+        fail(f"GPTQ's Hessian-weighted error over the model {g:.6g} is not below RTN's {r:.6g}")
+
+    # c. card against CPU; d. the packed form through row 1's kernel
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 14)
+    stack = quantized["segments"][0]
+    dense = {"mixer/attn/wq": stack["mixer"]["attn"]["wq"][0],
+             "ffn/mlp/down": stack["ffn"]["mlp"]["down"][0]}
+    for name, (w, hessian, qt) in keep.items():
+        what = f"layer 0 {name} ({w.shape[0]} x {w.shape[1]})"
+        shifts, codes = _ptq_card_vs_cpu(torch, w, hessian, qt, policy, what)
+        checks = _ptq_packed_check(torch, w, qt, dense[name], policy, gen, what)
+        log(f"    {what}: card against CPU s_max bit-identical, shifts equal on {shifts:.6f} "
+            f"of groups, codes on {codes:.6f} of elements; packed through row 1's kernel, in "
+            f"tolerances (W4A8_TOL {W4A8_TOL}) vs plain / vs GPTQ dense / doubled-scale fault "
+            "vs dense: " + "; ".join(f"M={m} {a:.3g} / {b:.3g} / {c:.3g}"
+                                     for m, (a, b, c) in checks.items()))
+    del seen, keep
+
+    # e. perplexity on held-out batches, printed (random weights: not gated)
+    t_ppl = time.perf_counter()
+    ppl = {"W16": _perplexity(params, cfg, held_out),
+           "RTN W4A8": _perplexity(_rtn_dense(params, policy), cfg, held_out),
+           "GPTQ W4A8": _perplexity(quantized, cfg, held_out)}
+    log(f"    perplexity, 2 held-out batches (seed {PTQ_EVAL_SEED}), FP8 E4M3 activations: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ppl.items())
+        + f" ({time.perf_counter() - t_ppl:.1f} s; random weights, printed, not gated)")
+    return t_gptq, per_layer, g / r, ppl
+
+
 def step_sum(rows, n_layers, key):
     """One decode step's sum of a kernel's per-launch rows."""
     if key == "bound_ms":  # the bound of the whole step's bytes and operations
@@ -3218,6 +3438,11 @@ def main():
     if time.perf_counter() - t13 > SAMPLING_BUDGET_S:
         fail(f"phase 13 took {time.perf_counter() - t13:.1f} s > {SAMPLING_BUDGET_S} s")
     del packed
+    t14 = time.perf_counter()
+    phase_ptq(torch, card)
+    lap(14)
+    if time.perf_counter() - t14 > PTQ_BUDGET_S:
+        fail(f"phase 14 took {time.perf_counter() - t14:.1f} s > {PTQ_BUDGET_S} s")
 
     for r in gemm.values():
         r["kind"] = "bf16"

@@ -1,5 +1,6 @@
-"""Model API (port of ``repro.models.api``): build, init, and the paged
-serving step for the dense decoder family."""
+"""Model API (port of ``repro.models.api``): build, init, the paged
+serving step, and the cache-free forward to final hidden states (dense
+family: calibration and perplexity)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,7 +13,7 @@ from repro_torch.runtime.kv_cache import PagedState
 from . import transformer as _tf
 from .params import init_tree
 
-__all__ = ["build_def", "init_params", "decode_step"]
+__all__ = ["build_def", "init_params", "decode_step", "forward_hidden"]
 
 
 def build_def(cfg):
@@ -45,3 +46,22 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
     else:
         h_last = hidden[:, -1]
     return _tf.lm_logits(params, cfg, h_last)
+
+
+def _head_w(params, cfg) -> torch.Tensor:
+    return params["embed"] if (cfg.tie_embeddings or "lm_head" not in params) else params["lm_head"]
+
+
+@torch.no_grad()
+def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None):
+    """The whole forward to final hidden states, no cache: ``batch["tokens"]``
+    (B, S) at positions 0..S-1, moved to the params' device. Returns
+    ``(hidden (B, S, d), None, aux)`` as the reference does; ``aux`` (the
+    MoE balance loss) is 0 for the dense family, the only one ported here
+    (MLA and MoE blocks raise, naming ROADMAP queue 1, item 13)."""
+    if batch.get("patches") is not None or batch.get("frames_prefix") is not None:
+        raise NotImplementedError("vision / audio prefixes are not ported yet "
+                                  "(ROADMAP queue 1, item 12)")
+    dev = params["embed"].device
+    hidden = _tf.lm_forward(params, cfg, batch["tokens"].to(dev), a_fmt=a_fmt)
+    return hidden, None, torch.zeros((), dtype=torch.float32, device=dev)

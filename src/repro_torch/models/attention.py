@@ -1,9 +1,11 @@
-"""GQA attention over the paged KV pool (port of the paged branches of
-``repro.models.attention``): the decode step (one token per row, appended
-then read through ``ops.paged_decode_attn``), the streaming-prefill chunk
-(batch 1: written to its pages, attending gathered history pages plus its
-own exact K/V), and the mixed engine's fused row of both. The training /
-contiguous-cache modes and cross-attention come with later slices."""
+"""GQA attention (port of ``repro.models.attention``): over the paged KV
+pool, the decode step (one token per row, appended then read through
+``ops.paged_decode_attn``), the streaming-prefill chunk (batch 1: written
+to its pages, attending gathered history pages plus its own exact K/V) and
+the mixed engine's fused row of both; without a cache, the forward over a
+whole sequence (full softmax rows, query-chunked above ``attn_chunk``),
+which calibration and perplexity run. The contiguous-cache modes and
+cross-attention come with later slices (ROADMAP queue 1, items 12-13)."""
 from __future__ import annotations
 
 import math
@@ -18,7 +20,7 @@ from repro_torch.runtime.kv_cache import (PagedState, append_paged,
 
 from .layers import ParamDef, apply_rope, linear, quant_act
 
-__all__ = ["attn_params", "attention"]
+__all__ = ["attn_params", "attention", "block_mask"]
 
 _NEG_INF = -1e30
 
@@ -39,6 +41,20 @@ def attn_params(cfg):
     return p
 
 
+def block_mask(sq: int, sk: int, q_start: int, k_start: int, causal: bool, window: int,
+               device=None) -> torch.Tensor:
+    """(sq, sk) additive f32 mask of a block of queries from ``q_start``
+    against keys from ``k_start``: causal and / or a sliding window."""
+    qi = q_start + torch.arange(sq, device=device)[:, None]
+    ki = k_start + torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= ki <= qi
+    if window:
+        ok &= ki > qi - window
+    return torch.where(ok, 0.0, _NEG_INF).to(torch.float32)
+
+
 def _repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
     """(B, T, KV, hd) -> (B, T, KV*g, hd) by head repetition."""
     return k if g == 1 else torch.repeat_interleave(k, g, dim=2)
@@ -52,6 +68,24 @@ def _sdpa_full(q, k, v, mask):
     s = torch.einsum("bqhd,bthd->bhqt", q.float(), k.float()) * scale + mask
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqt,bthd->bqhd", p.float(), v.float()).to(v.dtype)
+
+
+def _sdpa_chunked(q, k, v, causal: bool, window: int, q_chunk: int):
+    """Query-chunked attention: each block of ``q_chunk`` queries takes a
+    full softmax row against the whole K/V (one level of looping, as the
+    reference's scan). q: (B, S, H, hd) at positions 0..S-1; k/v: (B, T,
+    H, hd/dv) from position 0. Returns (B, S, H, dv) in v's dtype."""
+    s, t = q.shape[1], k.shape[1]
+    scale = f32(1.0 / float(q.shape[-1]) ** 0.5)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for q0 in range(0, s, q_chunk):
+        qb = q[:, q0:q0 + q_chunk]
+        sblk = torch.einsum("bqhd,bthd->bhqt", qb.float(), kf) * scale
+        msk = block_mask(qb.shape[1], t, q0, 0, causal, window, device=q.device)
+        p = torch.softmax(sblk + msk, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhqt,bthd->bqhd", p.float(), vf).to(v.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def _paged_chunk_attn(q, k, v, pool_layer, state: PagedState, g: int, window: int):
@@ -76,13 +110,15 @@ def _paged_chunk_attn(q, k, v, pool_layer, state: PagedState, g: int, window: in
     return _sdpa_full(q, _repeat_kv(kc, g), _repeat_kv(vc, g), mask)
 
 
-def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache, state: PagedState,
-              a_fmt: Optional[str] = None):
+def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=None,
+              state: Optional[PagedState] = None, a_fmt: Optional[str] = None):
     """Returns (out, kv_cache). ``kv_cache`` is one layer's pool slice,
     written in place; ``positions`` (B, S) are the rows' token positions
     (rope). A state with ``prefill`` is a mixed step (x is the fused (1,
     slots + S) row); one with ``chunk_len`` a prefill chunk (even a 1-token
-    one); otherwise x is one decode token per row."""
+    one); otherwise x is one decode token per row. Without a state (and
+    cache) x is a whole sequence at ``positions`` = 0..S-1, attending
+    within itself."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = h // kv
     b, s, _ = x.shape
@@ -94,7 +130,14 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache, state:
     v = linear(p["wv"], xq, p.get("bv")).reshape(b, s, kv, hd)
     if cfg.pos_embedding == "rope":
         k = apply_rope(k, positions, cfg.rope_theta)
-    if state.prefill is not None:
+    if state is None:
+        kf, vf = _repeat_kv(k, g), _repeat_kv(v, g)
+        if s > cfg.attn_chunk:
+            o = _sdpa_chunked(q, kf, vf, cfg.causal, cfg.window, cfg.attn_chunk)
+        else:
+            o = _sdpa_full(q, kf, vf, block_mask(s, s, 0, 0, cfg.causal, cfg.window,
+                                                 device=x.device))
+    elif state.prefill is not None:
         # the mixed engine's fused batch-1 row: one decode token per slot,
         # then one request's bucketed prefill chunk. The decode lanes append
         # first, then the chunk, both in place on this pool; mid-prefill

@@ -4,9 +4,11 @@ an MoE layer (with DeepSeek-style leading dense layers).
 
 Parameters stack per segment with a leading ``(L, ...)`` dim as in the
 reference; a Python loop over the layers takes the place of ``lax.scan``.
-The recurrent and enc-dec families, the vision/audio front-ends and
-multi-token prediction come with later slices (ROADMAP queue 1, item
-12)."""
+Blocks run over the paged pool (serving) or, for GQA / MLP blocks, with no
+cache over whole sequences (calibration, perplexity). The recurrent and
+enc-dec families, the vision/audio front-ends and multi-token prediction
+come with later slices (ROADMAP queue 1, item 12), the cache-free MLA and
+MoE blocks with training (item 13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -90,11 +92,21 @@ def layer_view(stack, i: int):
                     is_leaf=lambda x: isinstance(x, PackedLinear))
 
 
-def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer, state: PagedState,
-                a_fmt=None):
+def _require_cache_free(cfg, seg: SegmentSpec) -> None:
+    if seg.mixer != "gqa" or seg.ffn != "mlp":
+        raise NotImplementedError(
+            f"{cfg.name}: the cache-free forward of {seg.mixer} / {seg.ffn} blocks is not "
+            "ported yet (ROADMAP queue 1, item 13)")
+
+
+def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
+                state: Optional[PagedState] = None, a_fmt=None):
     """One pre-norm block: x + mixer(ln(x)), then x + ffn(ln(x)); the mixer
     is GQA attention or MLA by ``seg.mixer``, the ffn an MLP or an MoE layer
-    by ``seg.ffn``."""
+    by ``seg.ffn``. Without ``state`` (GQA / MLP blocks only) x is a whole
+    sequence at ``positions`` 0..S-1 and no cache is read or written."""
+    if state is None:
+        _require_cache_free(cfg, seg)
     nk = cfg.norm_kind
     pm, pf = p["mixer"], p["ffn"]
     hn = norm(pm["ln"], x, nk, cfg.norm_eps)
@@ -117,15 +129,31 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer, state: Page
     return x + h
 
 
-def lm_forward(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
-               a_fmt: Optional[str] = None):
+def _embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def lm_forward(params, cfg, tokens: torch.Tensor, caches=None,
+               state: Optional[PagedState] = None, a_fmt: Optional[str] = None):
     """tokens (B, S) at per-row positions ``state.lengths[:, None] + j``
     (for a mixed step, the fused (1, slots + S) row of decode tokens and
-    one prefill chunk). ``caches``: one pool dict per segment, written in place. Returns the
-    final-norm hidden states (B, S, d)."""
-    x = params["embed"][tokens.long()]
+    one prefill chunk). ``caches``: one pool dict per segment, written in
+    place. Without ``state`` (and caches) the tokens are whole sequences at
+    positions 0..S-1 (the dense family only). Returns the final-norm
+    hidden states (B, S, d)."""
+    x = _embed_tokens(params, tokens)
     s = tokens.shape[1]
     steps = torch.arange(s, device=tokens.device)
+    if state is None:
+        segs = segments_for(cfg)
+        for seg in segs:
+            _require_cache_free(cfg, seg)
+        if cfg.pos_embedding == "learned":
+            x = x + params["pos_embed"][:s][None].to(x.dtype)
+        for seg, seg_params in zip(segs, params["segments"]):
+            for i in range(seg.count):
+                x = block_apply(layer_view(seg_params, i), x, cfg, seg, steps, a_fmt=a_fmt)
+        return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)
     if state.prefill is not None:
         # the mixed step's fused row: each decode token at its slot's true
         # length, chunk token j at the chunk start + j

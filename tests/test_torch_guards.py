@@ -75,6 +75,15 @@ def test_no_refusal_names_sampling_or_frontend():
     assert named == []
 
 
+def test_no_refusal_names_gptq():
+    """GPTQ and the pieces it runs on (ROADMAP queue 1, item 11) are ported:
+    no module of the port says GPTQ is not ported or names item 11."""
+    src = ROOT / "src" / "repro_torch"
+    named = [str(p.relative_to(src)) for p in sorted(src.rglob("*.py"))
+             if re.search(r"item\s+11\b|GPTQ[^\n.]*not ported", p.read_text())]
+    assert named == []
+
+
 def _batched_operands(e=4, n=64, k=256, m=3):
     codes = torch.zeros((e, n, k // 2), dtype=torch.uint8)
     scale = torch.ones((e, n, k // 256))
