@@ -26,7 +26,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               (a row at kv_len 0, rows ending on a split boundary, a window
               starting on one), with NaN planted outside the valid tokens
               (stale page tails, the null page, the frozen dummy row), and
-              at g = 4 query heads a KV head (H 32, KV 8, hd 128);
+              at g = 4 query heads a KV head (H 32, KV 8, hd 128); whisper-
+              tiny's shapes checked: the GEMM at K = 384 (groups of 192)
+              at M = 4 and 1500, and decode attention over its cross plan
+              (kv_len 1500 in a 24-page table, H = KV = 6);
 4. serve   -- opt-125m at full width, random weights from a seed, packed to
               W4A8 (FP4 E2M1 weights, M2 scales, LoRC rank 8, FP8 E4M3
               activations), served greedily over FP8 pages; every request
@@ -46,13 +49,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               attention variant, and at one step the frozen kernel is held
               against its plain version on the live pool (and an injected
               fault must read far above the tolerance);
-7. mla     -- MiniCPM3-4B (MLA, 62 layers) at full width, random weights
-              initialized and packed on the card, on phase 6's server and
-              traffic: every request ok, every route's launches equal to
-              their invariant (7 x 62 GEMMs, 62 of each batched GEMM
-              orientation and 62 frozen latent-decode launches a step, no
-              GQA attention), the live latent-pool check with an injected
-              fault, and a profiled decode step;
+7. mla     -- MiniCPM3-4B (MLA) at full width, depth cut to 31 of its 62
+              layers, random weights initialized and packed on the card,
+              on phase 6's server and traffic: every request ok, every
+              route's launches equal to their invariant (7 x 31 GEMMs, 31
+              of each batched GEMM orientation and 31 frozen latent-decode
+              launches a step, no GQA attention), the live latent-pool
+              check with an injected fault, and a profiled decode step;
 8. mla cpu -- MiniCPM3 at full width cut to 2 layers against the CPU plain
               path (2 requests: a prefill chunk and 1 decode step),
               free-running, teacher-forced at each attention block and at
@@ -118,9 +121,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               threefry bits and Gumbel noise bit-identical and the tokens
               identical on the card and on the CPU, JAX's known answers on
               the card, and the sampler's time a call; a sampled request
-              solo (1 slot) and the traffic on phase 12's 16-page pool (two
-              sampled requests stolen and resumed) against the batched and
-              a fully backed run, up to one tie (a sampled row's margin: the
+              solo (1 slot) and rids 4-7 at 16 new tokens on phase 12's
+              16-page pool (rid 7, sampled, stolen and resumed) against the
+              batched and a fully backed run, up to one tie (a sampled row's margin: the
               top-2 gap of its masked, scaled logits plus its Gumbel noise);
               then the front-end: 4 concurrent ``AsyncServer.generate``
               streams (2 sampled), each equal to its ``RequestResult``, and
@@ -140,7 +143,38 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               W4A8_TOL of its plain version and of the GPTQ dense result,
               with a doubled group scale read 10x above it; perplexity of
               W16, RTN and GPTQ W4A8 on 2 held-out batches, printed, not
-              gated. At most 60 s.
+              gated. At most 60 s;
+15. dense -- olmo-1b, minitron-8b and llava-next-34b (text-only) at their
+              published widths (full vocabularies) cut to 2 layers, random
+              weights from the seed packed on the card, each on phase 6's
+              server: 2 requests (one prefill chunk, 4 decode steps) ok,
+              every route's launches equal to their invariant (7 or 6 GEMMs
+              a layer and one frozen decode launch a layer a step); at one
+              decode step every block teacher-forced against the plain
+              versions on the card within BLOCK_RTOL; layer 0's wd through
+              row 1 at M = 4 within W4A8_TOL of its plain version, and with
+              the group contributing most to its output scaled by 2 at least
+              10 tolerances off. At most 45 s;
+16. encdec -- whisper-tiny at its published config (4 + 4 layers, d_model
+              384, encoder_seq 1500, vocab 51865), random weights from the
+              seed packed on the card, on phase 6's server, which falls back
+              to the alternating engine: 8 requests over 4 frame sets
+              (3 task tokens + 0-200 tokens of previous text, 32 new
+              tokens; rids 0 and 1 share frames and a 128-token prompt, rid 2
+              has it under other frames): every request ok, 24 cross pages
+              charged at each admission, whose encoder launches 24 GEMMs
+              and 8 cross K/V GEMMs at M = 1500; rid 1 maps rid 0's page
+              under its frames' root, rid 2 shares none and its stream
+              equals its cold run up to one tie; every decode step launches
+              32 GEMMs, 4 self-attention (frozen variant) and 4 cross
+              launches; row 2 on the live cross pool against its plain
+              version, with the encoder length one short read 10x above it;
+              a profiled decode step; then 2 requests against the CPU plain
+              path (a prefill chunk and 2 decode steps) teacher-forced at
+              each decoder block and its cross-attention, one cross page's
+              s_max doubled and the encoder's last layer skipped each read
+              above BLOCK_RTOL there. The encoder's time at admission, the
+              decode step and tokens/s are printed, not gated. At most 60 s.
 
 Phase 3 also checks and times MiniCPM3's kernels (the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
@@ -451,9 +485,10 @@ def _attn_held(torch, o_k, o_p, kernel, what, nan):
     return err
 
 
-def _attn_check(torch, fmt, gen, window=0, kv=12, hd=64, h=None, lens=None, nan=False):
+def _attn_check(torch, fmt, gen, window=0, kv=12, hd=64, h=None, lens=None, nan=False, pp=None):
     """A random pool at the decode shapes of opt-125m (``kv`` heads of width
-    ``hd``; OLMoE-1B-7B: 16 of 128; ``h`` query heads, ``kv`` by default)
+    ``hd``; OLMoE-1B-7B: 16 of 128; ``h`` query heads, ``kv`` by default;
+    ``pp`` pages a row's table, 32 by default)
     and the kernel's output held against its plain version (and launched
     twice, bit-identical). ``nan``: see ``_stale_nan``. Returns the
     operands, the two callables and the error."""
@@ -463,7 +498,7 @@ def _attn_check(torch, fmt, gen, window=0, kv=12, hd=64, h=None, lens=None, nan=
 
     b, page = 4, 64
     lens = lens or ATTN_LENS
-    pp = 2048 // page
+    pp = pp or 2048 // page
     n_pages = b * pp
     shape = (n_pages + 1, page, kv, hd)
     layer = {}
@@ -1027,6 +1062,23 @@ def phase_kernels(torch):
     err2, err2b = _attn_edge_checks(torch, gen, 12, 64)
     attn["fp8_e4m3"]["max_abs_err"] = max(attn["fp8_e4m3"]["max_abs_err"], err2)
     frozen["max_abs_err"] = max(frozen["max_abs_err"], err2b)
+    # slice 13: whisper-tiny's shapes. Row 1 at K = 384 quantizes in groups
+    # of 192 (effective_group(384, 256)); the encoder and the cross K/V run
+    # it at M = 1500. Row 2 over a request's cross pages: kv_len 1500 in a
+    # 24-page table (the last page holding 28 tokens), H = KV = 6, hd 64
+    whisper = {"max_abs_err": 0.0}
+    for m in (4, 1500):
+        for k, n in ((384, 384), (384, 1536), (1536, 384)):
+            p, *_, err = _w4a8_check(torch, m, k, n, gen)
+            whisper["max_abs_err"] = max(whisper["max_abs_err"], err)
+            log(f"    w4a8_fused M={m:4d} {k:4d}->{n:4d} group {p.group_size} (whisper-tiny): "
+                f"max|err| {err:.3g}")
+    gemm["whisper"] = whisper
+    for fmt in ("fp8_e4m3", None):
+        err = _attn_check(torch, fmt, gen, kv=6, hd=64, lens=[1500, 1500, 1500, 1499], pp=24)[-1]
+        attn[fmt]["max_abs_err"] = max(attn[fmt]["max_abs_err"], err)
+        log(f"    paged_decode_attn {fmt or 'bf16'} pages, whisper-tiny cross plan (B 4, H = KV = "
+            f"6, hd 64, kv_len 1500 / 1499 in 24 pages): max|err| {err:.3g}")
     # slice 3: MiniCPM3-4B's shapes (row 1 at a decode step; rows 1b, 1c, 3)
     for k, n in sorted(set(MINICPM3_GEMMS)):
         gemm[(4, k, n)] = _w4a8_case(torch, timer, 4, k, n, gen)
@@ -1272,10 +1324,18 @@ def _pools(cfg, n_pages, page, device):
                               "fp8_e4m3", device=device) for seg in segments_for(cfg)]
 
 
-def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_dec=4):
+def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_dec=4,
+             ref="cpu", frames=None, encoders=None):
     """Two requests (one prefill chunk, then ``n_dec`` decode steps; prompts
     from SEED + 1) along every
     route, each with a pool of its own, all fed the card's greedy tokens.
+    ``ref`` names the reference route (the CPU plain path by default). An
+    enc-dec model takes ``frames`` (a (T, d) array a request): each route
+    runs its encoder once a request into cross pages of its own first
+    (``encoders[route]``, when given, is (the config to encode with, a
+    function applied to the written cross pool): an injected fault), and
+    site "block" also forces and reads each cross-attention sub-block
+    (``cross``: its output is the update).
     With ``forced``, every site of every route takes the card's input to
     that site, so a difference cannot compound. ``site`` "block" forces and
     reads whole blocks (the reading: the output's error over the reference
@@ -1304,6 +1364,25 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
     pools = {name: _pools(cfg, 2 * pp, page, d) for name, (_, d, _) in routes.items()}
     table = np.arange(2 * pp, dtype=np.int32).reshape(2, pp)
     t = lambda a, d: torch.as_tensor(np.asarray(a, np.int32)).to(d)
+    cross, cpp = {}, 0
+    if frames is not None:  # each route's encoder writes its own cross pages
+        cpp = kvc.pages_needed(cfg.encoder_seq, page)
+        for name, (params, d, patch) in routes.items():
+            enc_cfg, post = (encoders or {}).get(name, (cfg, None))
+            cross[name] = kvc.init_cross_pool(cfg.n_layers, 2 * cpp, page, cfg.n_kv_heads,
+                                              cfg.resolved_head_dim, "fp8_e4m3", device=d)
+            saved = {k: getattr(ops, k) for k in patch}
+            for k, v in patch.items():
+                setattr(ops, k, v)
+            for row, fr in enumerate(frames):
+                api.encode_cross_pages(params, enc_cfg, torch.as_tensor(fr)[None].to(d),
+                                       cross[name], t(np.arange(row * cpp, (row + 1) * cpp)[None], d),
+                                       a_fmt="fp8_e4m3")
+            for k, v in saved.items():
+                setattr(ops, k, v)
+            if post is not None:
+                post(cross[name])
+    cross_table = np.arange(2 * max(cpp, 1), dtype=np.int32).reshape(2, -1)
     reading = {name: {"logits": 0.0} for name in routes}
     agree = [0, 0, 0]
 
@@ -1317,14 +1396,22 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
             return moe_hooks(fed, trace)
         if site != "ops":
             hooked = "mla_attention" if site == "mixer" else "block_apply"
-            fn = getattr(tf, hooked)
+            fn, cross_fn = getattr(tf, hooked), tf.paged_cross_attention
 
             def block(p, x, *args, **kw):
                 (x,) = fed(len(trace), (x,))
+                entry = ["block", (x,), None]  # before the cross site the block calls
+                trace.append(entry)
                 y = fn(p, x, *args, **kw)
-                trace.append(("block", (x,), y[0] if site == "mixer" else y))
+                entry[2] = y[0] if site == "mixer" else y
                 return y
-            return {(tf, hooked): block}
+
+            def cross_block(p, x, *args, **kw):
+                (x,) = fed(len(trace), (x,))
+                y = cross_fn(p, x, *args, **kw)
+                trace.append(("cross", (x,), y))
+                return y
+            return {(tf, hooked): block, (tf, "paged_cross_attention"): cross_block}
         gemm, attn = ops.w4a8_matmul_batched, ops.paged_mla_decode_attn
 
         def batched(x, w, transpose_w=False, quantize_acts=True):
@@ -1386,7 +1473,7 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
         r["router_gap"] = max([r.get("router_gap", 0.0)] + gap.tolist())
         r["router_tokens"] = r.get("router_tokens", 0) + flip.numel()
 
-    def run(name, tokens, pt, lengths, chunk_len, lead):
+    def run(name, tokens, pt, lengths, chunk_len, lead, rows):
         params, d, patch = routes[name]
         trace = []  # (site key, inputs, output) of every site, in order
         saved = {(ops, k): getattr(ops, k) for k in patch}
@@ -1397,35 +1484,38 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
             saved.setdefault(key, getattr(*key))
         for (mod, attr), v in wrapped.items():
             setattr(mod, attr, v)
-        st = kvc.PagedState(t(pt, d), t(lengths, d), None if chunk_len is None else t([chunk_len], d))
-        logits = api.decode_step(params, cfg, t(tokens, d), pools[name], st, a_fmt="fp8_e4m3")
+        st = kvc.PagedState(t(pt, d), t(lengths, d), None if chunk_len is None else t([chunk_len], d),
+                            cross_table=t(cross_table[rows], d) if cross else None,
+                            enc_lengths=t([cfg.encoder_seq] * len(rows), d) if cross else None)
+        logits = api.decode_step(params, cfg, t(tokens, d), pools[name], st, a_fmt="fp8_e4m3",
+                                 cross=cross.get(name))
         for (mod, attr), v in saved.items():
             setattr(mod, attr, v)
         return logits.float().cpu(), trace
 
-    def step(tokens, pt, lengths, chunk_len=None):
-        out = {"card": run("card", tokens, pt, lengths, chunk_len, None)}
+    def step(tokens, pt, lengths, rows, chunk_len=None):
+        out = {"card": run("card", tokens, pt, lengths, chunk_len, None, rows)}
         for name in routes:
             if name != "card":
-                out[name] = run(name, tokens, pt, lengths, chunk_len, out["card"][1])
+                out[name] = run(name, tokens, pt, lengths, chunk_len, out["card"][1], rows)
         for name, (o, _) in out.items():
             if not bool(torch.isfinite(o).all()):
                 fail(f"non-finite logits on route {name}")
-        ref, ref_sites = out["cpu"]
-        scale = float(ref.abs().max())
+        ref_logits, ref_sites = out[ref]
+        scale = float(ref_logits.abs().max())
         f64 = lambda v: v.double().cpu()
         for name, (o, sites) in out.items():
             r = reading[name]
-            r["logits"] = max(r["logits"], float((o - ref).abs().max()) / scale)
+            r["logits"] = max(r["logits"], float((o - ref_logits).abs().max()) / scale)
             for (key, _, y), (_, (x0, *_), y0) in zip(sites if forced else (), ref_sites):
                 if key == "router":
                     routing(r, y, y0, x0)
                     continue
-                base = f64(y0) - f64(x0) if site == "block" else f64(y0)
+                base = f64(y0) - f64(x0) if site == "block" and key == "block" else f64(y0)
                 r[key] = max(r.get(key, 0.0), float((f64(y) - f64(y0)).norm() / base.norm()))
         top2 = out["card"][0].topk(2, dim=-1).values
         decisive = (top2[:, 0] - top2[:, 1]) > logit_rtol * scale
-        same = out["card"][0].argmax(-1) == ref.argmax(-1)
+        same = out["card"][0].argmax(-1) == ref_logits.argmax(-1)
         if bool((decisive & ~same).any()):
             fail("greedy tokens differ where the top-2 gap exceeds the tolerance")
         agree[0] += int(same.sum())
@@ -1437,10 +1527,10 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
     for row, prompt in enumerate(prompts):  # one prefill chunk each, bucketed to 128
         padded = 1 << (len(prompt) - 1).bit_length()
         toks = [prompt + [0] * (padded - len(prompt))]
-        nxt += step(toks, table[row:row + 1, :2], [0], len(prompt))
+        nxt += step(toks, table[row:row + 1, :2], [0], [row], len(prompt))
     lengths = np.array([len(p) for p in prompts], np.int32)
     for _ in range(n_dec):
-        nxt = step(np.array(nxt, np.int32)[:, None], table, lengths)
+        nxt = step(np.array(nxt, np.int32)[:, None], table, lengths, [0, 1])
         lengths += 1
     return reading, agree
 
@@ -1575,11 +1665,12 @@ def _live_pool_check(torch, srv, gen):
     return err, fault
 
 
-def _default_server(torch, cfg, packed, faults=None, frozen_pages=64, **knobs):
+def _default_server(torch, cfg, packed, faults=None, frozen_pages=64, engine="mixed", **knobs):
     """The reference Server's default path: mixed engine, prefix cache,
     FP8 pages with an FP4 frozen region of 64 pages, 4 slots; ``knobs``
     (slots, pool_pages, audit_every, scheduler), ``frozen_pages`` and
-    ``faults`` for phases 12 and 13."""
+    ``faults`` for phases 12 and 13. ``engine``: the engine the server must
+    resolve to (an enc-dec model falls back to the alternating one)."""
     from repro_torch.runtime import serve
 
     config = serve.ServerConfig(**{
@@ -1588,8 +1679,8 @@ def _default_server(torch, cfg, packed, faults=None, frozen_pages=64, **knobs):
                                    frozen_pages=frozen_pages),
         "prefix_cache": True, **knobs})
     srv = serve.Server(packed, cfg, config, faults=faults)
-    if srv.engine != "mixed":
-        fail(f"the default engine is {srv.engine!r}, not the mixed engine")
+    if srv.engine != engine:
+        fail(f"the default engine resolved to {srv.engine!r}, not {engine!r}")
     return srv
 
 
@@ -1773,12 +1864,15 @@ def _live_mla_check(torch, srv, gen):
     return err, fault
 
 
+MLA_SERVED_LAYERS = 31  # phase 7's depth: half of MiniCPM3-4B's 62, to pay for phases 15-16
+
+
 def phase_mla(torch, card):
     """MiniCPM3-4B (MLA) at full width on the reference Server's default
     path, served by the GEMM (7 linears a layer), the batched and
     transposed GEMM (wv_b, wk_b) and the frozen MLA decode kernel."""
-    cfg, packed, t_pack = _random_packed(torch, "minicpm3-4b")
-    log(f"[7 mla] MiniCPM3-4B ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+    cfg, packed, t_pack = _random_packed(torch, "minicpm3-4b", n_layers=MLA_SERVED_LAYERS)
+    log(f"[7 mla] MiniCPM3-4B ({cfg.n_layers} of 62 layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, kv_lora {cfg.mla.kv_lora_rank}, q_lora "
         f"{cfg.mla.q_lora_rank}): random init + W4A8 pack on the card {t_pack:.1f} s, "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak")
@@ -2829,19 +2923,28 @@ SAMPLER_MIXES = {"greedy": {}, "t0.8_k50_p0.9": dict(temperature=0.8, top_k=50, 
                  "t1.0": dict(temperature=1.0), "t0.7_p0.5": dict(temperature=0.7, top_p=0.5)}
 SAMPLER_KEYS = ((0, 0), (1, 5), (12345, 17), (2 ** 31, 33), (2 ** 32 - 1, 64))  # (seed, count)
 SSE_TOKENS = 8
+# the reproducibility runs' traffic (fully backed and on PRESSURE_POOL pages):
+# phase 6's rids 4-7, 16 new tokens each. On the tight pool rid 7 (sampled)
+# is stolen and resumed from its bytes, as rids 3 and 7 were with all 8
+# requests of 32 tokens, in 46 steps instead of 158 (the schedule reads no
+# logits: rehearsed on the CPU with random logits)
+SAMPLING_REPRO_RIDS = (4, 5, 6, 7)
+SAMPLING_REPRO_NEW = 16
 
 
-def _sampled_requests(cfg, pressure=False):
+def _sampled_requests(cfg, pressure=False, rids=None, max_new=None):
     """Phase 6's 8 requests (the same draws), those of SAMPLED sampling; with
-    ``pressure`` phase 12's priorities and deadline, else none."""
+    ``pressure`` phase 12's priorities and deadline, else none; ``rids`` and
+    ``max_new`` cut the traffic."""
     from repro_torch.runtime import serve
 
-    reqs = _pressure_traffic(cfg)
+    reqs = [r for r in _pressure_traffic(cfg) if rids is None or r.rid in rids]
     for r in reqs:
         if not pressure:
             r.priority, r.deadline_step = 0, None
         if r.rid in SAMPLED:
             r.sampling = serve.SamplingParams(**SAMPLED[r.rid])
+        r.max_new = max_new or r.max_new
     return reqs
 
 
@@ -3060,14 +3163,15 @@ def phase_sampling(torch, cfg, packed, card, greedy_streams):
 
     knobs = dict(frozen_pages=PRESSURE_FROZEN, scheduler=serve.SchedulerConfig(
         headroom_pages=0, steal_cooldown=2, spill_budget_bytes=PRESSURE_SPILL_BUDGET))
+    repro = dict(pressure=True, rids=SAMPLING_REPRO_RIDS, max_new=SAMPLING_REPRO_NEW)
     full = _default_server(torch, cfg, packed, **knobs)
     full_margins, _ = _record_margins(torch, full)
-    _drain_all(torch, full, _sampled_requests(cfg, pressure=True))
+    _drain_all(torch, full, _sampled_requests(cfg, **repro))
     if full.stats["preemptions"]:
         fail(f"sampling: the fully backed run stole: {full.stats}")
     tight = _default_server(torch, cfg, packed, pool_pages=PRESSURE_POOL, **knobs)
     tight_margins, _ = _record_margins(torch, tight)
-    _drain_all(torch, tight, _sampled_requests(cfg, pressure=True))
+    _drain_all(torch, tight, _sampled_requests(cfg, **repro))
     stolen = sorted(r.rid for r in tight.finished if r.preemptions and r.rid in SAMPLED)
     # a steal not answered by an eviction was resumed from its spilled bytes
     resumed = [r.rid for r in tight.finished if r.rid in SAMPLED and r.preemptions > r.evictions]
@@ -3101,7 +3205,8 @@ def phase_sampling(torch, cfg, packed, card, greedy_streams):
         f"{sampler['ms']['sample_tokens']:.3f} ms a call at B=4 (argmax "
         f"{sampler['ms']['argmax']:.3f} ms; CUDA events over 20 calls)")
     log(f"    reproducibility: rid 1 solo (slots=1) vs batched {len(ties_solo)} tie(s) "
-        f"{ties_solo}; on {PRESSURE_POOL} active pages ({PRESSURE_FROZEN} frozen) "
+        f"{ties_solo}; rids {list(SAMPLING_REPRO_RIDS)} ({SAMPLING_REPRO_NEW} new tokens) on "
+        f"{PRESSURE_POOL} active pages ({PRESSURE_FROZEN} frozen) "
         f"preemptions {tight.stats['preemptions']}, resumes {tight.stats['resumes']}, spill "
         f"evictions {tight.stats['spill_evictions']}, sampled requests stolen {stolen}, resumed "
         f"from their bytes {resumed}; streams "
@@ -3197,6 +3302,24 @@ def _ptq_card_vs_cpu(torch, w, hessian, qt, policy, what):
     return shifts, codes
 
 
+def _doubled_top_group(torch, p, x):
+    """``p`` with the scale of the group contributing most to ``x @ W^T``
+    doubled (its M2 shift one less; only groups with a shift to spare)."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import quant_act
+
+    m, g = x.shape[0], p.group_size
+    w = ref.dequant_packed_ref(p.codes, p.scale, p.w_fmt, g).float()
+    contrib = torch.einsum("mgk,ngk->mng", quant_act(x, p.a_fmt).float().reshape(m, -1, g),
+                           w.reshape(w.shape[0], -1, g)).abs().amax(0)
+    contrib = torch.where(p.shifts >= 1, contrib, torch.zeros_like(contrib))
+    n, grp = divmod(int(contrib.argmax()), contrib.shape[1])
+    scale, shifts = p.scale.clone(), p.shifts.clone()
+    scale[n, grp] *= 2
+    shifts[n, grp] -= 1
+    return dataclasses.replace(p, scale=scale, shifts=shifts)
+
+
 def _ptq_packed_check(torch, w, qt, w_hat, policy, gen, what):
     """A GPTQ result packed (``pack_linear(w, policy, qt=qt)``) through row
     1's kernel at M = 4 and 256: within W4A8_TOL of its plain version and of
@@ -3217,15 +3340,7 @@ def _ptq_packed_check(torch, w, qt, w_hat, policy, gen, what):
         y_p = ref.w4a8_matmul_ref(x, p.codes, p.scale, p.lorc_a, p.lorc_b, w_fmt=p.w_fmt,
                                   a_fmt=p.a_fmt, group_size=p.group_size)
         y_d = xq @ w_hat.float().t()
-        g = p.group_size
-        contrib = torch.einsum("mgk,ngk->mng", xq.reshape(m, -1, g),
-                               qt.dequantize().reshape(w.shape[0], -1, g)).abs().amax(0)
-        contrib = torch.where(p.shifts >= 1, contrib, torch.zeros_like(contrib))
-        n, grp = divmod(int(contrib.argmax()), contrib.shape[1])
-        scale, shifts = p.scale.clone(), p.shifts.clone()
-        scale[n, grp] *= 2
-        shifts[n, grp] -= 1
-        y_f = ops.w4a8_matmul(x, dataclasses.replace(p, scale=scale, shifts=shifts))
+        y_f = ops.w4a8_matmul(x, _doubled_top_group(torch, p, x))
         out[m] = (_excess(y_k, y_p), _excess(y_k, y_d), _excess(y_f, y_d))
         if out[m][0] > 1 or out[m][1] > 1:
             fail(f"{what} M={m}: row 1's kernel on the packed GPTQ weight reads "
@@ -3326,6 +3441,389 @@ def phase_ptq(torch, card, cfg=None, calib=PTQ_CALIB):
         + ", ".join(f"{k} {v:.4f}" for k, v in ppl.items())
         + f" ({time.perf_counter() - t_ppl:.1f} s; random weights, printed, not gated)")
     return t_gptq, per_layer, g / r, ppl
+
+
+# -- phase 15: the dense and VLM GQA configs ------------------------------------------
+DENSE_CONFIGS = ("olmo-1b", "minitron-8b", "llava-next-34b")
+DENSE_BUDGET_S = 45
+DENSE_FAULT = 10.0  # the doubled group scale must read this many W4A8_TOL excesses
+
+
+def _gemms_a_block(cfg):
+    """Row-1 launches of one GQA + MLP block: q, k, v, o and the MLP's
+    up and down, with gate for a gated MLP."""
+    return 4 + (3 if cfg.mlp_gated else 2)
+
+
+def _group_scale_fault(torch, p, gen, what):
+    """Row 1 on a packed weight at a decode step's M = 4 within W4A8_TOL of
+    its plain version; the group contributing most to the output, its
+    scale doubled (a shift one less), must read DENSE_FAULT excesses or
+    more against the sound plain version. Launches not counted. Returns
+    (sound excess, fault excess)."""
+    from repro_torch.kernels import ops, ref
+
+    saved = _counts()
+    x = torch.randn((4, p.codes.shape[1] * 2), generator=gen, device=DEV).to(torch.bfloat16)
+    y_k = ops.w4a8_matmul(x, p)
+    y_p = ref.w4a8_matmul_ref(x, p.codes, p.scale, p.lorc_a, p.lorc_b, w_fmt=p.w_fmt,
+                              a_fmt=p.a_fmt, group_size=p.group_size)
+    y_f = ops.w4a8_matmul(x, _doubled_top_group(torch, p, x))
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    sound, fault = _excess(y_k, y_p), _excess(y_f, y_p)
+    if sound > 1:
+        fail(f"{what}: row 1 reads {sound:.3g} W4A8_TOL excesses against its plain version")
+    if fault < DENSE_FAULT:
+        fail(f"{what}: the doubled group scale reads {fault:.3g} < {DENSE_FAULT} excesses: the "
+             "comparison cannot tell it from the sound weight")
+    return sound, fault
+
+
+def phase_dense(torch, card):
+    """olmo-1b, minitron-8b and llava-next-34b (text-only) at their published
+    widths, cut to 2 layers, random weights from SEED initialized and packed
+    on the card, each on the reference Server's defaults: 2 requests (one
+    prefill chunk, 4 decode steps) with every route's launches equal to the
+    invariant; the blocks teacher-forced at one decode step against the
+    plain versions on the card; one group scale of layer 0's wd doubled.
+    Returns {config: its serving run's launches}."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_view
+    from repro_torch.runtime import serve
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    out = {}
+    for name in DENSE_CONFIGS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, packed, t_pack = _random_packed(torch, name, n_layers=2)
+        srv = _default_server(torch, cfg, packed)
+        rng = np.random.default_rng(SEED + 15)
+        reqs = [serve.Request(rid=i, max_new=5, prompt=rng.integers(2, cfg.vocab_size, n).tolist())
+                for i, n in enumerate((200, 90))]
+        _set_counts(dict.fromkeys(_counts(), 0))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for r in reqs:
+            srv.submit(r)
+        results = srv.run_until_drained()
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t1
+        launches = _counts()
+        st, n_layers, per = srv.stats, cfg.n_layers, _gemms_a_block(cfg)
+        # the mixed engine runs one program a step (the decode rows plus at
+        # most one prefill chunk): per layer the block's GEMMs, and one decode
+        # attention launch, the frozen variant (the pool has a frozen region)
+        want = {**dict.fromkeys(launches, 0), "w4a8_fused": per * n_layers * st["steps"],
+                "paged_decode_attn_frozen": n_layers * st["steps"]}
+        if len(results) != 2 or not all(r.ok for r in results):
+            fail(f"{name}: not every request ended ok: {[(r.rid, r.status) for r in results]}")
+        if launches != want or st["programs"] != st["steps"] or st["decoded_tokens"] != 8:
+            fail(f"{name}: kernel launches {launches}, want {want} ({st['steps']} steps, "
+                 f"{st['programs']} programs, {st['decoded_tokens']} decoded tokens)")
+        routes = {"card": (packed, DEV, {}), "card_plain": (packed, DEV, {"_route": lambda t: "cpu"})}
+        forced, agree = _compare(torch, cfg, routes, forced=True, n_dec=1, ref="card_plain")
+        if forced["card"]["block"] > BLOCK_RTOL:
+            fail(f"{name}: the blocks differ from the plain versions on the card by "
+                 f"{forced['card']['block']:.4g} of their update > {BLOCK_RTOL}")
+        wd = layer_view(packed["segments"][0], 0)["ffn"]["mlp"]["down"]
+        sound, fault = _group_scale_fault(torch, wd, gen, f"{name} layer 0 wd")
+        out[name] = launches
+        log(f"[15 dense] {name} ({cfg.family}; d_model {cfg.d_model}, {cfg.n_heads} heads of "
+            f"{cfg.resolved_head_dim}, KV {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}; {cfg.n_layers} of {get_config(name).n_layers} layers"
+            f"{', text-only' if cfg.frontend == 'vision_patches' else ''}): random init + W4A8 "
+            f"pack on the card {t_pack:.1f} s, {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"peak; 2 requests ok ({st['steps']} mixed-engine steps, {t_serve:.2f} s), "
+            f"launches {({k: v for k, v in launches.items() if v})} = invariant {per} x "
+            f"{n_layers} x {st['steps']} GEMMs and {n_layers} x {st['steps']} frozen decode "
+            f"attention; teacher-forced blocks vs the plain versions on the card "
+            f"{forced['card']['block']:.4g} (<= {BLOCK_RTOL}), greedy tokens agree "
+            f"{agree[0]}/{agree[2]}; layer 0 wd ({wd.codes.shape[1] * 2} -> {wd.codes.shape[0]}, "
+            f"group {wd.group_size}) at M=4 {sound:.3g} W4A8_TOL excesses, one group scale "
+            f"doubled {fault:.3g} (>= {DENSE_FAULT}); {time.perf_counter() - t0:.1f} s on {card}")
+        del packed, srv, routes, wd
+    return out
+
+
+# -- phase 16: Whisper enc-dec --------------------------------------------------------
+ENCDEC_BUDGET_S = 60
+WHISPER_FRAME_SEEDS = (160, 161, 162, 163)  # frame sets A, B, C, D
+
+
+def _whisper_traffic(cfg):
+    """8 requests over 4 frame sets (30 s clips, normal(1500, 384) from
+    numpy seeds): each prompt 3 task tokens plus 0-200 tokens of
+    previous-segment text, 32 new tokens. rids 0 and 1 share frames A and a
+    128-token prompt; rid 2 has that prompt under frames B."""
+    import numpy as np
+
+    from repro_torch.runtime import serve
+
+    rng = np.random.default_rng(SEED + 16)
+    frames = [np.random.default_rng(s).normal(size=(cfg.encoder_seq, cfg.d_model))
+              .astype(np.float32) for s in WHISPER_FRAME_SEEDS]
+    task = rng.integers(2, cfg.vocab_size, 3).tolist()
+    shared = task + rng.integers(2, cfg.vocab_size, 125).tolist()
+    prompts = [shared, shared, shared] + [
+        task + rng.integers(2, cfg.vocab_size, int(n)).tolist() for n in rng.integers(0, 201, 5)]
+    sets = [0, 0, 1, 2, 3, 1, 2, 3]
+    return frames, [serve.Request(rid=i, prompt=p, max_new=32, frames=frames[sets[i]])
+                    for i, p in enumerate(prompts)]
+
+
+def _live_cross_check(torch, srv, gen):
+    """Row 2 on every layer of the live cross pool, at a step where every
+    slot decodes: the kernel and its plain version over the rows' cross
+    tables at their encoder lengths agree to ATTN_TOL (a second launch
+    bit-identical) on a random q scaled to the layer's K, and on a q along
+    each row's last encoder key (its score ~6 above the rest: ~0.2 of the
+    weight); on that q the same call with ``enc_lengths`` one short must
+    read at least 10x above ATTN_TOL. Launches not counted. Returns
+    (largest error, smallest fault reading)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import paged_decode_attn_cuda
+    from repro_torch.runtime import kv_cache as kvc
+
+    saved = _counts()
+    rows = [s for s, r in enumerate(srv.active) if r is not None]
+    table = torch.as_tensor(srv.cross_table[rows]).to(DEV)
+    lens = torch.as_tensor(srv.enc_lengths[rows]).to(DEV)
+    err, fault = 0.0, math.inf
+    pool = srv.cross_pool
+    for i in range(pool["k"].shape[0]):
+        layer = {name: leaf[i] for name, leaf in pool.items()}
+        keys = kvc.gather_pages(layer, "k", kvc.PagedState(table, lens))  # (B, T, KV, hd)
+        k_rms = max(float(keys.pow(2).mean().sqrt()), 1e-6)
+        hd, g = srv.cfg.resolved_head_dim, srv.cfg.n_heads // srv.cfg.n_kv_heads
+        last = keys[torch.arange(len(rows), device=DEV), lens.long() - 1]  # (B, KV, hd)
+        q_rand = torch.randn((len(rows), srv.cfg.n_heads, hd), generator=gen, device=DEV) * (
+            2.0 / k_rms)
+        q_last = last.repeat_interleave(g, dim=1) * (6.0 / (math.sqrt(hd) * k_rms ** 2))
+        sc = (layer["k_smax"], layer["k_shift"], layer["v_smax"], layer["v_shift"])
+        for q in (q_rand.to(torch.bfloat16), q_last.to(torch.bfloat16)):
+            kernel = lambda n: paged_decode_attn_cuda(q, layer["k"], layer["v"], *sc, table, n,
+                                                      fmt="fp8_e4m3")
+            o_p = ref.paged_decode_attn_ref(q, layer["k"], layer["v"], *sc, table, lens,
+                                            fmt="fp8_e4m3")
+            o_k = kernel(lens)
+            _deterministic(torch, lambda: kernel(lens), o_k, "live cross pool: row 2")
+            err = max(err, float((o_k - o_p).abs().max()))
+        fault = min(fault, float((kernel(lens - 1) - o_p).abs().max()))
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    if err > ATTN_TOL:
+        fail(f"live cross pool: row 2 differs from its plain version by {err:.3g} > {ATTN_TOL}")
+    if fault < 10 * ATTN_TOL:
+        fail(f"live cross pool: the injected fault (enc_lengths - 1) reads {fault:.3g} < 10 x "
+             f"{ATTN_TOL}")
+    return err, fault
+
+
+def _watch_admissions(torch, srv):
+    """Wraps the admission step (``api.encode_cross_pages``, called by
+    ``srv``) and ``srv._alloc_cross``: each admission's encoder time (the
+    device synchronized around it), its row-1 launches and their M, and
+    the cross pages each admission charged; and each request's pages after
+    its prefill. Returns (the record, a function that unwraps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    seen = {"encode_ms": [], "gemms": [], "ms": [], "cross": [], "pages": {}}
+    encode, gemm, alloc, prefill = (api.encode_cross_pages, ops.w4a8_matmul, srv._alloc_cross,
+                                    srv._prefill_slot)
+
+    def encode_(*args, **kw):
+        rows = []
+
+        def gemm_(x, w):
+            rows.append(x.numel() // x.shape[-1])
+            return gemm(x, w)
+        ops.w4a8_matmul = gemm_
+        before = _counts()["w4a8_fused"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(*args, **kw)
+        torch.cuda.synchronize()
+        seen["encode_ms"].append((time.perf_counter() - t0) * 1e3)
+        ops.w4a8_matmul = gemm
+        seen["gemms"].append(_counts()["w4a8_fused"] - before)
+        seen["ms"].append(sorted(set(rows)))
+        return out
+
+    def alloc_(slot):
+        ids = alloc(slot)
+        seen["cross"].append(len(ids))
+        return ids
+
+    def prefill_(slot, req):
+        prefill(slot, req)
+        seen["pages"].setdefault(req.rid, list(srv.slot_pages[slot]))
+
+    api.encode_cross_pages, srv._alloc_cross, srv._prefill_slot = encode_, alloc_, prefill_
+
+    def unwrap():
+        api.encode_cross_pages = encode
+        del srv._alloc_cross, srv._prefill_slot
+    return seen, unwrap
+
+
+def phase_encdec(torch, card):
+    """Whisper-tiny at its published config (nothing cut), random weights
+    from SEED packed on the card, on the reference Server's defaults (which
+    fall back to the alternating engine): 8 requests over 4 frame sets with
+    its prefix, admission, launch, live-pool and cold-run gates; then 2
+    requests against the CPU plain path, teacher-forced at each decoder
+    block and its cross-attention, with two injected faults. Returns
+    (launches, the live cross check's (error, fault reading))."""
+    import numpy as np
+
+    from repro_torch.runtime import serve
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, packed, t_pack = _random_packed(torch, "whisper-tiny")
+    srv = _default_server(torch, cfg, packed, engine="alternating")
+    cpp = srv._cross_pp
+    if cpp != 24:
+        fail(f"encdec: {cfg.encoder_seq} frames take {cpp} cross pages of 64, want 24")
+    frames, reqs = _whisper_traffic(cfg)
+    margins, unmargin = _record_margins(torch, srv)
+    seen, unwatch = _watch_admissions(torch, srv)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    live, step_ms = None, []
+    run = srv._run
+
+    def run_(tokens, state, pmask=None):  # the live check at the first step all 4 rows decode
+        nonlocal live
+        if live is None and state.chunk_len is None and all(r is not None for r in srv.active):
+            live = _live_cross_check(torch, srv, gen)
+        return run(tokens, state, pmask)
+    srv._run = run_
+    _set_counts(dict.fromkeys(_counts(), 0))
+    for r in reqs:
+        srv.submit(r)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    while True:
+        programs = srv.stats["programs"]
+        s0 = time.perf_counter()
+        if not srv.step():
+            if srv.queue:
+                fail("encdec: serving starved")
+            break
+        torch.cuda.synchronize()
+        if srv.stats["programs"] == programs + 1:  # a step that only decoded
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+    wall = time.perf_counter() - t1
+    launches = _counts()
+    del srv._run
+    unwatch()
+    unmargin()
+    results = {r.rid: r.result() for r in srv.finished}
+    if len(results) != 8 or not all(r.ok for r in results.values()):
+        fail(f"encdec: not every request ended ok: {[(r.rid, r.status) for r in srv.finished]}")
+    if live is None:
+        fail("encdec: no decode step had all 4 rows decoding: live cross check not run")
+    st, n_layers, n_enc = dict(srv.stats), cfg.n_layers, cfg.encoder_layers
+    admissions = len(seen["encode_ms"])
+    chunks = st["programs"] - st["steps"] - admissions
+    # an admission runs the encoder (q, k, v, o, up, down a layer) and the
+    # decoder layers' cross K/V projections (k, v), all at M = encoder_seq;
+    # a decoder program (a prefill chunk or a decode step) q, k, v, o of the
+    # self-attention, q and o of the cross-attention and up and down a
+    # layer; a decode step one self-attention launch a layer (the frozen
+    # variant: the pool has a frozen region) and one cross launch (row 2
+    # over the cross pages at kv_len = enc_lengths)
+    per_enc, per_dec = 6 * n_enc + 2 * n_layers, 8 * n_layers
+    want = {**dict.fromkeys(launches, 0),
+            "w4a8_fused": per_enc * admissions + per_dec * (st["steps"] + chunks),
+            "paged_decode_attn": n_layers * st["steps"],
+            "paged_decode_attn_frozen": n_layers * st["steps"]}
+    if launches != want:
+        fail(f"encdec: kernel launches {launches}, want {want} ({admissions} admissions, "
+             f"{chunks} prefill chunks, {st['steps']} decode steps)")
+    if seen["cross"] != [cpp] * admissions or admissions != 8:
+        fail(f"encdec: cross pages charged per admission {seen['cross']}, want {cpp} x 8")
+    if seen["gemms"] != [per_enc] * admissions or any(m != [cfg.encoder_seq] for m in seen["ms"]):
+        fail(f"encdec: an admission launched {seen['gemms']} GEMMs at M {seen['ms']}, want "
+             f"{per_enc} at M = {cfg.encoder_seq}")
+    pages = seen["pages"]
+    if pages[1][0] != pages[0][0] or set(pages[2]) & (set(pages[0]) | set(pages[1])):
+        fail(f"encdec: rid 1 must map rid 0's first page under frames A's root and rid 2 share "
+             f"none (pages {pages[0]}, {pages[1]}, {pages[2]})")
+    # rid 2's stream against a cold run of it alone under frames B
+    cold = _default_server(torch, cfg, packed, engine="alternating")
+    cold_req = serve.Request(rid=2, prompt=list(reqs[2].prompt), max_new=32, frames=frames[1])
+    cold.submit(cold_req)
+    cold.run_until_drained()
+    ties = _within_one_tie({2: list(results[2].tokens)}, {2: list(cold_req.out)}, margins,
+                           "encdec: rid 2 vs its cold run under frames B")
+    # the profiled decode step: 4 fresh requests under frames C and D
+    rng = np.random.default_rng(SEED + 17)
+    for i in range(srv.slots):
+        srv.submit(serve.Request(rid=100 + i, prompt=rng.integers(2, cfg.vocab_size, 60).tolist(),
+                                 max_new=6, frames=frames[2 + i % 2]))
+    srv.step()
+    busy = _profiled(torch, srv, 3, "4 rows, 60-token prompts over 24 cross pages each")
+    t_serve = time.perf_counter() - t0
+
+    # against the CPU plain path, teacher-forced; two faults through the kernels
+    t2 = time.perf_counter()
+
+    def double_smax(pool):  # the first cross page of each request, K and V, every layer
+        for name in ("k_smax", "v_smax"):
+            pool[name][:, [0, cpp]] *= 2
+    skip_last = dataclasses.replace(cfg, encoder_layers=cfg.encoder_layers - 1)
+    routes = {k: v for k, v in _routes(torch, packed).items() if k in ("card", "cpu")}
+    routes["smax"] = routes["skip_enc"] = (packed, DEV, {})
+    encoders = {"smax": (cfg, double_smax), "skip_enc": (skip_last, None)}
+    forced, agree = _compare(torch, cfg, routes, forced=True, n_dec=2,
+                             frames=frames[:2], encoders=encoders)
+    rd = lambda name, key: forced[name].get(key, 0.0)
+    for key in ("block", "cross"):
+        if rd("card", key) > BLOCK_RTOL:
+            fail(f"encdec: the card's {key} outputs differ from the CPU plain path by "
+                 f"{rd('card', key):.4g} of their update > {BLOCK_RTOL}")
+    for name in ("smax", "skip_enc"):
+        if rd(name, "cross") <= BLOCK_RTOL:
+            fail(f"encdec: injected fault {name} reads {rd(name, 'cross'):.4g} <= {BLOCK_RTOL} at "
+                 "the cross-attention: the comparison cannot tell it from the sound path")
+    t_cpu = time.perf_counter() - t2
+    n_tok = sum(len(r.tokens) for r in results.values())
+    enc = seen["encode_ms"]
+    log(f"[16 encdec] whisper-tiny (published config: {n_enc} + {n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"encoder_seq {cfg.encoder_seq}, vocab {cfg.vocab_size}): random init + W4A8 pack on the "
+        f"card {t_pack:.1f} s; reference Server defaults -> engine {srv.engine}, {srv.slots} "
+        f"slots, pages of {srv.page_size}, {cpp} cross pages a request, on {card}:")
+    log(f"    8 requests over 4 frame sets ok: {n_tok} tokens in {wall:.2f} s = "
+        f"{n_tok / wall:.1f} tokens/s; {st['steps']} decode steps, median {statistics.median(step_ms):.2f} "
+        f"ms over {len(step_ms)}; encoder at admission {statistics.median(enc):.2f} ms median "
+        f"({min(enc):.2f}-{max(enc):.2f}) over {admissions}, each {per_enc} GEMMs at M = "
+        f"{cfg.encoder_seq} and {cpp} cross pages charged")
+    log(f"    launches {({k: v for k, v in launches.items() if v})} = invariant: {per_enc} x "
+        f"{admissions} admissions + {per_dec} x ({st['steps']} steps + {chunks} chunks) GEMMs, "
+        f"{n_layers} x {st['steps']} self (frozen variant) + {n_layers} x {st['steps']} cross "
+        f"decode launches; prefix_hit_pages {st['prefix_hit_pages']} (rid 1 on rid 0's under "
+        f"frames A; rid 2 none), fp4_frozen_pages {st['fp4_frozen_pages']}; rid 2 vs its cold "
+        f"run under frames B: {len(ties)} tie(s) {ties}")
+    log(f"    live cross pool, {n_layers} layers: row 2 vs plain max|err| {live[0]:.3g} "
+        f"(tolerance {ATTN_TOL}); injected fault enc_lengths - 1 reads {live[1]:.3g} "
+        f"(>= {10 * ATTN_TOL} required)")
+    log(busy)
+    log(f"    against the CPU plain path (2 requests under frames A and B: a prefill chunk and 2 "
+        f"decode steps), teacher-forced, largest |err| / |update| (tolerance {BLOCK_RTOL}): "
+        f"card blocks {rd('card', 'block'):.4g}, cross-attention {rd('card', 'cross'):.4g}; "
+        f"faults at the cross-attention: one cross page's s_max doubled {rd('smax', 'cross'):.4g}, "
+        f"the encoder's last layer skipped {rd('skip_enc', 'cross'):.4g}; greedy tokens agree "
+        f"{agree[0]}/{agree[2]} ({t_cpu:.1f} s); phase {time.perf_counter() - t0:.1f} s "
+        f"(serving {t_serve:.1f} s)")
+    return launches, live
 
 
 def step_sum(rows, n_layers, key):
@@ -3443,6 +3941,16 @@ def main():
     lap(14)
     if time.perf_counter() - t14 > PTQ_BUDGET_S:
         fail(f"phase 14 took {time.perf_counter() - t14:.1f} s > {PTQ_BUDGET_S} s")
+    t15 = time.perf_counter()
+    launches_15 = phase_dense(torch, card)
+    lap(15)
+    if time.perf_counter() - t15 > DENSE_BUDGET_S:
+        fail(f"phase 15 took {time.perf_counter() - t15:.1f} s > {DENSE_BUDGET_S} s")
+    t16 = time.perf_counter()
+    launches_16, live_16 = phase_encdec(torch, card)
+    lap(16)
+    if time.perf_counter() - t16 > ENCDEC_BUDGET_S:
+        fail(f"phase 16 took {time.perf_counter() - t16:.1f} s > {ENCDEC_BUDGET_S} s")
 
     for r in gemm.values():
         r["kind"] = "bf16"
@@ -3473,12 +3981,17 @@ def main():
          "minicpm3": {**{k: v for k, v in entry(cpm_layer, 62).items()},
                       "launches": launches_7["w4a8_fused"],
                       "per": "one MiniCPM3-4B decode step: 434 launches at M=4; launches "
-                             "from phase 7"},
+                             f"from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"},
          "olmoe": {**entry(olmoe_layer, 16), "launches": launches_9["w4a8_fused"],
                    "per": "one OLMoE-1B-7B decode step: 64 launches at M=4, 2048->2048; "
                           "launches from phase 9"},
          "pressure": {"launches": launches_12["w4a8_fused"],
-                      "per": "phase 12: phase 6's traffic on a 16-page pool, stolen and resumed"}},
+                      "per": "phase 12: phase 6's traffic on a 16-page pool, stolen and resumed"},
+         "dense": {"launches": {k: v["w4a8_fused"] for k, v in launches_15.items()},
+                   "per": "phase 15: 2 requests on each dense / VLM config at 2 layers"},
+         "encdec": {"launches": launches_16["w4a8_fused"],
+                    "per": "phase 16: whisper-tiny, 8 requests (encoder and cross K/V at "
+                           "M=1500 at each admission)"}},
         {"name": "paged_decode_attn", "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131",
          "launches": launches["paged_decode_attn"],
@@ -3486,7 +3999,11 @@ def main():
          "per": "12 launches (one per layer), fp8 pages, B=4, contexts 2048/1337/300/1",
          "olmoe": per_olmoe_attn(olmoe_attn["fp8_e4m3"],
                                  "16 launches (one per layer), fp8 pages, KV=H=16, hd 128, B=4, "
-                                 "contexts 2048/1337/300/1; phase 9 serves the frozen variant")},
+                                 "contexts 2048/1337/300/1; phase 9 serves the frozen variant"),
+         "encdec": {"launches": launches_16["paged_decode_attn"], "live_max_abs_err": live_16[0],
+                    "fault_enc_lengths_one_short": live_16[1],
+                    "per": "phase 16: whisper-tiny's cross-attention, 4 launches a decode step "
+                           "over 24 cross pages at kv_len 1500"}},
         {"name": "paged_decode_attn_frozen", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131 (frozen)",
@@ -3499,19 +4016,23 @@ def main():
                                     "above; launches from phase 9"),
                    "launches": launches_9["paged_decode_attn_frozen"]},
          "pressure": {"launches": launches_12["paged_decode_attn_frozen"],
-                      "per": "phase 12: phase 6's traffic on a 16-page pool, stolen and resumed"}},
+                      "per": "phase 12: phase 6's traffic on a 16-page pool, stolen and resumed"},
+         "dense": {"launches": {k: v["paged_decode_attn_frozen"] for k, v in launches_15.items()},
+                   "per": "phase 15: 2 requests on each dense / VLM config at 2 layers"},
+         "encdec": {"launches": launches_16["paged_decode_attn_frozen"],
+                    "per": "phase 16: whisper-tiny's decoder self-attention"}},
         entry([batched[False]], 62, name="w4a8_fused_batched", route="cuda",
               source="src/repro_torch/csrc/w4a8_fused.cu",
               replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt=None)",
               launches=launches_7["w4a8_fused_batched"],
               per="one MiniCPM3-4B decode step: 62 launches of wv_b (E=40, M=4, 256->64); "
-                  "launches from phase 7"),
+                  f"launches from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"),
         entry([batched[True]], 62, name="w4a8_fused_transposed", route="cuda",
               source="src/repro_torch/csrc/w4a8_fused.cu",
               replaces="src/repro/kernels/w4a8_fused.py:169 (transpose_w=True, a_fmt=None)",
               launches=launches_7["w4a8_fused_transposed"],
               per="one MiniCPM3-4B decode step: 62 launches of wk_b (E=40, M=4, 64->256); "
-                  "launches from phase 7"),
+                  f"launches from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"),
         {**entry(moe_layer, 16, name="w4a8_fused_batched_fp8", route="cuda",
                  source="src/repro_torch/csrc/w4a8_fused.cu",
                  replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt='fp8_e4m3')",
@@ -3531,7 +4052,8 @@ def main():
                  + launches_7["paged_mla_decode_attn_frozen"],
                  per="one MiniCPM3-4B decode step: 62 launches of the frozen variant, B=4, "
                      "H=40, r=256, dr=32, page 64, contexts 2048/1337/300/1 with half of each "
-                     "row's full pages frozen; launches (all variants) from phase 7"),
+                     "row's full pages frozen; launches (all variants) from phase 7 "
+                     f"({MLA_SERVED_LAYERS} of 62 layers)"),
          "max_abs_err": max(max(r["max_abs_err"] for r in mla.values()), live_7[0]),
          "variants_ms": {f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''}": r["ms"]
                          for (fmt, fz), r in mla.items()},

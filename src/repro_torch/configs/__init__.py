@@ -6,10 +6,13 @@ import importlib
 
 __all__ = ["ARCHS", "get_config", "get_smoke"]
 
-ARCHS = ["minicpm3_4b", "olmoe_1b_7b", "opt_125m"]
+ARCHS = ["whisper_tiny", "minitron_8b", "nemotron_4_340b", "minicpm3_4b", "olmo_1b",
+         "olmoe_1b_7b", "llava_next_34b", "opt_125m"]
 
-_ALIASES = {"minicpm3-4b": "minicpm3_4b", "olmoe-1b-7b": "olmoe_1b_7b",
-            "opt-125m": "opt_125m"}
+_ALIASES = {"whisper-tiny": "whisper_tiny", "minitron-8b": "minitron_8b",
+            "nemotron-4-340b": "nemotron_4_340b", "minicpm3-4b": "minicpm3_4b",
+            "olmo-1b": "olmo_1b", "olmoe-1b-7b": "olmoe_1b_7b",
+            "llava-next-34b": "llava_next_34b", "opt-125m": "opt_125m"}
 
 
 def _module(name: str):

@@ -291,7 +291,7 @@ def gptq_quantize_lm(params, cfg, calib_batches: List[dict], policy: QuantPolicy
     dev = params["embed"].device
     xs = []
     for batch in calib_batches:
-        x = _tf._embed_tokens(params, batch["tokens"].to(dev))
+        x = _tf._embed_tokens(params, cfg, batch["tokens"].to(dev))
         if cfg.pos_embedding == "learned":
             x = x + params["pos_embed"][: x.shape[1]][None].to(x.dtype)
         xs.append(x)

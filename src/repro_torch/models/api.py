@@ -1,6 +1,6 @@
 """Model API (port of ``repro.models.api``): build, init, the paged
-serving step, and the cache-free forward to final hidden states (dense
-family: calibration and perplexity)."""
+serving step, the enc-dec admission step, and the cache-free forward to
+final hidden states (calibration and perplexity)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,14 +10,29 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.runtime.kv_cache import PagedState
 
+from . import encdec as _encdec
 from . import transformer as _tf
 from .params import init_tree
 
-__all__ = ["build_def", "init_params", "decode_step", "forward_hidden"]
+__all__ = ["build_def", "init_params", "decode_step", "encode_cross_pages", "forward_hidden"]
+
+
+def _is_encdec(cfg) -> bool:
+    return cfg.encoder_layers > 0
 
 
 def build_def(cfg):
+    if _is_encdec(cfg):
+        return _encdec.build_encdec(cfg)
     return _tf.build_lm(cfg)
+
+
+def encode_cross_pages(params, cfg, frames, cross_pool, cross_table, a_fmt=None):
+    """Enc-dec admission step: run the encoder once and write every decoder
+    layer's cross K/V into the request's write-once cross pages, in place
+    (``models.encdec``)."""
+    return _encdec.encode_cross_pages(params, cfg, frames, cross_pool, cross_table,
+                                      a_fmt=a_fmt)
 
 
 def init_params(cfg, seed: int = 0, device=None):
@@ -28,15 +43,21 @@ def init_params(cfg, seed: int = 0, device=None):
 
 @torch.no_grad()
 def decode_step(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
-                a_fmt: Optional[str] = None) -> torch.Tensor:
+                a_fmt: Optional[str] = None, cross=None) -> torch.Tensor:
     """One serving step over the paged pool (written in place): tokens
     (B, S) at per-row positions ``state.lengths``. A state with
     ``chunk_len`` is a bucketed prefill chunk, so the logits row is its last
     *true* token (``chunk_len - 1``); otherwise the last row. Returns
     (B, V) f32 logits. A mixed step (``state.prefill`` set, tokens the
     fused (1, slots + S) row) returns (slots + 1, V): one row per slot,
-    then the chunk's last true token."""
-    hidden = _tf.lm_forward(params, cfg, tokens, caches, state, a_fmt=a_fmt)
+    then the chunk's last true token. An enc-dec decoder also reads its
+    cross pages: ``cross`` is the cross pool, ``state.cross_table`` /
+    ``enc_lengths`` index it."""
+    if _is_encdec(cfg):
+        hidden = _encdec.encdec_forward(params, cfg, tokens, caches=caches, state=state,
+                                        a_fmt=a_fmt, cross=cross)
+    else:
+        hidden = _tf.lm_forward(params, cfg, tokens, caches, state, a_fmt=a_fmt)
     if state.prefill is not None:
         nd = state.lengths.shape[0]
         h_pre = hidden[0, nd + int(state.prefill.chunk_len[0]) - 1]
@@ -55,13 +76,20 @@ def _head_w(params, cfg) -> torch.Tensor:
 @torch.no_grad()
 def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None):
     """The whole forward to final hidden states, no cache: ``batch["tokens"]``
-    (B, S) at positions 0..S-1, moved to the params' device. Returns
-    ``(hidden (B, S, d), None, aux)`` as the reference does; ``aux`` (the
-    MoE balance loss) is 0 for the dense family, the only one ported here
-    (MLA and MoE blocks raise, naming ROADMAP queue 1, item 13)."""
-    if batch.get("patches") is not None or batch.get("frames_prefix") is not None:
-        raise NotImplementedError("vision / audio prefixes are not ported yet "
-                                  "(ROADMAP queue 1, item 12)")
+    (B, S) at positions 0..S-1, moved to the params' device, behind
+    ``batch["patches"]`` (B, P, 1024) or ``batch["frames_prefix"]`` (B, P,
+    d) when given; an enc-dec model encodes ``batch["frames"]`` first.
+    Returns ``(hidden (B, S, d), None, aux)`` as the reference does; ``aux``
+    (the MoE balance loss) is 0 for the families ported here (MLA and MoE
+    blocks raise, naming ROADMAP queue 1, item 13)."""
     dev = params["embed"].device
-    hidden = _tf.lm_forward(params, cfg, batch["tokens"].to(dev), a_fmt=a_fmt)
+    tokens = batch["tokens"].to(dev)
+    if _is_encdec(cfg):
+        enc = _encdec.encode(params, cfg, batch["frames"], a_fmt=a_fmt)
+        hidden = _encdec.encdec_forward(params, cfg, tokens, enc, a_fmt=a_fmt)
+    else:
+        prefix = batch.get("patches")
+        if prefix is None:
+            prefix = batch.get("frames_prefix")
+        hidden = _tf.lm_forward(params, cfg, tokens, a_fmt=a_fmt, embeds_prefix=prefix)
     return hidden, None, torch.zeros((), dtype=torch.float32, device=dev)

@@ -4,8 +4,10 @@ pool, the decode step (one token per row, appended then read through
 to its pages, attending gathered history pages plus its own exact K/V) and
 the mixed engine's fused row of both; without a cache, the forward over a
 whole sequence (full softmax rows, query-chunked above ``attn_chunk``),
-which calibration and perplexity run. The contiguous-cache modes and
-cross-attention come with later slices (ROADMAP queue 1, items 12-13)."""
+which calibration and perplexity run; and the enc-dec decoder's
+cross-attention, over the write-once cross pages when serving
+(``paged_cross_attention``) or against the encoder's K/V. The
+contiguous-cache modes come with a later slice (ROADMAP queue 1, item 13)."""
 from __future__ import annotations
 
 import math
@@ -15,12 +17,12 @@ import torch
 
 from repro_torch.core.formats import f32
 from repro_torch.kernels import ops
-from repro_torch.runtime.kv_cache import (PagedState, append_paged,
-                                          append_prefill_chunk, gather_history)
+from repro_torch.runtime.kv_cache import (PagedState, append_paged, append_prefill_chunk,
+                                          gather_history, gather_pages)
 
 from .layers import ParamDef, apply_rope, linear, quant_act
 
-__all__ = ["attn_params", "attention", "block_mask"]
+__all__ = ["attn_params", "attention", "paged_cross_attention", "block_mask"]
 
 _NEG_INF = -1e30
 
@@ -111,14 +113,16 @@ def _paged_chunk_attn(q, k, v, pool_layer, state: PagedState, g: int, window: in
 
 
 def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=None,
-              state: Optional[PagedState] = None, a_fmt: Optional[str] = None):
+              state: Optional[PagedState] = None, a_fmt: Optional[str] = None,
+              cross_kv=None):
     """Returns (out, kv_cache). ``kv_cache`` is one layer's pool slice,
     written in place; ``positions`` (B, S) are the rows' token positions
     (rope). A state with ``prefill`` is a mixed step (x is the fused (1,
     slots + S) row); one with ``chunk_len`` a prefill chunk (even a 1-token
     one); otherwise x is one decode token per row. Without a state (and
     cache) x is a whole sequence at ``positions`` = 0..S-1, attending
-    within itself."""
+    within itself, or with ``cross_kv`` = (k, v) (B, T, KV, hd) from the
+    encoder, attending to all of it."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = h // kv
     b, s, _ = x.shape
@@ -126,6 +130,13 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=None,
     q = linear(p["wq"], xq, p.get("bq")).reshape(b, s, h, hd)
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
+    if cross_kv is not None:
+        k, v = cross_kv
+        if k.shape[2] != h:
+            k, v = _repeat_kv(k, h // k.shape[2]), _repeat_kv(v, h // v.shape[2])
+        mask = torch.zeros((s, k.shape[1]), dtype=torch.float32, device=x.device)
+        o = _sdpa_full(q, k, v, mask).reshape(b, s, h * hd)
+        return linear(p["wo"], quant_act(o, a_fmt), p.get("bo")), None
     k = linear(p["wk"], xq).reshape(b, s, kv, hd)
     v = linear(p["wv"], xq, p.get("bv")).reshape(b, s, kv, hd)
     if cfg.pos_embedding == "rope":
@@ -163,3 +174,36 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=None,
         o = _paged_chunk_attn(q, k, v, kv_cache, state, g, cfg.window)
     out = linear(p["wo"], quant_act(o.reshape(b, s, h * hd), a_fmt), p.get("bo"))
     return out, kv_cache
+
+
+def paged_cross_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, cross_layer,
+                          state: PagedState, a_fmt: Optional[str] = None) -> torch.Tensor:
+    """The enc-dec decoder's cross-attention over one layer's write-once
+    cross pages (written at admission by ``kv_cache.write_cross_pages``,
+    only read here). A decode step (s == 1) runs the paged decode kernel
+    with ``kv_lens = state.enc_lengths``: cross-attention is not causal, so
+    the length mask is the whole mask. A prefill chunk (batch 1) gathers
+    the cross pages once and attends under the encoder-length mask.
+    Returns the projected output."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = h // kv
+    b, s, _ = x.shape
+    assert state.prefill is None, "enc-dec serving runs the alternating engine"
+    xq = quant_act(x, a_fmt)
+    q = linear(p["wq"], xq, p.get("bq")).reshape(b, s, h, hd)
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+    if s == 1 and state.chunk_len is None:
+        o = ops.paged_decode_attn(q[:, 0], cross_layer, state.cross_table, state.enc_lengths,
+                                  window=0)
+        o = o[:, None].to(x.dtype)
+    else:
+        assert b == 1, "streaming paged prefill is row-wise (batch 1)"
+        cstate = PagedState(state.cross_table, state.enc_lengths)
+        kf = gather_pages(cross_layer, "k", cstate).to(x.dtype)
+        vf = gather_pages(cross_layer, "v", cstate).to(x.dtype)
+        t = kf.shape[1]
+        ok = torch.arange(t, device=x.device)[None, :] < state.enc_lengths[:1, None].to(x.device)
+        mask = torch.where(ok.expand(s, t), 0.0, _NEG_INF).to(torch.float32)
+        o = _sdpa_full(q, _repeat_kv(kf, g), _repeat_kv(vf, g), mask)
+    return linear(p["wo"], quant_act(o.reshape(b, s, h * hd), a_fmt), p.get("bo"))

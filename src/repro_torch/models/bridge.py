@@ -8,8 +8,10 @@ PackedLinear field for a packed one (``segments/0/mixer/attn/wq/codes``,
 ``.../lorc_b``). bf16 arrays arrive as ``ml_dtypes.bfloat16`` and are
 reinterpreted through a uint16 view. PackedLinear's static fields are not
 leaves: the formats come from ``policy`` and the group size from the
-shapes. The helper that produces ``flat`` imports jax and so lives with
-the tests, not here.
+shapes. A parameter-free subtree (a ``nonparam_ln`` norm's ``{}``) has no
+leaf in ``flat``; ``from_numpy`` puts it back from ``build_def``. The
+helper that produces ``flat`` imports jax and so lives with the tests, not
+here.
 """
 from __future__ import annotations
 
@@ -53,6 +55,20 @@ def _build(node, policy):
     return node
 
 
+def _fill_empty(defs, tree):
+    """Put the empty dicts of ``defs`` (parameter-free norms) into ``tree``."""
+    if isinstance(defs, dict):
+        for k, d in defs.items():
+            if d == {}:
+                tree.setdefault(k, {})
+            elif k in tree:
+                _fill_empty(d, tree[k])
+    elif isinstance(defs, list):
+        for d, sub in zip(defs, tree):
+            _fill_empty(d, sub)
+    return tree
+
+
 def from_numpy(flat: Dict[str, np.ndarray], cfg, device, policy=None):
     """The port's params tree (dense or packed) from ``flat`` on ``device``.
     ``policy`` (a QuantPolicy) names the packed weights' formats; None means
@@ -70,4 +86,4 @@ def from_numpy(flat: Dict[str, np.ndarray], cfg, device, policy=None):
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = _tensor(arr, device)
-    return _build(root, policy)
+    return _fill_empty(build_def(cfg), _build(root, policy))

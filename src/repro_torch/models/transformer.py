@@ -1,14 +1,16 @@
 """Decoder-LM assembly (port of ``repro.models.transformer``): segments of
 (mixer x ffn) blocks, the mixer GQA or MLA attention, the ffn a dense MLP or
-an MoE layer (with DeepSeek-style leading dense layers).
+an MoE layer (with DeepSeek-style leading dense layers). A ``cross``
+segment (the enc-dec decoder, ``models.encdec``) adds a cross-attention
+sub-block after the self-attention; a ``vision_patches`` front-end (LLaVA)
+projects patch embeddings through ``mm_proj`` and prepends them.
 
 Parameters stack per segment with a leading ``(L, ...)`` dim as in the
 reference; a Python loop over the layers takes the place of ``lax.scan``.
 Blocks run over the paged pool (serving) or, for GQA / MLP blocks, with no
-cache over whole sequences (calibration, perplexity). The recurrent and
-enc-dec families, the vision/audio front-ends and multi-token prediction
-come with later slices (ROADMAP queue 1, item 12), the cache-free MLA and
-MoE blocks with training (item 13)."""
+cache over whole sequences (calibration, perplexity). The recurrent
+families and multi-token prediction come with later slices (ROADMAP queue
+1, item 12), the cache-free MLA and MoE blocks with training (item 13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,14 +20,14 @@ import torch
 
 from repro_torch.runtime.kv_cache import PagedState, pool_keys
 
-from .attention import attention, attn_params
-from .layers import PackedLinear, ParamDef, mlp, mlp_params, norm, norm_params
+from .attention import attention, attn_params, paged_cross_attention
+from .layers import PackedLinear, ParamDef, activation, linear, mlp, mlp_params, norm, norm_params
 from .mla import mla_attention, mla_params
 from .moe import moe_layer, moe_params
 from .params import tree_map
 
 __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_apply",
-           "layer_view", "lm_forward", "lm_logits"]
+           "layer_view", "positions_of", "run_segment", "lm_forward", "lm_logits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,14 +36,14 @@ class SegmentSpec:
     ffn: str  # 'mlp' | 'moe'
     count: int
     d_ff: int = 0  # override cfg.d_ff (deepseek dense layers)
+    cross: bool = False  # decoder cross-attention (whisper)
 
 
 def segments_for(cfg) -> List[SegmentSpec]:
-    if (cfg.ssm is not None or cfg.attn_kind not in ("gqa", "mla") or cfg.encoder_layers
-            or cfg.frontend != "none" or cfg.mtp_depth):
+    if cfg.ssm is not None or cfg.attn_kind not in ("gqa", "mla") or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: only GQA and MLA decoders, with an MLP or MoE ffn, are ported so far "
-            "(ROADMAP queue 1, item 12)")
+            f"{cfg.name}: the recurrent families and multi-token prediction are not ported "
+            "yet (ROADMAP queue 1, item 12)")
     if cfg.moe is not None:
         segs = []
         if cfg.moe.n_dense_layers:
@@ -49,7 +51,17 @@ def segments_for(cfg) -> List[SegmentSpec]:
                                     d_ff=cfg.moe.dense_d_ff or cfg.d_ff))
         segs.append(SegmentSpec(cfg.attn_kind, "moe", cfg.n_layers - cfg.moe.n_dense_layers))
         return segs
-    return [SegmentSpec(cfg.attn_kind, "mlp", cfg.n_layers)]
+    return [SegmentSpec(cfg.attn_kind, "mlp", cfg.n_layers, cross=bool(cfg.encoder_layers))]
+
+
+def _mixer_params(cfg, kind: str, cross: bool = False):
+    if kind == "mla":
+        return {"ln": norm_params(cfg), "attn": mla_params(cfg)}
+    p = {"ln": norm_params(cfg), "attn": attn_params(cfg)}
+    if cross:
+        p["ln_cross"] = norm_params(cfg)
+        p["cross"] = attn_params(cfg)
+    return p
 
 
 def _ffn_params(cfg, kind: str, d_ff: int = 0):
@@ -61,8 +73,7 @@ def _ffn_params(cfg, kind: str, d_ff: int = 0):
 
 
 def block_params(cfg, seg: SegmentSpec):
-    attn = mla_params(cfg) if seg.mixer == "mla" else attn_params(cfg)
-    return {"mixer": {"ln": norm_params(cfg), "attn": attn},
+    return {"mixer": _mixer_params(cfg, seg.mixer, seg.cross),
             "ffn": _ffn_params(cfg, seg.ffn, seg.d_ff)}
 
 
@@ -79,6 +90,10 @@ def build_lm(cfg):
     p = {"embed": ParamDef((cfg.vocab_size, d), ("vocab", "embed"), dt, "embed")}
     if cfg.pos_embedding == "learned":
         p["pos_embed"] = ParamDef((cfg.max_position, d), (None, "embed"), dt, "embed")
+    if cfg.frontend == "vision_patches":
+        # LLaVA-style 2-layer MLP projector from the (stub) vision encoder dim
+        p["mm_proj"] = {"fc1": ParamDef((d, 1024), ("embed", None), dt),
+                        "fc2": ParamDef((d, d), ("embed", None), dt)}
     p["segments"] = [_stack_defs(block_params(cfg, seg), seg.count) for seg in segments_for(cfg)]
     p["final_ln"] = norm_params(cfg)
     if not cfg.tie_embeddings:
@@ -100,11 +115,15 @@ def _require_cache_free(cfg, seg: SegmentSpec) -> None:
 
 
 def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
-                state: Optional[PagedState] = None, a_fmt=None):
+                state: Optional[PagedState] = None, a_fmt=None, cross_layer=None,
+                enc_out: Optional[torch.Tensor] = None):
     """One pre-norm block: x + mixer(ln(x)), then x + ffn(ln(x)); the mixer
     is GQA attention or MLA by ``seg.mixer``, the ffn an MLP or an MoE layer
-    by ``seg.ffn``. Without ``state`` (GQA / MLP blocks only) x is a whole
-    sequence at ``positions`` 0..S-1 and no cache is read or written."""
+    by ``seg.ffn``. A ``seg.cross`` block adds x + cross(ln_cross(x)) after
+    the self-attention: over the write-once cross pages ``cross_layer`` when
+    serving, else against the K/V of ``enc_out``. Without ``state`` (GQA /
+    MLP blocks only) x is a whole sequence at ``positions`` 0..S-1 and no
+    cache is read or written."""
     if state is None:
         _require_cache_free(cfg, seg)
     nk = cfg.norm_kind
@@ -115,6 +134,20 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
     else:
         h, _ = attention(pm["attn"], hn, cfg, positions, cache_layer, state, a_fmt=a_fmt)
     x = x + h
+    if seg.cross:
+        if state is not None:
+            # the engine ran the encoder at admission and quantized its K/V
+            # into the cross pages; decode and prefill chunks only read them
+            h = paged_cross_attention(pm["cross"], norm(pm["ln_cross"], x, nk, cfg.norm_eps),
+                                      cfg, positions, cross_layer, state, a_fmt=a_fmt)
+        else:
+            b, t = x.shape[0], enc_out.shape[1]
+            kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+            ek = linear(pm["cross"]["wk"], enc_out).reshape(b, t, kv, hd)
+            ev = linear(pm["cross"]["wv"], enc_out, pm["cross"].get("bv")).reshape(b, t, kv, hd)
+            h, _ = attention(pm["cross"], norm(pm["ln_cross"], x, nk, cfg.norm_eps), cfg,
+                             positions, a_fmt=a_fmt, cross_kv=(ek, ev))
+        x = x + h
     x_ln = norm(pf["ln"], x, nk, cfg.norm_eps)
     if seg.ffn == "mlp":
         return x + mlp(pf["mlp"], x_ln, cfg, a_fmt=a_fmt)
@@ -129,46 +162,74 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
     return x + h
 
 
-def _embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _embed_tokens(params, cfg, tokens: torch.Tensor,
+                  embeds_prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, behind an optional prefix: patch embeddings
+    (B, P, 1024) through ``mm_proj`` (fc1, tanh-approximate gelu, fc2), or
+    audio frames already at d_model, cast."""
+    x = params["embed"][tokens.long()]
+    if embeds_prefix is not None:
+        pe = embeds_prefix.to(x.device)
+        if cfg.frontend == "vision_patches":
+            pe = linear(params["mm_proj"]["fc2"],
+                        activation(linear(params["mm_proj"]["fc1"], pe), "gelu"))
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+    return x
+
+
+def positions_of(state: PagedState, s: int, device) -> torch.Tensor:
+    """(B, S) token positions of a paged step: each row from its true
+    length; for a mixed step's fused (1, slots + S) row, each decode token
+    at its slot's length and chunk token j at the chunk start + j."""
+    steps = torch.arange(s, device=device)
+    if state.prefill is not None:
+        nd = state.lengths.shape[0]
+        return torch.cat([state.lengths.long(),
+                          state.prefill.lengths.long()[0] + steps[:s - nd]])[None]
+    return state.lengths.long()[:, None] + steps[None]
+
+
+def run_segment(seg_params, x, cfg, seg: SegmentSpec, positions, pool=None,
+                state: Optional[PagedState] = None, a_fmt=None, cross=None, enc_out=None):
+    """Every layer of one stacked segment over x, in order (``lax.scan``'s
+    place): each layer with its slice of the segment's pool and of the
+    cross pool, when there are pools."""
+    n = seg.count if pool is None else pool[pool_keys(pool)[0]].shape[0]
+    for i in range(n):
+        cache_layer = None if pool is None else {k: leaf[i] for k, leaf in pool.items()}
+        cross_layer = None if cross is None else {k: leaf[i] for k, leaf in cross.items()}
+        x = block_apply(layer_view(seg_params, i), x, cfg, seg, positions, cache_layer, state,
+                        a_fmt, cross_layer, enc_out)
+    return x
 
 
 def lm_forward(params, cfg, tokens: torch.Tensor, caches=None,
-               state: Optional[PagedState] = None, a_fmt: Optional[str] = None):
+               state: Optional[PagedState] = None, a_fmt: Optional[str] = None,
+               embeds_prefix: Optional[torch.Tensor] = None):
     """tokens (B, S) at per-row positions ``state.lengths[:, None] + j``
     (for a mixed step, the fused (1, slots + S) row of decode tokens and
     one prefill chunk). ``caches``: one pool dict per segment, written in
     place. Without ``state`` (and caches) the tokens are whole sequences at
-    positions 0..S-1 (the dense family only). Returns the final-norm
-    hidden states (B, S, d)."""
-    x = _embed_tokens(params, tokens)
-    s = tokens.shape[1]
-    steps = torch.arange(s, device=tokens.device)
+    positions 0..S-1 (the dense family only), behind ``embeds_prefix``
+    (patches or audio frames) when given. Returns the final-norm hidden
+    states (B, S, d)."""
+    x = _embed_tokens(params, cfg, tokens, embeds_prefix)
+    s = x.shape[1]
     if state is None:
         segs = segments_for(cfg)
         for seg in segs:
             _require_cache_free(cfg, seg)
         if cfg.pos_embedding == "learned":
             x = x + params["pos_embed"][:s][None].to(x.dtype)
+        steps = torch.arange(s, device=x.device)
         for seg, seg_params in zip(segs, params["segments"]):
-            for i in range(seg.count):
-                x = block_apply(layer_view(seg_params, i), x, cfg, seg, steps, a_fmt=a_fmt)
+            x = run_segment(seg_params, x, cfg, seg, steps, a_fmt=a_fmt)
         return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)
-    if state.prefill is not None:
-        # the mixed step's fused row: each decode token at its slot's true
-        # length, chunk token j at the chunk start + j
-        nd = state.lengths.shape[0]
-        positions = torch.cat([state.lengths.long(),
-                               state.prefill.lengths.long()[0] + steps[:s - nd]])[None]
-    else:
-        positions = state.lengths.long()[:, None] + steps[None]
+    positions = positions_of(state, s, x.device)
     if cfg.pos_embedding == "learned":
         x = x + params["pos_embed"][positions].to(x.dtype)
     for seg, seg_params, pool in zip(segments_for(cfg), params["segments"], caches):
-        for i in range(pool[pool_keys(pool)[0]].shape[0]):
-            cache_layer = {name: leaf[i] for name, leaf in pool.items()}
-            x = block_apply(layer_view(seg_params, i), x, cfg, seg, positions, cache_layer,
-                            state, a_fmt)
+        x = run_segment(seg_params, x, cfg, seg, positions, pool, state, a_fmt)
     return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)
 
 

@@ -56,20 +56,21 @@ class AsyncServer:
 
     async def generate(self, prompt: List[int], max_new: int = 16,
                        sampling: SamplingParams = SamplingParams(),
-                       rid: Optional[int] = None, priority: int = 0
+                       rid: Optional[int] = None, priority: int = 0, frames=None
                        ) -> AsyncIterator[TokenEvent]:
         """Submit one request and stream its TokenEvents as they are emitted:
         one a token, then the terminal event (``finished``; its ``status`` is
         the request's outcome, and ``result(rid)`` returns the frozen
-        ``RequestResult`` after it). Submission raises ``Server.submit``'s
-        ValueErrors. A failed request ends its stream with a
-        ``status="failed"`` terminal event; a strict starvation raises
-        ``ServingError`` into every open stream."""
+        ``RequestResult`` after it). ``frames`` is an enc-dec request's
+        encoder input (``Request.frames``). Submission raises
+        ``Server.submit``'s ValueErrors. A failed request ends its stream
+        with a ``status="failed"`` terminal event; a strict starvation
+        raises ``ServingError`` into every open stream."""
         if rid is None:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid + 1)
         req = Request(rid=rid, prompt=list(prompt), max_new=max_new, sampling=sampling,
-                      priority=priority)
+                      priority=priority, frames=frames)
         self.server.submit(req)  # validates; raises before any stream state
         q: asyncio.Queue = asyncio.Queue()
         self._queues[rid] = q  # no await between submit and registration,

@@ -52,7 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.common import PageFormat, page_format
 
 __all__ = ["CachePolicy", "PagedState", "PrefixCache", "page_key", "init_gqa_pool",
-           "init_mla_pool", "pool_keys", "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
+           "init_cross_pool", "write_cross_pages", "init_mla_pool", "pool_keys", "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
            "dequantize_pages", "transcode_page", "append_paged", "append_prefill_chunk",
            "gather_pages", "gather_history", "pool_bytes_per_token", "bf16_bytes_per_token",
            "page_bytes", "pages_needed", "spill_pages", "restore_pages", "payload_checksum"]
@@ -70,8 +70,10 @@ class CachePolicy:
       the rest of their lives. ``None`` inherits ``active_fmt``;
       ``'fp4_e2m1'`` (behind FP8 active pages) transcodes each page to
       packed FP4 exactly once, at the freeze point.
-    * ``cross_fmt``: enc-dec cross pages (validated as in the reference; no
-      port model has them yet, ROADMAP queue 1, item 12).
+    * ``cross_fmt``: enc-dec cross pages, written once at admission (``None``
+      inherits ``active_fmt``). ``'fp4_e2m1'`` validates as in the reference,
+      but the port's ``Server`` refuses it: the reference's own decode
+      misreads packed cross pages (ROADMAP queue 3, F9).
     * ``frozen_pages`` sizes the frozen region (``None``: the active pool's
       page count)."""
 
@@ -120,14 +122,18 @@ class PagedState(NamedTuple):
     """Per-row cache index: which pages each row owns and how many tokens
     it truly holds. ``chunk_len`` ((1,) int) marks a streaming-prefill
     chunk (batch 1) bucketed to a power of two: positions >= chunk_len are
-    pad, masked out of page writes and of the logits row. ``prefill`` is
-    the mixed engine's nested batch-1 chunk state: the outer state indexes
-    the decode rows, and the fused token row ``[decode tokens | chunk]``
-    splits at ``lengths.shape[0]``."""
+    pad, masked out of page writes and of the logits row. ``cross_table`` /
+    ``enc_lengths`` (enc-dec decoders): each row's write-once cross page
+    ids and true encoder length. ``prefill`` is the mixed engine's nested
+    batch-1 chunk state: the outer state indexes the decode rows, and the
+    fused token row ``[decode tokens | chunk]`` splits at
+    ``lengths.shape[0]``."""
 
     page_table: torch.Tensor  # (B, pages_per_slot) int32
     lengths: torch.Tensor  # (B,) int32
     chunk_len: Optional[torch.Tensor] = None
+    cross_table: Optional[torch.Tensor] = None  # (B, cross_pp) int32
+    enc_lengths: Optional[torch.Tensor] = None  # (B,) int32
     prefill: Optional["PagedState"] = None
 
 
@@ -216,6 +222,16 @@ def init_gqa_pool(n_layers: int, n_pages: int, page_size: int, n_kv: int, head_d
     return _init_pool(n_layers, n_pages, page_size,
                       [("k", n_kv, head_dim, True), ("v", n_kv, head_dim, True)],
                       fmt, frozen_fmt, n_frozen, resolve_device(device))
+
+
+def init_cross_pool(n_layers: int, n_pages: int, page_size: int, n_kv: int, head_dim: int,
+                    fmt="fp8_e4m3", device=None) -> Dict:
+    """Write-once cross-attention pages (enc-dec decoders): a GQA pool's
+    layout with no frozen region. The encoder runs once per request and
+    ``write_cross_pages`` fills the request's pages in one shot; decode
+    only reads them (``ops.paged_decode_attn`` with ``kv_lens =
+    enc_lengths``), so their scales stay those of encode time."""
+    return init_gqa_pool(n_layers, n_pages, page_size, n_kv, head_dim, fmt, device=device)
 
 
 def init_mla_pool(n_layers: int, n_pages: int, page_size: int, kv_lora_rank: int,
@@ -356,6 +372,16 @@ def append_prefill_chunk(pool_layer: Dict, new_vals: Dict, state: PagedState) ->
     return pool_layer
 
 
+def write_cross_pages(pool_layer: Dict, new_vals: Dict, cross_table: torch.Tensor) -> Dict:
+    """Write one layer's encoder K/V ({"k": (1, T_enc, KV, hd), "v": ...})
+    into its cross pages ``cross_table`` (1, cross_pp), in place: a prefill
+    chunk over the whole encoder sequence at length 0. The only writer of
+    cross pages."""
+    state = PagedState(cross_table, torch.zeros((1,), dtype=torch.int32,
+                                                device=cross_table.device))
+    return append_prefill_chunk(pool_layer, new_vals, state)
+
+
 def gather_pages(pool_layer: Dict, name: str, state: PagedState) -> torch.Tensor:
     """Dequantized gather of each row's table: (B, PP * page, KV, hd) f32
     for GQA leaves, (B, PP * page, d) for MLA latent leaves. In a mixed
@@ -432,7 +458,22 @@ class PrefixCache:
         self._by_pid: Dict[int, Tuple] = {}
         self._lru: "OrderedDict[int, None]" = OrderedDict()  # oldest-parked first
         self._next_node = 0
+        # conditioning digest -> root node id: enc-dec requests chain off a
+        # root per frames digest (decoder K/V depends on the frames through
+        # cross-attention), so equal prompts under other frames never alias
+        self._roots: Dict[str, int] = {}
         self.reclaims = 0
+
+    def root_for(self, digest: str) -> int:
+        """The radix root node of a conditioning digest (e.g. the encoder
+        frames' hash), assigned once from the node counter: one digest,
+        one chain; two digests, disjoint chains."""
+        root = self._roots.get(digest)
+        if root is None:
+            root = self._next_node
+            self._next_node += 1
+            self._roots[digest] = root
+        return root
 
     def __len__(self) -> int:
         return len(self._by_key)
@@ -449,15 +490,17 @@ class PrefixCache:
     def registered(self, pid: int) -> bool:
         return int(pid) in self._by_pid
 
-    def walk(self, tokens: Sequence[int], max_pages: Optional[int] = None) -> List[int]:
+    def walk(self, tokens: Sequence[int], max_pages: Optional[int] = None,
+             root: int = _PREFIX_ROOT) -> List[int]:
         """Longest chain of consecutive full-page hits for this token
-        prefix: the page ids holding ``tokens[:len(hits) * page_size]``."""
+        prefix from ``root`` (the global root or a ``root_for`` node): the
+        page ids holding ``tokens[:len(hits) * page_size]``."""
         page = self.page_size
         limit = len(tokens) // page
         if max_pages is not None:
             limit = min(limit, max_pages)
         pids: List[int] = []
-        parent = _PREFIX_ROOT
+        parent = root
         for i in range(limit):
             hit = self._by_key.get(page_key(parent, tokens[i * page: (i + 1) * page]))
             if hit is None:
@@ -466,13 +509,14 @@ class PrefixCache:
             parent = hit[1]
         return pids
 
-    def insert(self, tokens: Sequence[int], pids: Sequence[int]) -> List[int]:
-        """Register the full pages covering ``tokens[:len(pids) * page]``.
-        Returns the canonical pid per page: where the chain key already
-        exists, the existing page wins and the caller adopts it."""
+    def insert(self, tokens: Sequence[int], pids: Sequence[int],
+               root: int = _PREFIX_ROOT) -> List[int]:
+        """Register the full pages covering ``tokens[:len(pids) * page]``
+        under ``root``. Returns the canonical pid per page: where the chain
+        key already exists, the existing page wins and the caller adopts it."""
         page = self.page_size
         out: List[int] = []
-        parent = _PREFIX_ROOT
+        parent = root
         for i, pid in enumerate(pids):
             pid = int(pid)
             key = page_key(parent, tokens[i * page: (i + 1) * page])

@@ -64,10 +64,22 @@ so the pool's addresses never change.
 The model is a decoder with GQA attention over K/V pages (learned
 positions or rope) or MLA over latent pages (``init_mla_pool``: c_kv and
 the rope key, no head axis), its ffn an MLP or an MoE layer that routes
-per token; the engine is the same for all. Not ported yet: the recurrent
-and enc-dec families, refused with ``NotImplementedError`` naming ROADMAP
-item 12 as their params are built, and meshes (item 14): ``ServerConfig``
-has no ``mesh`` field, so ``ServerConfig(mesh=...)`` raises ``TypeError``.
+per token; the engine is the same for all. A VLM is served text-only, as
+the reference serves it. An enc-dec (Whisper-style) decoder adds
+write-once cross pages: each request carries its encoder frames
+(``Request.frames``); admission charges the prompt's pages plus
+``pages(encoder_seq)`` from the same pool and runs the encoder once,
+quantizing every decoder layer's cross K/V into the request's cross pages
+(``kv_cache.write_cross_pages``), which every decode step reads through the
+paged decode kernel. Its prefix chains hang off a root per frames digest,
+so a prompt under other frames never shares a page; its cross pages go
+with it through steal, spill and resume; it runs the alternating engine
+(``Server.engine`` says so). Not ported yet: the recurrent families,
+refused with ``NotImplementedError`` naming ROADMAP item 12 as their params
+are built; FP4 cross pages (``CachePolicy(cross_fmt="fp4_e2m1")`` on an
+enc-dec model raises, naming F9: the reference misreads them); and meshes
+(item 14): ``ServerConfig`` has no ``mesh`` field, so
+``ServerConfig(mesh=...)`` raises ``TypeError``.
 
 Sampling (``Request.sampling``): each step draws every row's token from
 its logits with the row's ``SamplingParams`` (``runtime.sampling``); a
@@ -82,6 +94,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import hashlib
 import math
 import time
 from collections import Counter
@@ -235,6 +248,7 @@ class Request:
     sampling: SamplingParams = SamplingParams()
     priority: int = 0  # higher = stolen from last; ties -> slack, then age
     deadline_step: Optional[int] = None  # engine step to finish by (None: no SLO)
+    frames: Optional[np.ndarray] = None  # enc-dec: (encoder_seq, d) frame embeddings
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
     status: str = "ok"  # "ok" | "truncated" | "failed"
@@ -246,6 +260,18 @@ class Request:
     seq: int = 0  # server-managed: arrival sequence (tie-break)
     t_submit: float = 0.0
     token_times: list = dataclasses.field(default_factory=list)
+    _frames_digest: Optional[str] = dataclasses.field(default=None, repr=False, compare=False)
+
+    def frames_digest(self) -> str:
+        """sha256 of the encoder frames' bytes (enc-dec requests), computed
+        once. The prefix cache roots this request's chains on it: decoder
+        K/V depends on the frames, so equal prompts share pages only under
+        bit-identical frames."""
+        if self._frames_digest is None:
+            assert self.frames is not None
+            self._frames_digest = hashlib.sha256(
+                np.ascontiguousarray(self.frames).tobytes()).hexdigest()
+        return self._frames_digest
 
     @property
     def truncated(self) -> bool:
@@ -303,6 +329,12 @@ class Server:
                 "hold only content-shared prefix pages (prefix_cache=True)")
         if sched.prefill_chunk_pages < 1:
             raise ValueError(f"prefill_chunk_pages={sched.prefill_chunk_pages} must be >= 1")
+        self._encdec = cfg.encoder_layers > 0
+        if self._encdec and policy.cross.packed:
+            raise NotImplementedError(
+                "CachePolicy(cross_fmt='fp4_e2m1'): packed FP4 cross pages have no working "
+                "reference (the reference's decode reads their packed width as the head "
+                "width and fails at its first step; ROADMAP queue 3, F9)")
         self.device = resolve_device(device)
         self.config = config
         self.cfg = cfg
@@ -323,10 +355,14 @@ class Server:
         self.audit_every = config.audit_every
         self.faults = faults
         self.pages_per_slot = math.ceil(self.max_seq / page)
-        self._n_pages = config.pool_pages or self.slots * self.pages_per_slot
+        # an enc-dec request also holds the write-once cross pages of its
+        # encoder sequence, charged from the same page id space
+        self._cross_pp = kvc.pages_needed(cfg.encoder_seq, page) if self._encdec else 0
+        self._n_pages = config.pool_pages or self.slots * (self.pages_per_slot + self._cross_pp)
         # a mixed-precision pool (FP4 frozen region) is not the mixed engine
         self._mixed_precision = policy.mixed
-        self._mixed_step = sched.engine == "mixed"
+        # enc-dec admission runs the encoder: it takes the alternating engine
+        self._mixed_step = sched.engine == "mixed" and not self._encdec
         self._n_frozen = (policy.frozen_pages or self._n_pages) if policy.mixed else 0
         frozen_fmt = policy.frozen if policy.mixed else None
         self.pools = []
@@ -340,6 +376,11 @@ class Server:
                                          cfg.resolved_head_dim, policy.active, frozen_fmt,
                                          self._n_frozen, device=self.device)
             self.pools.append(pool)
+        # enc-dec: the write-once cross pages, indexed by the same page ids
+        self.cross_pool = (kvc.init_cross_pool(cfg.n_layers, self._n_pages, page,
+                                               cfg.n_kv_heads, cfg.resolved_head_dim,
+                                               policy.cross, device=self.device)
+                           if self._encdec else None)
         self.active: List[Optional[Request]] = [None] * self.slots
         self.queue: List[Request] = []
         self.preempted: List[_Spill] = []
@@ -356,6 +397,9 @@ class Server:
         self.slot_shared: List[int] = [0] * self.slots
         self._prefix = kvc.PrefixCache(page) if config.prefix_cache else None
         self.page_table = np.full((self.slots, self.pages_per_slot), self._n_pages, np.int32)
+        self.slot_cross: List[List[int]] = [[] for _ in range(self.slots)]
+        self.cross_table = np.full((self.slots, max(1, self._cross_pp)), self._n_pages, np.int32)
+        self.enc_lengths = np.zeros(self.slots, np.int32)
         self.lengths = np.zeros(self.slots, np.int32)
         self._slot_seq = [0] * self.slots  # arrival sequence of the occupant
         self._slot_since = [0] * self.slots  # step admitted or resumed (cooldown)
@@ -470,23 +514,46 @@ class Server:
         self.page_table[slot, :len(owned)] = owned
         return ids
 
+    def _alloc_cross(self, slot: int) -> List[int]:
+        """The write-once cross pages of an enc-dec request's encoder
+        sequence, from the same free list."""
+        ids = [self._take_page() for _ in range(self._cross_pp)]
+        for pid in ids:
+            self.page_refs[pid] += 1
+        self.slot_cross[slot] = ids
+        self.cross_table[slot, :len(ids)] = ids
+        return ids
+
     def _ids(self, pids: List[int]) -> torch.Tensor:
         return torch.as_tensor(np.asarray(pids, np.int64)).to(self.device)
 
     def _release_slot(self, slot: int):
-        """Drop every page mapping of ``slot`` and clear its row."""
-        for pid in self.slot_pages[slot]:
+        """Drop every page mapping of ``slot`` (its cross pages too) and
+        clear its row."""
+        for pid in self.slot_pages[slot] + self.slot_cross[slot]:
             self._release_page(pid)
         self.slot_pages[slot] = []
+        self.slot_cross[slot] = []
         self.slot_shared[slot] = 0
         self.page_table[slot] = self._null_page
+        self.cross_table[slot] = self._null_page
+        self.enc_lengths[slot] = 0
         self.lengths[slot] = 0
         self.active[slot] = None
 
+    def _prefix_root(self, req: Request) -> int:
+        """The radix root of ``req``'s prefix walks and inserts: the global
+        root, or for enc-dec the root of its frames digest."""
+        if not self._encdec:
+            return kvc._PREFIX_ROOT
+        return self._prefix.root_for(req.frames_digest())
+
     # -- admission -------------------------------------------------------------
     def _worst_case_pages(self, req: Request) -> int:
+        """Pages ``req`` can ever hold: prompt + max_new capped at max_seq,
+        plus its cross pages."""
         return kvc.pages_needed(min(len(req.prompt) + req.max_new, self.max_seq),
-                                self.page_size)
+                                self.page_size) + self._cross_pp
 
     def submit(self, req: Request):
         if not len(req.prompt):
@@ -501,6 +568,14 @@ class Server:
         if len(req.prompt) >= self.max_seq:
             raise ValueError(f"request {req.rid}: prompt length {len(req.prompt)} must be "
                              f"< max_seq={self.max_seq} (no room left to decode)")
+        if self._encdec:
+            if req.frames is None:
+                raise ValueError(f"request {req.rid}: enc-dec serving needs per-request "
+                                 "encoder frames (Request.frames)")
+            if req.frames.shape[0] != self.cfg.encoder_seq:
+                raise ValueError(f"request {req.rid}: frames length {req.frames.shape[0]} "
+                                 f"!= encoder_seq={self.cfg.encoder_seq} (pad the input; "
+                                 "the encoder program is fixed-shape)")
         if self._worst_case_pages(req) > self._n_pages:
             raise ValueError(f"request {req.rid}: needs {self._worst_case_pages(req)} pages "
                              f"but the pool has {self._n_pages}; raise pool_pages or shrink "
@@ -566,7 +641,8 @@ class Server:
             shared_pids: List[int] = []
             if spill.shared_pages:
                 ctx = list(req.prompt) + list(req.out[:-1])
-                shared_pids = self._prefix.walk(ctx, max_pages=spill.shared_pages)
+                shared_pids = self._prefix.walk(ctx, max_pages=spill.shared_pages,
+                                                root=self._prefix_root(req))
                 if len(shared_pids) < spill.shared_pages:
                     # part of the shared prefix was reclaimed meanwhile: the
                     # private bytes no longer abut it, re-prefill the tail
@@ -576,7 +652,8 @@ class Server:
             free -= self._parked_among(shared_pids)
             need = min(kvc.pages_needed(spill.ctx_len, page) - spill.shared_pages
                        + self.headroom_pages,
-                       self._worst_case_pages(req) - spill.shared_pages)
+                       self._worst_case_pages(req) - self._cross_pp - spill.shared_pages)
+            need += self._cross_pp
             if free - need < (self.resume_watermark if any_active else 0):
                 return False
             if kvc.payload_checksum(spill.payload) != spill.crc:
@@ -587,7 +664,7 @@ class Server:
                 return self._admit_one(slot)
             self.preempted.remove(spill)
             self._spill_bytes -= spill.nbytes
-            self._resume(slot, spill, shared_pids, need)
+            self._resume(slot, spill, shared_pids, need - self._cross_pp)
             return True
         if fresh is None:
             return False
@@ -598,7 +675,8 @@ class Server:
         if self._prefix is not None:
             # the last context token always streams (its logits seed
             # decode), which also keeps the boundary page private
-            hits = self._prefix.walk(ctx, max_pages=(n - 1) // page)
+            hits = self._prefix.walk(ctx, max_pages=(n - 1) // page,
+                                     root=self._prefix_root(req))
         free -= self._parked_among(hits)
         if self.scheduler == "reserve":
             need = self._worst_case_pages(req) - len(hits)
@@ -606,7 +684,8 @@ class Server:
                 return False
         else:
             need = min(kvc.pages_needed(n, page) - len(hits) + self.headroom_pages,
-                       self._worst_case_pages(req) - len(hits))
+                       self._worst_case_pages(req) - self._cross_pp - len(hits))
+            need += self._cross_pp
             if free - need < (self.low_watermark if any_active else 0):
                 return False
         self.queue.pop(0)
@@ -618,7 +697,9 @@ class Server:
             self.lengths[slot] = len(hits) * page
             self.stats["prefix_hit_pages"] += len(hits)
             self.stats["prefix_hit_tokens"] += len(hits) * page
-        self._alloc(slot, need)
+        self._alloc(slot, need - self._cross_pp)
+        if self._encdec:
+            self._alloc_cross(slot)
         if not self._mixed_step:
             self._prefill_slot(slot, req)
             return True
@@ -652,13 +733,22 @@ class Server:
     def _tensor(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr, np.int32)).to(self.device)
 
+    def _state(self, table, lengths, rows, chunk_len=None) -> kvc.PagedState:
+        """The step's PagedState; for enc-dec with ``rows``' cross tables
+        and encoder lengths."""
+        return kvc.PagedState(
+            self._tensor(table), self._tensor(lengths),
+            chunk_len=None if chunk_len is None else self._tensor(chunk_len),
+            cross_table=self._tensor(self.cross_table[rows]) if self._encdec else None,
+            enc_lengths=self._tensor(self.enc_lengths[rows]) if self._encdec else None)
+
     def _run(self, tokens, state, pmask: Optional[np.ndarray] = None) -> torch.Tensor:
         """One program; ``pmask`` (a bool per logits row) sets the rows a
         fault plan poisons to NaN, upstream of the callers' isfinite
         check, so injection runs the real detection path."""
         self.stats["programs"] += 1
         logits = api.decode_step(self.params, self.cfg, self._tensor(tokens), self.pools,
-                                 state, a_fmt=self.a_fmt)
+                                 state, a_fmt=self.a_fmt, cross=self.cross_pool)
         if pmask is not None and pmask.any():
             poison = torch.as_tensor(pmask).to(self.device)
             logits = torch.where(poison[:, None], torch.full_like(logits, math.nan), logits)
@@ -682,6 +772,14 @@ class Server:
         fresh = req.resume_ctx is None
         req.resume_ctx = None
         n, page = len(ctx), self.page_size
+        if self._encdec:
+            # the encoder runs once per admission, writing the slot's cross pages
+            frames = torch.as_tensor(np.asarray(req.frames, np.float32))[None]
+            api.encode_cross_pages(self.params, self.cfg, frames, self.cross_pool,
+                                   self._tensor(self.cross_table[slot:slot + 1]),
+                                   a_fmt=self.a_fmt)
+            self.stats["programs"] += 1
+            self.enc_lengths[slot] = self.cfg.encoder_seq
         start = pos = int(self.lengths[slot])
         if self._prefix is not None:
             self._prefix.assert_unfrozen(self.slot_pages[slot][start // page:
@@ -694,8 +792,7 @@ class Server:
         while pos < n:
             take, padded, w, table = self._chunk_plan(slot, n, pos, self.prefill_token_budget)
             toks = [ctx[pos: pos + take] + [0] * (padded - take)]
-            state = kvc.PagedState(self._tensor(table), self._tensor([pos]),
-                                   chunk_len=self._tensor([take]))
+            state = self._state(table, [pos], slice(slot, slot + 1), chunk_len=[take])
             last = fresh and pos + take == n
             nxt, row_ok = self._pick(self._run(toks, state), samp if last else None)
             ok = ok and bool(row_ok[0])
@@ -729,7 +826,8 @@ class Server:
             return
         own = self.slot_pages[slot]
         if not self._mixed_precision:
-            canon = self._prefix.insert(req.prompt[:n_full * page], own[:n_full])
+            canon = self._prefix.insert(req.prompt[:n_full * page], own[:n_full],
+                                        root=self._prefix_root(req))
             for i in range(shared, n_full):
                 if canon[i] != own[i]:  # duplicate content: adopt the canonical
                     dup = own[i]
@@ -741,7 +839,7 @@ class Server:
                     self._release_page(dup)
             self.slot_shared[slot] = n_full
             return
-        canon = self._prefix.walk(req.prompt, max_pages=n_full)
+        canon = self._prefix.walk(req.prompt, max_pages=n_full, root=self._prefix_root(req))
         end = shared
         for i in range(shared, n_full):
             src = own[i]
@@ -762,7 +860,7 @@ class Server:
             self._release_page(src)
             end = i + 1
         if end > shared:
-            self._prefix.insert(req.prompt[:end * page], own[:end])
+            self._prefix.insert(req.prompt[:end * page], own[:end], root=self._prefix_root(req))
         self.slot_shared[slot] = end
 
     # -- preemption by page steal ------------------------------------------------
@@ -777,6 +875,8 @@ class Server:
         priv = self.slot_pages[slot][shared:kvc.pages_needed(ctx_len, self.page_size)]
         ids = self._ids(priv)
         payload = [kvc.spill_pages(pool, ids) for pool in self.pools]
+        if self._encdec:  # the cross pages go with the request
+            payload.append(kvc.spill_pages(self.cross_pool, self._ids(self.slot_cross[slot])))
         nbytes = sum(a.nbytes for part in payload for a in part.values())
         # the checksum covers the pristine bytes; the fault hook runs after
         # it (bit rot while spilled, which the resume-time check must catch)
@@ -790,7 +890,8 @@ class Server:
         self._spill_bytes += nbytes
         req.preemptions += 1
         self.stats["preemptions"] += 1
-        self.stats["pages_stolen"] += len(self.slot_pages[slot]) - shared
+        self.stats["pages_stolen"] += (len(self.slot_pages[slot]) - shared
+                                       + len(self.slot_cross[slot]))
         self._release_slot(slot)
 
     def _evict_spill(self, sp: _Spill):
@@ -830,6 +931,10 @@ class Server:
         ids = self._ids(new[:npg_priv])
         for pool, part in zip(self.pools, spill.payload):
             kvc.restore_pages(pool, part, ids)
+        if self._encdec:
+            kvc.restore_pages(self.cross_pool, spill.payload[-1],
+                              self._ids(self._alloc_cross(slot)))
+            self.enc_lengths[slot] = self.cfg.encoder_seq
         self.lengths[slot] = spill.ctx_len
         # the next draw's key is recomputed from the request; the spill's
         # copy of the stream position must agree with it
@@ -863,7 +968,8 @@ class Server:
         starts past them."""
         page = self.page_size
         shared = self.slot_shared[slot]
-        hits = self._prefix.walk(ctx, max_pages=(len(ctx) - 1) // page)
+        hits = self._prefix.walk(ctx, max_pages=(len(ctx) - 1) // page,
+                                 root=self._prefix_root(self.active[slot]))
         if len(hits) <= shared:
             return
         own = self.slot_pages[slot]
@@ -995,7 +1101,7 @@ class Server:
                 smp.fill_slot(self._samp, s, req.sampling, len(req.out))
             else:
                 smp.clear_slot(self._samp, s)
-        state = kvc.PagedState(self._tensor(self.page_table), self._tensor(self.lengths))
+        state = self._state(self.page_table, self.lengths, slice(None))
         nxt, ok = self._pick(self._run(tok, state, pmask), self._samp)
         for s, req in enumerate(self.active):
             if req is not None:
@@ -1088,10 +1194,13 @@ class Server:
         priv = list(self.slot_pages[slot][self.slot_shared[slot]:])
         if include_null:
             priv.append(self._null_page)
-        if not priv:
-            return
-        ids = self._ids(priv)
-        for pool in self.pools:
+        parts = [(pool, priv) for pool in self.pools]
+        if self._encdec:
+            parts.append((self.cross_pool, self.slot_cross[slot]))
+        for pool, pids in parts:
+            if not pids:
+                continue
+            ids = self._ids(pids)
             for name, leaf in pool.items():
                 if "_fz" not in name and leaf.numel():
                     leaf[:, ids] = 0
@@ -1133,11 +1242,11 @@ class Server:
             ctx = req.resume_ctx if req.resume_ctx is not None else req.prompt
             diag.append({"rid": req.rid, "state": "queued", "since": req.since,
                          "out_tokens": len(req.out), "ctx_len": len(ctx),
-                         "pages_needed": kvc.pages_needed(len(ctx), page)})
+                         "pages_needed": kvc.pages_needed(len(ctx), page) + self._cross_pp})
         for sp in self.preempted:
             diag.append({"rid": sp.req.rid, "state": "spilled", "since": sp.req.since,
                          "out_tokens": len(sp.req.out), "ctx_len": sp.ctx_len,
-                         "pages_needed": kvc.pages_needed(sp.ctx_len, page),
+                         "pages_needed": kvc.pages_needed(sp.ctx_len, page) + self._cross_pp,
                          "spill_bytes": sp.nbytes})
         for s, req in enumerate(self.active):
             if req is not None:
@@ -1194,7 +1303,7 @@ class Server:
         base = self._frozen_base
         all_ids = list(range(self._n_pages)) + list(range(base, base + self._n_frozen))
         mapped = Counter()
-        for ids in self.slot_pages:
+        for ids in self.slot_pages + self.slot_cross:
             mapped.update(ids)
         for pid in all_ids:
             if self.page_refs[pid] != mapped.get(pid, 0):
@@ -1238,6 +1347,11 @@ class Server:
                     if pid >= base:
                         v.append(f"slot {slot}: private page {pid} is a frozen FP4 logical "
                                  "id — no write path may own a packed page")
+        for slot, ids in enumerate(self.slot_cross):
+            for pid in ids:
+                if pid >= base:
+                    v.append(f"slot {slot}: cross page {pid} is a frozen FP4 logical id (cross "
+                             "pages live in their own write-once pool)")
         if self._prefix is not None:
             for s, req in enumerate(self.active):
                 if req is None:
@@ -1252,6 +1366,7 @@ class Server:
                 "step": self._step_no, "tick": self._tick,
                 "page_refs": self.page_refs.tolist(),
                 "slot_pages": [list(p) for p in self.slot_pages],
+                "slot_cross": [list(p) for p in self.slot_cross],
                 "slot_shared": list(self.slot_shared),
                 "free_pages": list(self.free_pages),
                 "free_frozen": list(self.free_frozen),
@@ -1279,13 +1394,18 @@ class Server:
             return 0.0
         return self.stats["decoded_tokens"] / (self.stats["programs"] * self.slots)
 
+    def _page_pools(self) -> List[Dict]:
+        """The self-attention pools, then the cross pool (enc-dec)."""
+        return self.pools + ([self.cross_pool] if self._encdec else [])
+
     def kv_bytes_per_token(self) -> float:
-        """Active-pool bytes per token slot across the layer stack."""
-        return sum(kvc.pool_bytes_per_token(p) for p in self.pools)
+        """Active-pool bytes per token slot across the layer stack (cross
+        pages included)."""
+        return sum(kvc.pool_bytes_per_token(p) for p in self._page_pools())
 
     def kv_bf16_bytes_per_token(self) -> float:
         """What the same pools would cost per token holding bf16 values."""
-        return sum(kvc.bf16_bytes_per_token(p) for p in self.pools)
+        return sum(kvc.bf16_bytes_per_token(p) for p in self._page_pools())
 
     @property
     def reusable_pages(self) -> List[int]:
@@ -1301,8 +1421,8 @@ class Server:
         """Live (mapped or parked) pages per class, what each class costs
         per token, and the blended bytes per token of everything resident."""
         page = self.page_size
-        active_pb = sum(kvc.page_bytes(p) for p in self.pools)
-        frozen_pb = sum(kvc.page_bytes(p, frozen=True) for p in self.pools)
+        active_pb = sum(kvc.page_bytes(p) for p in self._page_pools())
+        frozen_pb = sum(kvc.page_bytes(p, frozen=True) for p in self._page_pools())
         parked = set(self.reusable_pages)
         base = self._frozen_base
         n_active = sum(1 for pid in range(self._n_pages)

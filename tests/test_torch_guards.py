@@ -5,6 +5,7 @@ import dataclasses
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,12 +45,12 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("encoder_layers", 2, "item 12"), ("temperature", 0.7, "item 9")])
+    ("ssm", "mamba2", "item 12"), ("mtp_depth", 1, "item 12"), ("temperature", 0.7, "item 9")])
 def test_unported_serving_options_raise(field, value, item):
-    """What the port still refuses names its ROADMAP item: the enc-dec
-    family (queue 1, item 12; refused as its params are built). Sampled
-    decoding (item 9) is ported: ``temperature > 0`` validates, and the
-    bounds checks still raise."""
+    """What the port still refuses names its ROADMAP item: the recurrent
+    families and multi-token prediction (queue 1, item 12; refused as their
+    params are built). Sampled decoding (item 9) is ported: ``temperature >
+    0`` validates, and the bounds checks still raise."""
     if field == "temperature":
         assert serve.SamplingParams(temperature=value).validate().temperature == value
         for bad, match in ((dict(temperature=-value), "temperature"),
@@ -58,12 +59,60 @@ def test_unported_serving_options_raise(field, value, item):
             with pytest.raises(ValueError, match=match):
                 serve.SamplingParams(**bad).validate()
         return
+    if field == "ssm":
+        from repro_torch.models.config import SSMSpec
+
+        value = SSMSpec(kind=value)
     cfg = dataclasses.replace(SMOKE, **{field: value})
     with pytest.raises(NotImplementedError, match=item):
         srv = serve.Server(api.init_params(cfg, seed=0, device="cpu"), cfg,
                            serve.ServerConfig(slots=1, max_seq=64, page_size=8), device="cpu")
         srv.submit(serve.Request(rid=0, prompt=[1, 2, 3], max_new=2))
         srv.run_until_drained()
+
+
+@pytest.mark.parametrize("name", ["opt-125m", "olmo-1b", "minitron-8b", "nemotron-4-340b",
+                                  "llava-next-34b", "whisper-tiny", "minicpm3-4b",
+                                  "olmoe-1b-7b"])
+def test_no_module_refuses_a_ported_config(name):
+    """Every config the port carries (dense, VLM, enc-dec, MLA, MoE) builds,
+    serves a request and runs the cache-free forward where its blocks have
+    one; no refusal names item 12 for them."""
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke(name)
+    params = api.init_params(cfg, seed=0, device="cpu")
+    srv = serve.Server(params, cfg, serve.ServerConfig(slots=1, max_seq=64, page_size=8),
+                       device="cpu")
+    frames = (np.zeros((cfg.encoder_seq, cfg.d_model), np.float32) if cfg.encoder_layers
+              else None)
+    srv.submit(serve.Request(rid=0, prompt=[1, 2, 3], max_new=2, frames=frames))
+    assert [r.status for r in srv.run_until_drained()] == ["ok"]
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames)[None]
+    if name in ("minicpm3-4b", "olmoe-1b-7b"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            api.forward_hidden(params, cfg, batch)
+    else:
+        assert api.forward_hidden(params, cfg, batch)[0].shape == (1, 4, cfg.d_model)
+
+
+def test_refusals_name_item_12_only_for_the_recurrent_families_and_mtp():
+    """The port's refusals that name item 12 speak of the recurrent
+    families and multi-token prediction, never of the enc-dec family or the
+    vision/audio front-ends."""
+    src = ROOT / "src" / "repro_torch"
+    named = 0
+    for path in sorted(src.rglob("*.py")):
+        lines = path.read_text().splitlines()
+        for i, line in enumerate(lines):
+            if "item 12" in line:
+                named += 1
+                context = " ".join(lines[max(0, i - 2): i + 1])
+                assert not re.search(r"enc-dec|encoder|front-end|frontend|vision", context), \
+                    (str(path), context)
+    assert named
 
 
 def test_no_refusal_names_sampling_or_frontend():
