@@ -71,8 +71,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               injected fault, and a profiled decode step;
 10. moe cpu -- phase 9's model cut to 2 layers against the CPU plain path
               (2 requests: a prefill chunk and 1 decode step),
-              free-running and teacher-forced at each MoE layer and each
-              expert GEMM call, with the router's experts compared and two
+              teacher-forced at each MoE layer and each expert GEMM call
+              (free-running against the plain versions on the card, a
+              gross check), with the router's experts compared and two
               injected faults (wd's LoRC dropped, one expert of wu reading
               its neighbour's weights), on phase 9's seed alone;
 11. kernel api -- the kernels no served path reaches, through the kernel
@@ -174,9 +175,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               each decoder block and its cross-attention, one cross page's
               s_max doubled and the encoder's last layer skipped each read
               above BLOCK_RTOL there. The encoder's time at admission, the
-              decode step and tokens/s are printed, not gated. At most 60 s.
+              decode step and tokens/s are printed, not gated. At most 60 s;
+17. recurrent -- xlstm-125m (12 layers, d_model 768) and zamba2-1.2b (38
+              layers, d_model 2048) at full width, random weights from the
+              seed packed on the card, each on a server asking for the mixed
+              engine, which resolves to the alternating one over state slabs
+              (no prefix cache), audited every step: 4 greedy requests (16
+              new tokens) ok, fully backed, with every program's launches
+              equal to the invariant (xLSTM 42 GEMMs, Zamba2 118 GEMMs, and
+              7 decode attention launches a decode step); then the same
+              traffic on 2 slabs for 4 slots, where a priority-1 request
+              steals a slab and its victim resumes from the spill: the
+              streams bit-identical to the fully backed ones; tokens/s
+              printed, not gated. Then each cut to 2 layers against the CPU
+              plain path (2 requests: an exact prefill chunk and 2 decode
+              steps), teacher-forced per block within BLOCK_RTOL, with a
+              recycled slab not reset and the conv tail shifted by one token
+              each read at least 2 x BLOCK_RTOL. At most 75 s.
 
-Phase 3 also checks and times MiniCPM3's kernels (the GEMM at its 7
+Phase 3 also checks and times the recurrent families' shapes (row 1 at
+xLSTM's and Zamba2's 10 (K, N), among them N = 8384, timed at M = 4 and
+checked at a prefill chunk's M = 128; row 2 at H = KV = 32, hd 64) and
+MiniCPM3's kernels (the GEMM at its 7
 shapes, the batched and transposed GEMM at E=40, and the latent decode
 kernel over bf16, FP8 and FP8 + FP4 frozen pages) and OLMoE's (the GEMM at
 2048 -> 2048, the batched GEMM with FP8 activations over 64 expert slabs
@@ -1025,6 +1045,16 @@ def _mla_case(torch, timer, gen, fmt, frozen):
 
 MINICPM3_GEMMS = ((2560, 768), (768, 3840), (2560, 288), (2560, 2560), (2560, 6400),
                   (2560, 6400), (6400, 2560))  # (K, N): wq_a wq_b wkv_a wo gate up down
+# slice 14, (K, N) of a decode step's row-1 launches. xlstm-125m, one mLSTM /
+# sLSTM pair: up_proj, wq, wk, down_proj, w_gates, ffn_up, ffn_down.
+# zamba2-1.2b: in_proj (N = 2 x 4096 + 2 x 64 + 64 = 8384, no multiple of 128)
+# and out_proj a Mamba2 layer; q, k, v, o, up and down a shared-block invocation
+XLSTM_PAIR_GEMMS = ((768, 3072), (1536, 1536), (1536, 1536), (1536, 768), (768, 3072),
+                    (768, 2048), (1024, 768))
+ZAMBA2_LAYER_GEMMS = ((2048, 8384), (4096, 2048))
+ZAMBA2_SHARED_GEMMS = ((2048, 2048),) * 4 + ((2048, 8192), (8192, 2048))
+RECURRENT_GEMMS = sorted(set(XLSTM_PAIR_GEMMS + ZAMBA2_LAYER_GEMMS + ZAMBA2_SHARED_GEMMS))
+RECURRENT_CHUNK_M = 128  # a prefill chunk's rows, checked beside the decode step's 4
 
 
 def phase_kernels(torch):
@@ -1108,7 +1138,35 @@ def phase_kernels(torch):
     mla[("fp8_e4m3", True)]["fault_combine_drops_last_split"] = mla_fault
     gemm[(4, 2048, 2048)] = _w4a8_case(torch, timer, 4, 2048, 2048, gen)  # OLMoE's q, k, v, o
     moe, olmoe_attn = _olmoe_kernels(torch, timer, gen)
-    return gemm, attn, frozen, batched, mla, moe, olmoe_attn
+    recurrent = _recurrent_kernels(torch, timer, gen, gemm)
+    return gemm, attn, frozen, batched, mla, moe, olmoe_attn, recurrent
+
+
+def _recurrent_kernels(torch, timer, gen, gemm):
+    """Slice 14: the recurrent families' shapes. Row 1 at every (K, N) of
+    RECURRENT_GEMMS, timed at a decode step's M = 4 (the shapes phase 4 or
+    OLMoE already timed are reused) and checked at a prefill chunk's M =
+    128, Zamba2's in_proj (N = 8384, a ragged last tile) among them; row 2
+    at Zamba2's shared block (H = KV = 32, hd 64, g = 1) over FP8 pages,
+    timed at the 4 ragged contexts of 2048 and checked at its served plan
+    (8 pages a row of 64) and the split plan's edges. Returns {"gemm":
+    {(4, K, N): row}, "attn": row}."""
+    rows = {}
+    for k, n in RECURRENT_GEMMS:
+        row = gemm.get((4, k, n)) or _w4a8_case(torch, timer, 4, k, n, gen)
+        p, *_, err = _w4a8_check(torch, RECURRENT_CHUNK_M, k, n, gen)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        rows[(4, k, n)] = row
+        log(f"    w4a8_fused M={RECURRENT_CHUNK_M} {k:4d}->{n:4d} group {p.group_size} "
+            f"(recurrent families' prefill chunk): max|err| {err:.3g}")
+    attn = _attn_case(torch, timer, "fp8_e4m3", gen, kv=32, hd=64)
+    err = _attn_check(torch, "fp8_e4m3", gen, kv=32, hd=64, lens=[300, 137, 64, 1], pp=8)[-1]
+    err2, _ = _attn_edge_checks(torch, gen, 32, 64)
+    attn["max_abs_err"] = max(attn["max_abs_err"], err, err2)
+    log(f"    paged_decode_attn fp8 pages H = KV = 32 hd 64 (zamba2-1.2b's shared block), "
+        f"served plan (8 pages of 64, lens 300/137/64/1) and split edges: max|err| "
+        f"{max(err, err2):.3g}")
+    return {"gemm": rows, "attn": attn}
 
 
 def _olmoe_kernels(torch, timer, gen):
@@ -2054,10 +2112,11 @@ def phase_moe_cpu(torch, cfg, packed):
     and the combine add; the forcing hides wu's fault there); the router,
     fed the card's hidden states, picks the CPU's experts for every token
     but where the CPU's gap between its 8th and 9th probability is below
-    MOE_TIE. Also read free-running, a gross check of the whole path: the
-    sound routes within MOE_LOGIT_RTOL, which no fault has to exceed. (A
-    second seed, 2 layers packed anew from SEED + 1, was read the same way
-    until phase 14 took its time.)"""
+    MOE_TIE. Also read free-running against the plain versions on the card,
+    a gross check of the whole path: the card within MOE_LOGIT_RTOL, which
+    no fault has to exceed. (A second seed, 2 layers packed anew from SEED
+    + 1, was read the same way until phase 14 took its time; the
+    free-running pass ran the CPU route too until phase 17 took its time.)"""
     from repro_torch.models.layers import PackedLinear
     from repro_torch.models.params import tree_map
 
@@ -2071,16 +2130,17 @@ def phase_moe_cpu(torch, cfg, packed):
     kw = dict(logit_rtol=MOE_LOGIT_RTOL, n_dec=1)
     routes = _routes(torch, packed, "moe")
     show = lambda rd, key, f=".4g": ", ".join(f"{n} {rd[n][key]:{f}}" for n in routes if n != "cpu")
-    free, agree = _compare(torch, cfg, routes, forced=False, **kw)
+    free, agree = _compare(torch, cfg, {k: v for k, v in routes.items() if k != "cpu"},
+                           forced=False, ref="card_plain", **kw)
     log(f"[10 moe cpu] OLMoE at full width, 2 layers: 2 requests (1 prefill chunk + 1 decode "
         f"step) against the CPU plain path")
-    log(f"    free-running (seed {SEED}), largest |logit err| / largest |logit| (gross bound "
-        f"{MOE_LOGIT_RTOL}): {show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, "
-        f"all {agree[1]} decisive ones")
-    for name in ("card", "card_plain"):
-        if free[name]["logits"] > MOE_LOGIT_RTOL:
-            fail(f"free-running logits of route {name} differ from the CPU plain path by "
-                 f"{free[name]['logits']:.4g} of the largest |logit| > {MOE_LOGIT_RTOL}")
+    free_read = ", ".join(f"{n} {r['logits']:.4g}" for n, r in free.items() if n != "card_plain")
+    log(f"    free-running (seed {SEED}) against the plain versions on the card, largest |logit "
+        f"err| / largest |logit| (gross bound {MOE_LOGIT_RTOL}): {free_read}; greedy tokens "
+        f"agree {agree[0]}/{agree[2]}, all {agree[1]} decisive ones")
+    if free["card"]["logits"] > MOE_LOGIT_RTOL:
+        fail(f"free-running logits of the card differ from the plain versions on the card by "
+             f"{free['card']['logits']:.4g} of the largest |logit| > {MOE_LOGIT_RTOL}")
     op, _ = _compare(torch, cfg, routes, forced=True, site="moe_ops", **kw)
     for key in ("wu", "wg", "wd"):
         log(f"    teacher-forced expert GEMM calls (row 1d), {key}, largest |output err| / "
@@ -3826,6 +3886,284 @@ def phase_encdec(torch, card):
     return launches, live
 
 
+# -- phase 17: the recurrent families over state slabs --------------------------------
+RECURRENT_BUDGET_S = 75
+RECURRENT = ("xlstm-125m", "zamba2-1.2b")
+RECURRENT_PROMPTS = (200, 90, 37, 140)  # tokens; rid 2 arrives at priority 1
+RECURRENT_NEW = 16
+RECURRENT_SLABS = 2  # the starved pool: 2 slabs for 4 slots
+# an injected fault must read this many BLOCK_RTOL or more (the CPU rehearsal
+# at SMOKE widths read 0.24-0.27 for the slab not reset, whose leftover
+# fades within a few tokens of a 37- or 100-token chunk, and 1.04-1.12 for
+# the shifted conv tail)
+RECURRENT_FAULT = 2.0
+
+
+def _recurrent_per_program(cfg):
+    """(row-1 GEMMs, row-2 launches) of one program of ``cfg``: xLSTM 7 a
+    mLSTM / sLSTM pair and no attention; Zamba2 in_proj and out_proj a
+    Mamba2 layer and q, k, v, o, up and down a shared-block invocation, whose
+    paged decode launches once a decode step (a prefill chunk attends in
+    plain PyTorch, as the reference's does)."""
+    from repro_torch.models import api
+    from repro_torch.models.hybrid import n_attn_invocations
+
+    if not api._is_hybrid(cfg):
+        return len(XLSTM_PAIR_GEMMS) * cfg.n_layers // 2, 0
+    n_inv = n_attn_invocations(cfg)
+    return len(ZAMBA2_LAYER_GEMMS) * cfg.n_layers + len(ZAMBA2_SHARED_GEMMS) * n_inv, n_inv
+
+
+def _recurrent_server(torch, cfg, packed, pool_slabs=None):
+    """The reference Server's defaults for a slab family (the mixed engine
+    asked for, FP8 pages for the hybrid's shared block), 4 slots, audited
+    every step; ``pool_slabs`` starves the slab pool. The engine must
+    resolve to the alternating one and the prefix cache to none."""
+    from repro_torch.runtime import serve
+
+    srv = serve.Server(packed, cfg, serve.ServerConfig(
+        slots=4, max_seq=512, page_size=64, a_fmt="fp8_e4m3",
+        cache=serve.CachePolicy(active_fmt="fp8_e4m3"), prefix_cache=True,
+        pool_slabs=pool_slabs, audit_every=1,
+        scheduler=serve.SchedulerConfig(engine="mixed", steal_cooldown=1)))
+    if srv.engine != "alternating" or srv._prefix is not None:
+        fail(f"{cfg.name}: engine {srv.engine!r}, prefix cache {srv._prefix is not None}: a slab "
+             "family serves on the alternating engine without a prefix cache")
+    return srv
+
+
+def _recurrent_traffic(cfg):
+    """4 greedy requests: prompts of RECURRENT_PROMPTS tokens from the seed,
+    RECURRENT_NEW new tokens, rid 2 at priority 1 (it steals a slab on a
+    starved pool)."""
+    import numpy as np
+
+    from repro_torch.runtime import serve
+
+    rng = np.random.default_rng(SEED + 17)
+    return [serve.Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, n).tolist(),
+                          max_new=RECURRENT_NEW, priority=int(i == 2))
+            for i, n in enumerate(RECURRENT_PROMPTS)]
+
+
+def _recurrent_serve(torch, cfg, packed, pool_slabs=None):
+    """The traffic on one server, every launch counter set to 0 just before
+    and read just after, audited after every step. Returns (streams,
+    launches, stats, wall seconds)."""
+    srv = _recurrent_server(torch, cfg, packed, pool_slabs)
+    reqs = _recurrent_traffic(cfg)
+    _set_counts(dict.fromkeys(_counts(), 0))
+    wall = _drain_audited(torch, srv, reqs)
+    launches = _counts()
+    results = [r.result() for r in srv.finished]
+    if len(results) != len(reqs) or not all(r.ok for r in results):
+        fail(f"{cfg.name}: not every request ended ok: {[(r.rid, r.status) for r in results]}")
+    audit = srv.audit()
+    if audit["slabs_owned"] or audit["slabs_free"] != srv._n_slabs or audit["active"]:
+        fail(f"{cfg.name}: slabs not all free after the drain: {audit}")
+    return {r.rid: list(r.tokens) for r in results}, launches, dict(srv.stats), wall
+
+
+def _recurrent_routes(torch, cfg, packed):
+    """The 2-layer model's routes for ``_recurrent_compare``: name ->
+    (params, device). ``no_reset`` and ``conv_shift`` run the card's kernels
+    on the card's weights; their faults are applied to their slabs."""
+    from repro_torch.models.layers import PackedLinear
+    from repro_torch.models.params import tree_map
+
+    is_packed = lambda x: isinstance(x, PackedLinear)
+    to_cpu = lambda t: t.apply(lambda x: x.cpu()) if is_packed(t) else t.cpu()
+    return {"card": (packed, DEV), "cpu": (tree_map(to_cpu, packed, is_leaf=is_packed), "cpu"),
+            "no_reset": (packed, DEV), "conv_shift": (packed, DEV)}
+
+
+def _recurrent_compare(torch, cfg, packed, n_dec=2):
+    """The 2-layer model along ``_recurrent_routes``, each with slab pools
+    (and pages) of its own: 2 requests (prompts of 100 and 37 tokens from
+    SEED + 1), each prefilled as one exact chunk into its own slab, then
+    ``n_dec`` decode steps of both, every route fed the card's greedy tokens.
+    Teacher-forced per block: each Mamba2 block and shared attention block
+    (Zamba2) or mLSTM and sLSTM block (xLSTM) of every route takes the card's
+    input to it; the reading is the block's update error over the CPU
+    route's update (Frobenius). The faults: ``no_reset``'s slabs hold a
+    previous owner's state (a 64-token prompt each) when the requests start,
+    as a recycled slab that is not reset would; ``conv_shift`` rolls every
+    conv tail by one token after the prefill. Returns ({route: largest
+    reading}, (agreeing greedy tokens, decisive ones, tokens))."""
+    import numpy as np
+
+    from repro_torch.models import api, hybrid
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import kv_cache as kvc
+    from repro_torch.runtime import serve
+
+    routes = _recurrent_routes(torch, cfg, packed)
+    is_hybrid = api._is_hybrid(cfg)
+    sites = ((hybrid, "mamba2_block"), (hybrid, "_shared_block")) if is_hybrid else \
+        ((tf, "mlstm_block"), (tf, "slstm_block"))
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in (100, 37)]
+    previous = [rng.integers(2, cfg.vocab_size, 64).tolist() for _ in prompts]
+    config = serve.ServerConfig(slots=2, max_seq=256, page_size=64, a_fmt="fp8_e4m3",
+                                cache=serve.CachePolicy(active_fmt="fp8_e4m3"),
+                                prefix_cache=False,
+                                scheduler=serve.SchedulerConfig(engine="alternating"))
+    pools = {name: serve.Server(params, cfg, config, device=d).pools
+             for name, (params, d) in routes.items()}
+    table = np.arange(8, dtype=np.int32).reshape(2, 4)
+    t = lambda a, d: torch.as_tensor(np.asarray(a, np.int32)).to(d)
+    reading = {name: 0.0 for name in routes}
+    agree = [0, 0, 0]
+
+    def run(name, tokens, rows, lengths, chunk_len, lead):
+        params, d = routes[name]
+        trace = []  # (input, update) of every block call, in order
+
+        def hook(fn, shared):
+            def block(p, x, *args, **kw):
+                if lead is not None:
+                    x = lead[len(trace)][0].to(d)
+                y = fn(p, x, *args, **kw)
+                out = y if shared else y[0]
+                trace.append((x, out - x if shared else out))
+                return y
+            return block
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr in sites]
+        for mod, attr, fn in saved:
+            setattr(mod, attr, hook(fn, attr == "_shared_block"))
+        try:
+            st = kvc.PagedState(t(table[rows], d), t(lengths, d),
+                                None if chunk_len is None else t([chunk_len], d),
+                                slabs=t(rows, d))
+            logits = api.decode_step(params, cfg, t(tokens, d), pools[name], st,
+                                     a_fmt="fp8_e4m3")
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+        return logits.float().cpu(), trace
+
+    def step(tokens, rows, lengths, chunk_len=None):
+        out = {"card": run("card", tokens, rows, lengths, chunk_len, None)}
+        for name in routes:
+            if name != "card":
+                out[name] = run(name, tokens, rows, lengths, chunk_len, out["card"][1])
+        for name, (o, _) in out.items():
+            if not bool(torch.isfinite(o).all()):
+                fail(f"{cfg.name}: non-finite logits on route {name}")
+        ref_logits, ref_trace = out["cpu"]
+        for name, (_, trace) in out.items():
+            for (_, y), (_, y0) in zip(trace, ref_trace):
+                y, y0 = y.double().cpu(), y0.double().cpu()
+                reading[name] = max(reading[name], float((y - y0).norm() / y0.norm()))
+        scale = float(ref_logits.abs().max())
+        top2 = out["card"][0].topk(2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > LOGIT_RTOL * scale
+        same = out["card"][0].argmax(-1) == ref_logits.argmax(-1)
+        if bool((decisive & ~same).any()):
+            fail(f"{cfg.name}: greedy tokens differ where the top-2 gap exceeds the tolerance")
+        agree[0] += int(same.sum())
+        agree[1] += int(decisive.sum())
+        agree[2] += len(same)
+        return out["card"][0].argmax(-1).tolist()
+
+    # no_reset: each slab first serves a previous owner's prompt, not reset after
+    for row, prompt in enumerate(previous):
+        run("no_reset", [prompt], [row], [0], len(prompt), None)
+    nxt = []
+    for row, prompt in enumerate(prompts):  # one exact prefill chunk each
+        nxt += step([prompt], [row], [0], len(prompt))
+    for unit in _slab_units(pools["conv_shift"], cfg):
+        conv = unit["conv"]  # (L, slabs + 1, d_conv - 1, C): the last inputs
+        conv[:, :2] = torch.roll(conv[:, :2], 1, dims=2)
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    for _ in range(n_dec):
+        nxt = step(np.array(nxt, np.int32)[:, None], [0, 1], lengths)
+        lengths += 1
+    return reading, agree
+
+
+def _slab_units(pools, cfg):
+    """The slab pools that hold a conv tail: Zamba2's Mamba2 pool, or each
+    xLSTM segment's mLSTM pool."""
+    from repro_torch.models import api
+
+    return [pools["mamba"]] if api._is_hybrid(cfg) else [seg["mlstm"] for seg in pools]
+
+
+def phase_recurrent(torch, card):
+    """xlstm-125m (12 layers) and zamba2-1.2b (38 layers) at full width,
+    random weights from SEED initialized and packed on the card, each served
+    greedily (4 requests, the alternating engine the mixed one resolves to,
+    audited every step) fully backed and then on a slab-starved pool
+    (RECURRENT_SLABS slabs for 4 slots), where rid 2 (priority 1) steals a
+    slab and the victim resumes from its spill: every request ok, the
+    launches of each run equal to its invariant (``_recurrent_per_program``
+    a program; row 2 once an invocation a decode step), the starved streams
+    equal to the fully backed ones bit for bit (slab state is exact f32).
+    Then both cut to 2 layers against the CPU plain path, teacher-forced per
+    block (``_recurrent_compare``), two injected faults reading at least
+    RECURRENT_FAULT x BLOCK_RTOL. Returns {config: the fully backed run's
+    launches}."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for name in RECURRENT:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        cfg, packed, t_pack = _random_packed(torch, name)
+        per, per_attn = _recurrent_per_program(cfg)
+        streams, launches, st, wall = _recurrent_serve(torch, cfg, packed)
+        want = {**dict.fromkeys(launches, 0), "w4a8_fused": per * st["programs"],
+                "paged_decode_attn": per_attn * st["steps"]}
+        if launches != want or min(st["steps"], launches["w4a8_fused"]) <= 0:
+            fail(f"{name}: kernel launches {launches}, want {want} ({st['programs']} programs, "
+                 f"{st['steps']} decode steps)")
+        starved, s_launches, s_st, s_wall = _recurrent_serve(torch, cfg, packed, RECURRENT_SLABS)
+        s_want = {**want, "w4a8_fused": per * s_st["programs"],
+                  "paged_decode_attn": per_attn * s_st["steps"]}
+        if s_launches != s_want:
+            fail(f"{name}: starved pool's launches {s_launches}, want {s_want}")
+        if s_st["preemptions"] < 1 or s_st["resumes"] < 1:
+            fail(f"{name}: the starved pool stole {s_st['preemptions']} and resumed "
+                 f"{s_st['resumes']} times, want >= 1 each")
+        if starved != streams:
+            diff = {rid: (starved[rid], streams[rid]) for rid in streams
+                    if starved[rid] != streams[rid]}
+            fail(f"{name}: starved streams differ from the fully backed ones: {diff}")
+        n_tok = sum(len(v) for v in streams.values())
+        log(f"[17 recurrent] {name} ({cfg.family}; d_model {cfg.d_model}, {cfg.n_layers} layers, "
+            f"vocab {cfg.vocab_size}) on {card}: random init + W4A8 pack on the card "
+            f"{t_pack:.1f} s; fully backed {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} "
+            f"tokens/s ({st['steps']} decode steps, {st['programs'] - st['steps']} prefill "
+            f"chunks), launches {({k: v for k, v in launches.items() if v})} = {per} GEMMs a "
+            f"program, {per_attn} decode attention launches a decode step; starved "
+            f"({RECURRENT_SLABS} slabs for 4 slots) {s_st['preemptions']} steal(s), "
+            f"{s_st['resumes']} resume(s), {s_wall:.2f} s, streams bit-identical; audit clean "
+            f"at every step")
+        out[name] = launches
+        del packed
+        t1 = time.perf_counter()
+        cfg2, packed2, _ = _random_packed(torch, name, n_layers=2)
+        reading, agree = _recurrent_compare(torch, cfg2, packed2)
+        if reading["card"] > BLOCK_RTOL:
+            fail(f"{name}: the card's blocks differ from the CPU plain path by "
+                 f"{reading['card']:.4g} of their update > {BLOCK_RTOL}")
+        for fault in ("no_reset", "conv_shift"):
+            if reading[fault] < RECURRENT_FAULT * BLOCK_RTOL:
+                fail(f"{name}: injected fault {fault} reads {reading[fault]:.4g} < "
+                     f"{RECURRENT_FAULT} x {BLOCK_RTOL}: the comparison cannot tell it from the "
+                     "sound path")
+        log(f"    2 layers of {get_config(name).n_layers} against the CPU plain path (2 requests: "
+            f"a prefill chunk and 2 decode steps), teacher-forced per block, largest |err| / "
+            f"|update| (tolerance {BLOCK_RTOL}): card {reading['card']:.4g}; faults: a recycled "
+            f"slab not reset {reading['no_reset']:.4g}, the conv tail shifted by one token "
+            f"{reading['conv_shift']:.4g} (>= {RECURRENT_FAULT * BLOCK_RTOL:.2g} required); "
+            f"greedy tokens agree {agree[0]}/{agree[2]} ({time.perf_counter() - t1:.1f} s); "
+            f"{name} {time.perf_counter() - t0:.1f} s")
+        del packed2
+    return out
+
+
 def step_sum(rows, n_layers, key):
     """One decode step's sum of a kernel's per-launch rows."""
     if key == "bound_ms":  # the bound of the whole step's bytes and operations
@@ -3907,7 +4245,7 @@ def main():
     card = phase_device()
     phase_build()
     lap(2)
-    gemm, attn, frozen, batched, mla, moe, olmoe_attn = phase_kernels(torch)
+    gemm, attn, frozen, batched, mla, moe, olmoe_attn, recurrent = phase_kernels(torch)
     lap(3)
     cfg, packed, t_pack = _opt_125m()
     log(f"    opt-125m init + W4A8 pack on the card: {t_pack:.1f} s")
@@ -3951,6 +4289,11 @@ def main():
     lap(16)
     if time.perf_counter() - t16 > ENCDEC_BUDGET_S:
         fail(f"phase 16 took {time.perf_counter() - t16:.1f} s > {ENCDEC_BUDGET_S} s")
+    t17 = time.perf_counter()
+    launches_17 = phase_recurrent(torch, card)
+    lap(17)
+    if time.perf_counter() - t17 > RECURRENT_BUDGET_S:
+        fail(f"phase 17 took {time.perf_counter() - t17:.1f} s > {RECURRENT_BUDGET_S} s")
 
     for r in gemm.values():
         r["kind"] = "bf16"
@@ -3958,6 +4301,12 @@ def main():
         r["kind"] = "f32"
     for r in (*batched.values(), *moe.values(), *mla.values()):  # MLA: exact bf16 products
         r["kind"] = "bf16"
+    for r in recurrent["gemm"].values():
+        r["kind"] = "bf16"
+    recurrent["attn"]["kind"] = "f32"
+    xlstm_step = [recurrent["gemm"][(4, k, n)] for k, n in XLSTM_PAIR_GEMMS] * 6
+    zamba2_step = ([recurrent["gemm"][(4, k, n)] for k, n in ZAMBA2_LAYER_GEMMS] * 38
+                   + [recurrent["gemm"][(4, k, n)] for k, n in ZAMBA2_SHARED_GEMMS] * 7)
     # one decode step at 4 slots. opt-125m: per layer q, k, v, o (768->768),
     # up (768->3072) and down (3072->768) at M=4, and one attention launch.
     # MiniCPM3: per layer the 7 GEMMs of MINICPM3_GEMMS at M=4, wv_b and wk_b
@@ -3991,7 +4340,17 @@ def main():
                    "per": "phase 15: 2 requests on each dense / VLM config at 2 layers"},
          "encdec": {"launches": launches_16["w4a8_fused"],
                     "per": "phase 16: whisper-tiny, 8 requests (encoder and cross K/V at "
-                           "M=1500 at each admission)"}},
+                           "M=1500 at each admission)"},
+         "recurrent": {
+             "xlstm": {**entry(xlstm_step, 1), "launches": launches_17["xlstm-125m"]["w4a8_fused"],
+                       "per": "one xlstm-125m decode step: 42 launches at M=4 (7 a mLSTM / "
+                              "sLSTM pair); launches from phase 17, fully backed"},
+             "zamba2": {**entry(zamba2_step, 1),
+                        "launches": launches_17["zamba2-1.2b"]["w4a8_fused"],
+                        "per": "one zamba2-1.2b decode step: 118 launches at M=4 (in_proj "
+                               "2048->8384 and out_proj a Mamba2 layer, q, k, v, o, up, down a "
+                               "shared-block invocation); launches from phase 17, fully backed"},
+             "max_abs_err_m128": max(r["max_abs_err"] for r in recurrent["gemm"].values())}},
         {"name": "paged_decode_attn", "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131",
          "launches": launches["paged_decode_attn"],
@@ -4003,7 +4362,12 @@ def main():
          "encdec": {"launches": launches_16["paged_decode_attn"], "live_max_abs_err": live_16[0],
                     "fault_enc_lengths_one_short": live_16[1],
                     "per": "phase 16: whisper-tiny's cross-attention, 4 launches a decode step "
-                           "over 24 cross pages at kv_len 1500"}},
+                           "over 24 cross pages at kv_len 1500"},
+         "recurrent": {**entry([recurrent["attn"]], 7),
+                       "launches": launches_17["zamba2-1.2b"]["paged_decode_attn"],
+                       "per": "zamba2-1.2b's shared block, 7 launches a decode step (one an "
+                              "invocation), fp8 pages, H = KV = 32, hd 64, B=4, contexts "
+                              "2048/1337/300/1; launches from phase 17, fully backed"}},
         {"name": "paged_decode_attn_frozen", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131 (frozen)",

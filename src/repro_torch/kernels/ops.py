@@ -10,7 +10,7 @@ import torch
 
 from . import ref
 
-__all__ = ["w4a8_matmul", "w4a8_matmul_batched", "paged_decode_attn",
+__all__ = ["w4a8_matmul", "w4a8_matmul_batched", "dequant_packed", "paged_decode_attn",
            "paged_mla_decode_attn", "act_quant", "w4a8_matmul_split", "flash_attention"]
 
 
@@ -35,6 +35,17 @@ def w4a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
         x.reshape(-1, x.shape[-1]).contiguous(), w.codes, w.scale, w.s_max, w.shifts,
         w.lorc_a, w.lorc_b, w_fmt=w.w_fmt, a_fmt=w.a_fmt, group_size=w.group_size)
     return y.reshape(*lead, -1)
+
+
+def dequant_packed(w) -> torch.Tensor:
+    """A PackedLinear (2-D or batched) as dense weights: the bf16 decode
+    of its codes and scales, plus the f32 LoRC term ``lorc_a @ lorc_b``
+    when it has one (f32 then). Plain PyTorch on either device, as the
+    reference computes it outside any kernel; no served GEMM reads it."""
+    out = ref.dequant_packed_ref(w.codes, w.scale, w.w_fmt, w.group_size)
+    if w.lorc_a is not None:
+        out = out + torch.einsum("...or,...ri->...oi", w.lorc_a.float(), w.lorc_b.float())
+    return out
 
 
 def w4a8_matmul_batched(x: torch.Tensor, w, transpose_w: bool = False,

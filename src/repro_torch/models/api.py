@@ -1,6 +1,8 @@
 """Model API (port of ``repro.models.api``): build, init, the paged
 serving step, the enc-dec admission step, and the cache-free forward to
-final hidden states (calibration and perplexity)."""
+final hidden states (calibration and perplexity). The Zamba2 hybrid
+dispatches to ``models.hybrid``, the enc-dec family to ``models.encdec``,
+every other decoder (xLSTM included) to ``models.transformer``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +13,7 @@ from repro_torch.device import resolve_device
 from repro_torch.runtime.kv_cache import PagedState
 
 from . import encdec as _encdec
+from . import hybrid as _hybrid
 from . import transformer as _tf
 from .params import init_tree
 
@@ -21,9 +24,15 @@ def _is_encdec(cfg) -> bool:
     return cfg.encoder_layers > 0
 
 
+def _is_hybrid(cfg) -> bool:
+    return cfg.ssm is not None and cfg.ssm.kind == "mamba2" and cfg.family == "hybrid"
+
+
 def build_def(cfg):
     if _is_encdec(cfg):
         return _encdec.build_encdec(cfg)
+    if _is_hybrid(cfg):
+        return _hybrid.build_hybrid(cfg)
     return _tf.build_lm(cfg)
 
 
@@ -52,10 +61,15 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
     fused (1, slots + S) row) returns (slots + 1, V): one row per slot,
     then the chunk's last true token. An enc-dec decoder also reads its
     cross pages: ``cross`` is the cross pool, ``state.cross_table`` /
-    ``enc_lengths`` index it."""
+    ``enc_lengths`` index it. A recurrent family reads and writes each
+    row's state slab (``state.slabs``): ``caches`` holds its slab pools
+    (the hybrid's {"mamba", "shared_kv"}; xLSTM's {"mlstm", "slstm"} a
+    segment)."""
     if _is_encdec(cfg):
         hidden = _encdec.encdec_forward(params, cfg, tokens, caches=caches, state=state,
                                         a_fmt=a_fmt, cross=cross)
+    elif _is_hybrid(cfg):
+        hidden = _hybrid.hybrid_forward(params, cfg, tokens, caches, state, a_fmt=a_fmt)
     else:
         hidden = _tf.lm_forward(params, cfg, tokens, caches, state, a_fmt=a_fmt)
     if state.prefill is not None:
@@ -81,12 +95,15 @@ def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None):
     d) when given; an enc-dec model encodes ``batch["frames"]`` first.
     Returns ``(hidden (B, S, d), None, aux)`` as the reference does; ``aux``
     (the MoE balance loss) is 0 for the families ported here (MLA and MoE
-    blocks raise, naming ROADMAP queue 1, item 13)."""
+    blocks raise, naming ROADMAP queue 1, item 13). The recurrent families
+    run from their pristine state (the chunked forms over the sequence)."""
     dev = params["embed"].device
     tokens = batch["tokens"].to(dev)
     if _is_encdec(cfg):
         enc = _encdec.encode(params, cfg, batch["frames"], a_fmt=a_fmt)
         hidden = _encdec.encdec_forward(params, cfg, tokens, enc, a_fmt=a_fmt)
+    elif _is_hybrid(cfg):
+        hidden = _hybrid.hybrid_forward(params, cfg, tokens, a_fmt=a_fmt)
     else:
         prefix = batch.get("patches")
         if prefix is None:

@@ -9,9 +9,12 @@ PackedLinear field for a packed one (``segments/0/mixer/attn/wq/codes``,
 reinterpreted through a uint16 view. PackedLinear's static fields are not
 leaves: the formats come from ``policy`` and the group size from the
 shapes. A parameter-free subtree (a ``nonparam_ln`` norm's ``{}``) has no
-leaf in ``flat``; ``from_numpy`` puts it back from ``build_def``. The
-helper that produces ``flat`` imports jax and so lives with the tests, not
-here.
+leaf in ``flat``; ``from_numpy`` puts it back from ``build_def``. Every
+family's tree crosses the same way, Zamba2's stacked ``mamba`` layers and
+``shared`` block and xLSTM's pair leaves included; a batched pack (sLSTM's
+``r_gates``, codes (L, H, out, in/2)) takes its group size from the last
+axes. The helper that produces ``flat`` imports jax and so lives with the
+tests, not here.
 """
 from __future__ import annotations
 

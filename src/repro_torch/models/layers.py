@@ -18,9 +18,9 @@ from repro_torch.core.quantize import fake_quantize_act
 
 from .params import ParamDef
 
-__all__ = ["PackedLinear", "linear", "batched_linear", "packed_head_view", "quant_act",
-           "norm", "norm_params", "activation", "xla_tanh", "mlp_params", "mlp", "rope_freqs",
-           "apply_rope"]
+__all__ = ["PackedLinear", "linear", "as_dense", "batched_linear", "packed_head_view",
+           "quant_act", "norm", "norm_params", "activation", "xla_tanh", "softplus", "log_sigmoid",
+           "mlp_params", "mlp", "rope_freqs", "apply_rope"]
 
 
 @dataclasses.dataclass
@@ -72,6 +72,18 @@ def linear(w, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Ten
     if bias is not None:
         y = y + bias
     return y
+
+
+def as_dense(w, dtype=torch.bfloat16) -> torch.Tensor:
+    """A weight as a dense tensor: a PackedLinear (2-D or batched) is
+    dequantized with its LoRC term (``ops.dequant_packed``), as the
+    reference densifies the few weights its recurrent cells read whole
+    (sLSTM's ``r_gates``); a dense one is returned as it is."""
+    if isinstance(w, PackedLinear):
+        from repro_torch.kernels import ops
+
+        return ops.dequant_packed(w).to(dtype)
+    return w
 
 
 def batched_linear(w, x: torch.Tensor, transpose_w: bool = False,
@@ -177,6 +189,19 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     const = lambda v: torch.tensor(v, dtype=torch.float64).to(dt)
     inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * (x * x)))
     return x * (0.5 * (1.0 + xla_tanh(inner).to(dt)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus's formula, ``logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)), NaN passed through."""
+    zero = torch.zeros_like(x)
+    out = torch.maximum(x, zero) + torch.log1p(torch.exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.log_sigmoid: -softplus(-x)."""
+    return -softplus(-x)
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -1,6 +1,9 @@
 """Decoder-LM assembly (port of ``repro.models.transformer``): segments of
 (mixer x ffn) blocks, the mixer GQA or MLA attention, the ffn a dense MLP or
-an MoE layer (with DeepSeek-style leading dense layers). A ``cross``
+an MoE layer (with DeepSeek-style leading dense layers); xLSTM stacks
+mLSTM / sLSTM pairs (``xlstm_pair`` mixers, no ffn) whose recurrent state
+lives in slabs (``kv_cache.gather_slabs``). Zamba2's hybrid builds on the
+same blocks in ``models.hybrid``. A ``cross``
 segment (the enc-dec decoder, ``models.encdec``) adds a cross-attention
 sub-block after the self-attention; a ``vision_patches`` front-end (LLaVA)
 projects patch embeddings through ``mm_proj`` and prepends them.
@@ -8,9 +11,9 @@ projects patch embeddings through ``mm_proj`` and prepends them.
 Parameters stack per segment with a leading ``(L, ...)`` dim as in the
 reference; a Python loop over the layers takes the place of ``lax.scan``.
 Blocks run over the paged pool (serving) or, for GQA / MLP blocks, with no
-cache over whole sequences (calibration, perplexity). The recurrent
-families and multi-token prediction come with later slices (ROADMAP queue
-1, item 12), the cache-free MLA and MoE blocks with training (item 13)."""
+cache over whole sequences (calibration, perplexity). Multi-token
+prediction comes with a later slice (ROADMAP queue 1, item 12), the
+cache-free MLA and MoE blocks with training (item 13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,13 +21,14 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.runtime.kv_cache import PagedState, pool_keys
+from repro_torch.runtime.kv_cache import PagedState, gather_slabs, scatter_slabs
 
 from .attention import attention, attn_params, paged_cross_attention
 from .layers import PackedLinear, ParamDef, activation, linear, mlp, mlp_params, norm, norm_params
 from .mla import mla_attention, mla_params
 from .moe import moe_layer, moe_params
-from .params import tree_map
+from .params import tree_items, tree_map
+from .xlstm import mlstm_block, mlstm_params, slstm_block, slstm_params
 
 __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_apply",
            "layer_view", "positions_of", "run_segment", "lm_forward", "lm_logits"]
@@ -32,18 +36,25 @@ __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_app
 
 @dataclasses.dataclass(frozen=True)
 class SegmentSpec:
-    mixer: str  # 'gqa' | 'mla' in the port so far
-    ffn: str  # 'mlp' | 'moe'
+    mixer: str  # 'gqa' | 'mla' | 'xlstm_pair'
+    ffn: str  # 'mlp' | 'moe' | 'none'
     count: int
     d_ff: int = 0  # override cfg.d_ff (deepseek dense layers)
     cross: bool = False  # decoder cross-attention (whisper)
 
 
 def segments_for(cfg) -> List[SegmentSpec]:
-    if cfg.ssm is not None or cfg.attn_kind not in ("gqa", "mla") or cfg.mtp_depth:
+    """The stacked segments of a decoder LM. No config reaches the
+    reference's ``mamba2`` segment (a pure Mamba2 LM): Zamba2 is built by
+    ``models.hybrid``, so the port has none."""
+    if cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: the recurrent families and multi-token prediction are not ported "
-            "yet (ROADMAP queue 1, item 12)")
+            f"{cfg.name}: multi-token prediction is not ported yet (ROADMAP queue 1, item 12)")
+    if cfg.ssm is not None and cfg.ssm.kind == "xlstm":
+        assert cfg.n_layers % 2 == 0
+        return [SegmentSpec("xlstm_pair", "none", cfg.n_layers // 2)]
+    if cfg.attn_kind not in ("gqa", "mla"):
+        raise ValueError(f"{cfg.name}: no decoder segments for attn_kind {cfg.attn_kind!r}")
     if cfg.moe is not None:
         segs = []
         if cfg.moe.n_dense_layers:
@@ -55,6 +66,9 @@ def segments_for(cfg) -> List[SegmentSpec]:
 
 
 def _mixer_params(cfg, kind: str, cross: bool = False):
+    if kind == "xlstm_pair":
+        return {"ln_m": norm_params(cfg), "mlstm": mlstm_params(cfg),
+                "ln_s": norm_params(cfg), "slstm": slstm_params(cfg)}
     if kind == "mla":
         return {"ln": norm_params(cfg), "attn": mla_params(cfg)}
     p = {"ln": norm_params(cfg), "attn": attn_params(cfg)}
@@ -69,12 +83,17 @@ def _ffn_params(cfg, kind: str, d_ff: int = 0):
         return {"ln": norm_params(cfg), "mlp": mlp_params(cfg, d_ff=d_ff or cfg.d_ff)}
     if kind == "moe":
         return {"ln": norm_params(cfg), "moe": moe_params(cfg)}
+    if kind == "none":
+        return {}
     raise ValueError(kind)
 
 
 def block_params(cfg, seg: SegmentSpec):
-    return {"mixer": _mixer_params(cfg, seg.mixer, seg.cross),
-            "ffn": _ffn_params(cfg, seg.ffn, seg.d_ff)}
+    p = {"mixer": _mixer_params(cfg, seg.mixer, seg.cross)}
+    f = _ffn_params(cfg, seg.ffn, seg.d_ff)
+    if f:
+        p["ffn"] = f
+    return p
 
 
 def _stack_defs(tree, n: int):
@@ -108,7 +127,7 @@ def layer_view(stack, i: int):
 
 
 def _require_cache_free(cfg, seg: SegmentSpec) -> None:
-    if seg.mixer != "gqa" or seg.ffn != "mlp":
+    if (seg.mixer, seg.ffn) not in (("gqa", "mlp"), ("xlstm_pair", "none")):
         raise NotImplementedError(
             f"{cfg.name}: the cache-free forward of {seg.mixer} / {seg.ffn} blocks is not "
             "ported yet (ROADMAP queue 1, item 13)")
@@ -119,15 +138,22 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
                 enc_out: Optional[torch.Tensor] = None):
     """One pre-norm block: x + mixer(ln(x)), then x + ffn(ln(x)); the mixer
     is GQA attention or MLA by ``seg.mixer``, the ffn an MLP or an MoE layer
-    by ``seg.ffn``. A ``seg.cross`` block adds x + cross(ln_cross(x)) after
-    the self-attention: over the write-once cross pages ``cross_layer`` when
-    serving, else against the K/V of ``enc_out``. Without ``state`` (GQA /
-    MLP blocks only) x is a whole sequence at ``positions`` 0..S-1 and no
-    cache is read or written."""
+    by ``seg.ffn``. An ``xlstm_pair`` block is x + mLSTM(ln_m(x)), then
+    x + sLSTM(ln_s(x)), with no ffn: served, each row's state is gathered
+    from its slab (``state.slabs``) in ``cache_layer``'s "mlstm" and
+    "slstm" slab pools, stepped and scattered back. A ``seg.cross`` block
+    adds x + cross(ln_cross(x)) after the self-attention: over the
+    write-once cross pages ``cross_layer`` when serving, else against the
+    K/V of ``enc_out``. Without ``state`` (GQA / MLP and xLSTM blocks only)
+    x is a whole sequence at ``positions`` 0..S-1 and no cache is read or
+    written."""
     if state is None:
         _require_cache_free(cfg, seg)
     nk = cfg.norm_kind
-    pm, pf = p["mixer"], p["ffn"]
+    pm = p["mixer"]
+    if seg.mixer == "xlstm_pair":
+        return _xlstm_pair(pm, x, cfg, cache_layer, state, a_fmt)
+    pf = p["ffn"]
     hn = norm(pm["ln"], x, nk, cfg.norm_eps)
     if seg.mixer == "mla":
         h, _ = mla_attention(pm["attn"], hn, cfg, positions, cache_layer, state, a_fmt=a_fmt)
@@ -162,6 +188,25 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
     return x + h
 
 
+def _xlstm_pair(pm, x, cfg, cache_layer, state: Optional[PagedState], a_fmt):
+    """x + mLSTM(ln_m(x)), then x + sLSTM(ln_s(x)); over the slab pools
+    when serving (``cache_layer`` {"mlstm", "slstm"}, one layer's view)."""
+    nk, eps = cfg.norm_kind, cfg.norm_eps
+    mlc = slc = None
+    if state is not None:
+        mlc = gather_slabs(cache_layer["mlstm"], state.slabs)
+        slc = gather_slabs(cache_layer["slstm"], state.slabs)
+    h, new_m = mlstm_block(pm["mlstm"], norm(pm["ln_m"], x, nk, eps), cfg, cache=mlc,
+                           a_fmt=a_fmt)
+    x = x + h
+    h, new_s = slstm_block(pm["slstm"], norm(pm["ln_s"], x, nk, eps), cfg, cache=slc,
+                           a_fmt=a_fmt)
+    if state is not None:
+        scatter_slabs(cache_layer["mlstm"], state.slabs, new_m)
+        scatter_slabs(cache_layer["slstm"], state.slabs, new_s)
+    return x + h
+
+
 def _embed_tokens(params, cfg, tokens: torch.Tensor,
                   embeds_prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings, behind an optional prefix: patch embeddings
@@ -192,11 +237,12 @@ def positions_of(state: PagedState, s: int, device) -> torch.Tensor:
 def run_segment(seg_params, x, cfg, seg: SegmentSpec, positions, pool=None,
                 state: Optional[PagedState] = None, a_fmt=None, cross=None, enc_out=None):
     """Every layer of one stacked segment over x, in order (``lax.scan``'s
-    place): each layer with its slice of the segment's pool and of the
-    cross pool, when there are pools."""
-    n = seg.count if pool is None else pool[pool_keys(pool)[0]].shape[0]
+    place): each layer with its slice of the segment's pool (a page pool,
+    or xLSTM's {"mlstm", "slstm"} slab pools) and of the cross pool, when
+    there are pools."""
+    n = seg.count if pool is None else next(tree_items(pool))[1].shape[0]
     for i in range(n):
-        cache_layer = None if pool is None else {k: leaf[i] for k, leaf in pool.items()}
+        cache_layer = None if pool is None else tree_map(lambda leaf: leaf[i], pool)
         cross_layer = None if cross is None else {k: leaf[i] for k, leaf in cross.items()}
         x = block_apply(layer_view(seg_params, i), x, cfg, seg, positions, cache_layer, state,
                         a_fmt, cross_layer, enc_out)

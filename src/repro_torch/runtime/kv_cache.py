@@ -54,7 +54,8 @@ from repro_torch.kernels.common import PageFormat, page_format
 __all__ = ["CachePolicy", "PagedState", "PrefixCache", "page_key", "init_gqa_pool",
            "init_cross_pool", "write_cross_pages", "init_mla_pool", "pool_keys", "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
            "dequantize_pages", "transcode_page", "append_paged", "append_prefill_chunk",
-           "gather_pages", "gather_history", "pool_bytes_per_token", "bf16_bytes_per_token",
+           "gather_slabs", "scatter_slabs", "gather_pages", "gather_history",
+           "pool_bytes_per_token", "bf16_bytes_per_token",
            "page_bytes", "pages_needed", "spill_pages", "restore_pages", "payload_checksum"]
 
 _EPS = 1e-12
@@ -127,13 +128,16 @@ class PagedState(NamedTuple):
     ids and true encoder length. ``prefill`` is the mixed engine's nested
     batch-1 chunk state: the outer state indexes the decode rows, and the
     fused token row ``[decode tokens | chunk]`` splits at
-    ``lengths.shape[0]``."""
+    ``lengths.shape[0]``. ``slabs`` (recurrent families): each row's
+    state-slab id in the slab pools; the last id is the null slab that
+    inactive rows share."""
 
     page_table: torch.Tensor  # (B, pages_per_slot) int32
     lengths: torch.Tensor  # (B,) int32
     chunk_len: Optional[torch.Tensor] = None
     cross_table: Optional[torch.Tensor] = None  # (B, cross_pp) int32
     enc_lengths: Optional[torch.Tensor] = None  # (B,) int32
+    slabs: Optional[torch.Tensor] = None  # (B,) int32 state-slab ids
     prefill: Optional["PagedState"] = None
 
 
@@ -382,6 +386,33 @@ def write_cross_pages(pool_layer: Dict, new_vals: Dict, cross_table: torch.Tenso
     return append_prefill_chunk(pool_layer, new_vals, state)
 
 
+# ---------------------------------------------------------------------------
+# State slabs (SSM / xLSTM recurrent state)
+# ---------------------------------------------------------------------------
+def gather_slabs(pool_layer: Dict, slab_ids: torch.Tensor) -> Dict:
+    """One layer's recurrent state for each row: slab-pool leaves (S+1, ...)
+    -> (B, ...) copies. ``slab_ids`` (B,): the last slab (index S) is the
+    null slab inactive rows point at.
+
+    A slab is the fixed-size counterpart of a page for families whose
+    decode state does not grow with context (the SSM state and conv tail,
+    xLSTM's cells): one a running request, allocated at admission, stolen
+    and spilled like pages, never grown."""
+    ids = slab_ids.long()
+    return {name: leaf[ids] for name, leaf in pool_layer.items()}
+
+
+def scatter_slabs(pool_layer: Dict, slab_ids: torch.Tensor, new_rows: Dict) -> Dict:
+    """Write each row's new state back into its slab, in place. Rows
+    sharing the null slab overwrite each other there (in no fixed order on
+    the card): harmless, since the null slab is never read as live state --
+    a slab is reset to the pristine state when it is allocated."""
+    ids = slab_ids.long()
+    for name, leaf in pool_layer.items():
+        leaf[ids] = new_rows[name].to(leaf.dtype)
+    return pool_layer
+
+
 def gather_pages(pool_layer: Dict, name: str, state: PagedState) -> torch.Tensor:
     """Dequantized gather of each row's table: (B, PP * page, KV, hd) f32
     for GQA leaves, (B, PP * page, d) for MLA latent leaves. In a mixed
@@ -621,7 +652,8 @@ def pages_needed(n_tokens: int, page_size: int) -> int:
 # ---------------------------------------------------------------------------
 def spill_pages(pool: Dict, ids: torch.Tensor) -> Dict[str, np.ndarray]:
     """Host copy of pages ``ids`` (every stacked layer) of the active
-    stores: one pool's part of a spill payload. The frozen region's leaves
+    stores, or of slabs ``ids`` of a slab pool (whose leaves index the slab
+    on the same axis): one pool's part of a spill payload. The frozen region's leaves
     and the zero-size ``_fp4`` marker are left out (a spilled page is
     private, so active-class). bf16 has no numpy dtype: such a leaf travels
     as its int16 view, the same bytes."""

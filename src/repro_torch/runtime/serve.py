@@ -1,5 +1,5 @@
-"""Batched W4A8 serving over the paged KV pool (port of the single-device
-dense path of ``repro.runtime.serve``).
+"""Batched W4A8 serving over the paged KV pool and state slabs (port of the
+single-device path of ``repro.runtime.serve``).
 
 ``Server`` owns ``slots`` concurrent sequences (slot = batch row). Its
 prompt streams through the model in page-aligned chunks written straight
@@ -74,9 +74,22 @@ quantizing every decoder layer's cross K/V into the request's cross pages
 paged decode kernel. Its prefix chains hang off a root per frames digest,
 so a prompt under other frames never shares a page; its cross pages go
 with it through steal, spill and resume; it runs the alternating engine
-(``Server.engine`` says so). Not ported yet: the recurrent families,
-refused with ``NotImplementedError`` naming ROADMAP item 12 as their params
-are built; FP4 cross pages (``CachePolicy(cross_fmt="fp4_e2m1")`` on an
+(``Server.engine`` says so).
+
+The recurrent families hold their fixed-size decode state in *state
+slabs*: one slab a running request, allocated at admission (and reset to
+the pristine state, since a prefill continues from whatever its slab
+holds), stolen, spilled, resumed and scrubbed like pages, never grown.
+xLSTM (mLSTM / sLSTM pairs) holds slabs only; Zamba2's hybrid holds a
+Mamba2 slab pool and pages for its shared attention block, one page layer
+an invocation. ``ServerConfig.pool_slabs`` sizes the slab pool (None: one
+a slot); when it runs dry the token budget steals a running request's
+slab for a waiter of strictly higher priority, the reserve policy waits.
+Their prompts stream in exact chunk lengths (a recurrence cannot mask pad
+tokens out of its carry), on the alternating engine, with no prefix cache.
+Not ported yet: multi-token prediction, refused with
+``NotImplementedError`` naming ROADMAP item 12 as its params are built;
+FP4 cross pages (``CachePolicy(cross_fmt="fp4_e2m1")`` on an
 enc-dec model raises, naming F9: the reference misreads them); and meshes
 (item 14): ``ServerConfig`` has no ``mesh`` field, so
 ``ServerConfig(mesh=...)`` raises ``TypeError``.
@@ -107,7 +120,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.layers import PackedLinear
 from repro_torch.models.params import tree_map
+from repro_torch.models.ssm import init_mamba2_cache
 from repro_torch.models.transformer import segments_for
+from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache
 from repro_torch.runtime import kv_cache as kvc
 from repro_torch.runtime.faults import FaultPlan, PoolCorruptionError, ServingError
 from repro_torch.runtime import sampling as smp
@@ -166,9 +181,10 @@ class ServerConfig:
     """``cache`` selects the page payload per page class (``CachePolicy``:
     bf16 or FP8 active pages, optionally packed FP4 frozen pages).
     ``pool_pages``: the active pool's capacity in pages (None: fully
-    backed, ``slots * ceil(max_seq / page_size)``). ``prefix_cache``
-    shares full prompt pages across requests; a mixed-precision policy
-    needs it.
+    backed, ``slots * ceil(max_seq / page_size)``). ``pool_slabs``: state
+    slabs of a recurrent family (None: one a slot, fully backed).
+    ``prefix_cache`` shares full prompt pages across requests (page
+    families only); a mixed-precision policy needs it.
 
     Failure semantics: ``strict=True`` makes ``run_until_drained`` raise
     ``ServingError`` on starvation; ``strict=False`` fails the requests
@@ -182,6 +198,7 @@ class ServerConfig:
     cache: CachePolicy = CachePolicy()
     page_size: int = 64
     pool_pages: Optional[int] = None
+    pool_slabs: Optional[int] = None
     scheduler: SchedulerConfig = SchedulerConfig()
     prefix_cache: bool = True
     strict: bool = True
@@ -287,9 +304,10 @@ class Request:
 @dataclasses.dataclass
 class _Spill:
     """A preempted request's resumable state: the bytes of its private
-    pages (every pool leaf but the frozen region's, every layer) at
-    preemption, on the host. Shared prefix pages are not spilled: they
-    stay in the prefix index and are walked again on resume."""
+    pages (every pool leaf but the frozen region's, every layer) and of its
+    state slab at preemption, on the host, one part a pool unit. Shared
+    prefix pages are not spilled: they stay in the prefix index and are
+    walked again on resume."""
 
     req: Request
     ctx_len: int  # tokens of KV spilled (prompt + generated so far)
@@ -323,10 +341,14 @@ class Server:
         if sched.engine not in ("mixed", "alternating"):
             raise ValueError(f"unknown scheduler engine {sched.engine!r}")
         policy = config.cache
-        if policy.mixed and not config.prefix_cache:
+        # the prefix cache (and so the FP4 frozen region, which only the
+        # freeze-time transcode writes) exists for pure page families:
+        # recurrent state cannot skip a prefix's prefill
+        if policy.mixed and not (config.prefix_cache and cfg.ssm is None):
             raise ValueError(
                 "CachePolicy(frozen_fmt=...) needs an active prefix cache: frozen FP4 pages "
-                "hold only content-shared prefix pages (prefix_cache=True)")
+                "hold only content-shared prefix pages, which exist for pure page families "
+                "with prefix_cache=True")
         if sched.prefill_chunk_pages < 1:
             raise ValueError(f"prefill_chunk_pages={sched.prefill_chunk_pages} must be >= 1")
         self._encdec = cfg.encoder_layers > 0
@@ -358,29 +380,30 @@ class Server:
         # an enc-dec request also holds the write-once cross pages of its
         # encoder sequence, charged from the same page id space
         self._cross_pp = kvc.pages_needed(cfg.encoder_seq, page) if self._encdec else 0
-        self._n_pages = config.pool_pages or self.slots * (self.pages_per_slot + self._cross_pp)
+        n_pages = config.pool_pages or self.slots * (self.pages_per_slot + self._cross_pp)
+        self._n_slabs = (config.pool_slabs or self.slots) if cfg.ssm is not None else 0
         # a mixed-precision pool (FP4 frozen region) is not the mixed engine
         self._mixed_precision = policy.mixed
-        # enc-dec admission runs the encoder: it takes the alternating engine
-        self._mixed_step = sched.engine == "mixed" and not self._encdec
-        self._n_frozen = (policy.frozen_pages or self._n_pages) if policy.mixed else 0
-        frozen_fmt = policy.frozen if policy.mixed else None
-        self.pools = []
-        for seg in segments_for(cfg):
-            if seg.mixer == "mla":  # latent pages: c_kv and the shared rope key
-                pool = kvc.init_mla_pool(seg.count, self._n_pages, page, cfg.mla.kv_lora_rank,
-                                         cfg.mla.qk_rope_dim, policy.active, frozen_fmt,
-                                         self._n_frozen, device=self.device)
-            else:
-                pool = kvc.init_gqa_pool(seg.count, self._n_pages, page, cfg.n_kv_heads,
-                                         cfg.resolved_head_dim, policy.active, frozen_fmt,
-                                         self._n_frozen, device=self.device)
-            self.pools.append(pool)
-        # enc-dec: the write-once cross pages, indexed by the same page ids
-        self.cross_pool = (kvc.init_cross_pool(cfg.n_layers, self._n_pages, page,
-                                               cfg.n_kv_heads, cfg.resolved_head_dim,
-                                               policy.cross, device=self.device)
-                           if self._encdec else None)
+        self._n_frozen = (policy.frozen_pages or n_pages) if policy.mixed else 0
+        self.cross_pool = None
+        self._build_pools(n_pages, policy)
+        self._has_pages = any(kind in ("kv", "cross") for _, kind in self._units)
+        self._has_slabs = any(kind == "slab" for _, kind in self._units)
+        # the pristine one-slab state of each slab unit: a recycled slab is
+        # reset to it at allocation (a page is overwritten whole by the next
+        # prefill, but a recurrent prefill continues from whatever state its
+        # slab holds: a previous owner's must not leak in, nor zeros, where
+        # mLSTM's stabilizer starts at -1e30 and sLSTM's normalizer at 1)
+        self._slab_init = {ui: {name: leaf[:, :1].clone() for name, leaf in pool.items()}
+                           for ui, (pool, kind) in enumerate(self._units) if kind == "slab"}
+        self._n_pages = n_pages if self._has_pages else 0
+        # a recurrence cannot mask pad tokens out of its carry: slab
+        # families stream exact chunk lengths, not powers of two
+        self._bucket_prefill = not self._has_slabs
+        # the mixed step is for page families: recurrent state cannot ride
+        # a padded fused row, and enc-dec admission runs the encoder
+        self._mixed_step = (sched.engine == "mixed" and self._has_pages and not self._has_slabs
+                            and not self._encdec)
         self.active: List[Optional[Request]] = [None] * self.slots
         self.queue: List[Request] = []
         self.preempted: List[_Spill] = []
@@ -395,8 +418,15 @@ class Server:
         # the leading run of each slot's pages that is shared (registered);
         # the rest is private (refcount 1, writable, spillable)
         self.slot_shared: List[int] = [0] * self.slots
-        self._prefix = kvc.PrefixCache(page) if config.prefix_cache else None
-        self.page_table = np.full((self.slots, self.pages_per_slot), self._n_pages, np.int32)
+        self._prefix = (kvc.PrefixCache(page) if config.prefix_cache and self._has_pages
+                        and not self._has_slabs else None)
+        self.page_table = np.full(
+            (self.slots, self.pages_per_slot if self._has_pages else 1), self._n_pages, np.int32)
+        # slab ownership: slab_table[slot] is the slot's slab, or the null
+        # slab (index _n_slabs) that inactive rows share
+        self.free_slabs: List[int] = list(range(self._n_slabs))
+        self.slot_slab: List[int] = [-1] * self.slots
+        self.slab_table = np.full(self.slots, self._n_slabs, np.int32)
         self.slot_cross: List[List[int]] = [[] for _ in range(self.slots)]
         self.cross_table = np.full((self.slots, max(1, self._cross_pp)), self._n_pages, np.int32)
         self.enc_lengths = np.zeros(self.slots, np.int32)
@@ -424,8 +454,63 @@ class Server:
         self.collect_events = False
         self._events: List[TokenEvent] = []
 
+    def _build_pools(self, n_pages: int, policy: CachePolicy):
+        """The device pools, and ``_units``: one (pool, kind) a pool in the
+        reference's unit order (the order of a spill payload's parts), the
+        kind "kv", "cross" or "slab". Every leaf is (lead, ids + 1, ...):
+        the lead axis stacked layers (or the hybrid's shared-block
+        invocations), the id axis pages or slabs, the last id the null
+        page or null slab. ``pools`` is a list a segment (a page pool, or
+        xLSTM's {"mlstm", "slstm"} slab pools), or for the hybrid
+        {"mamba": slab pool, "shared_kv": page pool}."""
+        cfg, page, dev = self.cfg, self.page_size, self.device
+
+        def slabs(one: Dict, lead: int) -> Dict:
+            return {name: leaf[None].repeat(lead, *[1] * leaf.dim()) for name, leaf in one.items()}
+
+        self._units: List[Tuple[Dict, str]] = []
+        if api._is_hybrid(cfg):
+            from repro_torch.models.hybrid import n_attn_invocations
+
+            mamba = slabs(init_mamba2_cache(cfg, self._n_slabs + 1, dev), cfg.n_layers)
+            self.pools = {"mamba": mamba}
+            self._units.append((mamba, "slab"))
+            n_inv = n_attn_invocations(cfg)
+            if n_inv:
+                self.pools["shared_kv"] = kvc.init_gqa_pool(
+                    n_inv, n_pages, page, cfg.n_kv_heads, cfg.resolved_head_dim, policy.active,
+                    device=dev)
+                self._units.append((self.pools["shared_kv"], "kv"))
+            return
+        frozen_fmt = policy.frozen if policy.mixed else None
+        self.pools = []
+        for seg in segments_for(cfg):
+            if seg.mixer == "xlstm_pair":
+                pool = {name: slabs(init(cfg, self._n_slabs + 1, dev), seg.count)
+                        for name, init in (("mlstm", init_mlstm_cache),
+                                           ("slstm", init_slstm_cache))}
+                self._units += [(pool["mlstm"], "slab"), (pool["slstm"], "slab")]
+            elif seg.mixer == "mla":  # latent pages: c_kv and the shared rope key
+                pool = kvc.init_mla_pool(seg.count, n_pages, page, cfg.mla.kv_lora_rank,
+                                         cfg.mla.qk_rope_dim, policy.active, frozen_fmt,
+                                         self._n_frozen, device=dev)
+                self._units.append((pool, "kv"))
+            else:
+                pool = kvc.init_gqa_pool(seg.count, n_pages, page, cfg.n_kv_heads,
+                                         cfg.resolved_head_dim, policy.active, frozen_fmt,
+                                         self._n_frozen, device=dev)
+                self._units.append((pool, "kv"))
+            self.pools.append(pool)
+        if self._encdec:  # the write-once cross pages, indexed by the same page ids
+            self.cross_pool = kvc.init_cross_pool(cfg.n_layers, n_pages, page, cfg.n_kv_heads,
+                                                  cfg.resolved_head_dim, policy.cross, device=dev)
+            self._units.append((self.cross_pool, "cross"))
+
     @property
     def engine(self) -> str:
+        """The resolved step architecture: "alternating" where the mixed
+        engine was asked for a family it does not serve (recurrent slabs,
+        enc-dec), as in the reference."""
         return "mixed" if self._mixed_step else "alternating"
 
     @property
@@ -524,12 +609,25 @@ class Server:
         self.cross_table[slot, :len(ids)] = ids
         return ids
 
+    def _alloc_slab(self, slot: int, reset: bool = True) -> int:
+        """Give ``slot`` the first free slab; with ``reset`` write the
+        pristine state into it (a resume restores its spill there instead)."""
+        sid = self.free_slabs.pop(0)
+        self.slot_slab[slot] = sid
+        self.slab_table[slot] = sid
+        if reset:
+            for ui, (pool, kind) in enumerate(self._units):
+                if kind == "slab":
+                    for name, init in self._slab_init[ui].items():
+                        pool[name][:, sid:sid + 1] = init
+        return sid
+
     def _ids(self, pids: List[int]) -> torch.Tensor:
         return torch.as_tensor(np.asarray(pids, np.int64)).to(self.device)
 
     def _release_slot(self, slot: int):
-        """Drop every page mapping of ``slot`` (its cross pages too) and
-        clear its row."""
+        """Drop every page mapping of ``slot`` (its cross pages too), free
+        its slab and clear its row."""
         for pid in self.slot_pages[slot] + self.slot_cross[slot]:
             self._release_page(pid)
         self.slot_pages[slot] = []
@@ -538,6 +636,10 @@ class Server:
         self.page_table[slot] = self._null_page
         self.cross_table[slot] = self._null_page
         self.enc_lengths[slot] = 0
+        if self.slot_slab[slot] >= 0:
+            self.free_slabs.append(self.slot_slab[slot])
+            self.slot_slab[slot] = -1
+            self.slab_table[slot] = self._n_slabs
         self.lengths[slot] = 0
         self.active[slot] = None
 
@@ -551,7 +653,9 @@ class Server:
     # -- admission -------------------------------------------------------------
     def _worst_case_pages(self, req: Request) -> int:
         """Pages ``req`` can ever hold: prompt + max_new capped at max_seq,
-        plus its cross pages."""
+        plus its cross pages (0 for a family without pages)."""
+        if not self._has_pages:
+            return 0
         return kvc.pages_needed(min(len(req.prompt) + req.max_new, self.max_seq),
                                 self.page_size) + self._cross_pp
 
@@ -622,10 +726,25 @@ class Server:
                                                  -self._slack(self.active[s]),
                                                  -self._slot_seq[s]))
 
+    def _slab_available(self, want_priority: int) -> bool:
+        """True if a slab is free or, under the token budget, one was just
+        stolen for a waiter whose priority strictly beats the victim's. The
+        reserve policy never preempts: slab exhaustion defers admission."""
+        if not self._has_slabs or self.free_slabs:
+            return True
+        if self.scheduler != "token_budget":
+            return False
+        victim = self._pick_victim()
+        if victim is not None and self.active[victim].priority < want_priority:
+            self._preempt(victim)
+            return True
+        return False
+
     def _admit_one(self, slot: int) -> bool:
         """Admit the longest-waiting candidate into ``slot``: spills and
         fresh requests share one wait line keyed on (since, seq), and its
-        head is never overtaken while it does not fit."""
+        head is never overtaken while it does not fit (in pages, or in
+        slabs that cannot be stolen for it)."""
         any_active = any(r is not None for r in self.active)
         free = self._free_capacity()
         page = self.page_size
@@ -649,12 +768,16 @@ class Server:
                     self.stats["resume_fallbacks"] += 1
                     self._evict_spill(spill)
                     return self._admit_one(slot)
-            free -= self._parked_among(shared_pids)
-            need = min(kvc.pages_needed(spill.ctx_len, page) - spill.shared_pages
-                       + self.headroom_pages,
-                       self._worst_case_pages(req) - self._cross_pp - spill.shared_pages)
-            need += self._cross_pp
-            if free - need < (self.resume_watermark if any_active else 0):
+            need = 0
+            if self._has_pages:
+                free -= self._parked_among(shared_pids)
+                need = min(kvc.pages_needed(spill.ctx_len, page) - spill.shared_pages
+                           + self.headroom_pages,
+                           self._worst_case_pages(req) - self._cross_pp - spill.shared_pages)
+                need += self._cross_pp
+                if free - need < (self.resume_watermark if any_active else 0):
+                    return False
+            if not self._slab_available(req.priority):
                 return False
             if kvc.payload_checksum(spill.payload) != spill.crc:
                 # the bytes rotted while spilled: re-prefill instead of
@@ -677,17 +800,21 @@ class Server:
             # decode), which also keeps the boundary page private
             hits = self._prefix.walk(ctx, max_pages=(n - 1) // page,
                                      root=self._prefix_root(req))
-        free -= self._parked_among(hits)
-        if self.scheduler == "reserve":
-            need = self._worst_case_pages(req) - len(hits)
-            if free < need:
-                return False
-        else:
-            need = min(kvc.pages_needed(n, page) - len(hits) + self.headroom_pages,
-                       self._worst_case_pages(req) - self._cross_pp - len(hits))
-            need += self._cross_pp
-            if free - need < (self.low_watermark if any_active else 0):
-                return False
+        need = 0
+        if self._has_pages:
+            free -= self._parked_among(hits)
+            if self.scheduler == "reserve":
+                need = self._worst_case_pages(req) - len(hits)
+                if free < need:
+                    return False
+            else:
+                need = min(kvc.pages_needed(n, page) - len(hits) + self.headroom_pages,
+                           self._worst_case_pages(req) - self._cross_pp - len(hits))
+                need += self._cross_pp
+                if free - need < (self.low_watermark if any_active else 0):
+                    return False
+        if not self._slab_available(req.priority):
+            return False
         self.queue.pop(0)
         self.active[slot] = req
         self._slot_seq[slot] = req.seq
@@ -700,6 +827,8 @@ class Server:
         self._alloc(slot, need - self._cross_pp)
         if self._encdec:
             self._alloc_cross(slot)
+        if self._has_slabs:
+            self._alloc_slab(slot)
         if not self._mixed_step:
             self._prefill_slot(slot, req)
             return True
@@ -719,11 +848,17 @@ class Server:
         context: true length ``take``, power-of-two padded length, the
         power-of-two table width ``w`` and the (1, w) table. Only pages
         holding data up to the chunk's true end are mapped; the pad
-        overhang points at the null page."""
+        overhang points at the null page. A slab family's chunk is its
+        exact length over the pages it fills (one null entry without
+        pages)."""
         page = self.page_size
         take = min(budget, n - pos)
-        padded = min(_next_pow2(take), budget)
-        w = _next_pow2(pos // page + kvc.pages_needed(padded, page))
+        if self._bucket_prefill:
+            padded = min(_next_pow2(take), budget)
+            w = _next_pow2(pos // page + kvc.pages_needed(padded, page))
+        else:
+            padded = take
+            w = kvc.pages_needed(pos + take, page) if self._has_pages else 1
         own = self.slot_pages[slot]
         table = np.full((1, w), self._null_page, np.int32)
         m = min(w, len(own), kvc.pages_needed(pos + take, page))
@@ -735,12 +870,13 @@ class Server:
 
     def _state(self, table, lengths, rows, chunk_len=None) -> kvc.PagedState:
         """The step's PagedState; for enc-dec with ``rows``' cross tables
-        and encoder lengths."""
+        and encoder lengths, for a slab family with their slab ids."""
         return kvc.PagedState(
             self._tensor(table), self._tensor(lengths),
             chunk_len=None if chunk_len is None else self._tensor(chunk_len),
             cross_table=self._tensor(self.cross_table[rows]) if self._encdec else None,
-            enc_lengths=self._tensor(self.enc_lengths[rows]) if self._encdec else None)
+            enc_lengths=self._tensor(self.enc_lengths[rows]) if self._encdec else None,
+            slabs=self._tensor(self.slab_table[rows]) if self._has_slabs else None)
 
     def _run(self, tokens, state, pmask: Optional[np.ndarray] = None) -> torch.Tensor:
         """One program; ``pmask`` (a bool per logits row) sets the rows a
@@ -851,7 +987,7 @@ class Server:
                 fid = self._take_frozen()
                 if fid is None:
                     break  # the frozen region is fully live
-                for pool in self.pools:
+                for pool in self._unit_pools("kv"):
                     kvc.transcode_page(pool, src, fid - self._frozen_base)
                 self.stats["fp4_frozen_pages"] += 1
             self.page_refs[fid] += 1
@@ -864,19 +1000,29 @@ class Server:
         self.slot_shared[slot] = end
 
     # -- preemption by page steal ------------------------------------------------
+    def _unit_ids(self, slot: int, kind: str, kv: List[int]) -> torch.Tensor:
+        """The ids of ``slot``'s part of a unit of ``kind``: the pages
+        ``kv`` of a page pool, its cross pages, or its slab."""
+        if kind == "kv":
+            return self._ids(kv)
+        return self._ids(self.slot_cross[slot] if kind == "cross" else [self.slot_slab[slot]])
+
+    def _unit_pools(self, *kinds: str) -> List[Dict]:
+        return [pool for pool, kind in self._units if kind in kinds]
+
     def _preempt(self, slot: int):
-        """Steal this slot's pages: copy its private pages' bytes (every
-        pool leaf but the frozen region's, every layer) to the host under a
-        CRC32 and drop every mapping. Shared prefix pages are not spilled:
-        they stay in the index (parked if no one else maps them)."""
+        """Steal this slot's pages and slab: copy its private pages' bytes
+        (every pool leaf but the frozen region's, every layer), its cross
+        pages and its slab's state to the host under a CRC32, one part a
+        unit in the reference's order, and drop every mapping. Shared
+        prefix pages are not spilled: they stay in the index (parked if no
+        one else maps them)."""
         req = self.active[slot]
         ctx_len = int(self.lengths[slot])
         shared = self.slot_shared[slot]
         priv = self.slot_pages[slot][shared:kvc.pages_needed(ctx_len, self.page_size)]
-        ids = self._ids(priv)
-        payload = [kvc.spill_pages(pool, ids) for pool in self.pools]
-        if self._encdec:  # the cross pages go with the request
-            payload.append(kvc.spill_pages(self.cross_pool, self._ids(self.slot_cross[slot])))
+        payload = [kvc.spill_pages(pool, self._unit_ids(slot, kind, priv))
+                   for pool, kind in self._units]
         nbytes = sum(a.nbytes for part in payload for a in part.values())
         # the checksum covers the pristine bytes; the fault hook runs after
         # it (bit rot while spilled, which the resume-time check must catch)
@@ -917,8 +1063,9 @@ class Server:
             self._evict_spill(min(self.preempted, key=lambda s: (s.req.since, s.req.seq)))
 
     def _resume(self, slot: int, spill: _Spill, shared_pids: List[int], need: int):
-        """Map the walked shared prefix, allocate ``need`` private pages and
-        write the spilled bytes back into the first of them, in place."""
+        """Map the walked shared prefix, allocate ``need`` private pages
+        (the cross pages, a slab) and write the spilled bytes back into the
+        first of them, in place."""
         self.active[slot] = spill.req
         self._slot_seq[slot] = spill.req.seq  # keeps its arrival age
         self._slot_since[slot] = self._step_no
@@ -927,14 +1074,14 @@ class Server:
         new = self._alloc(slot, need)
         if self._prefix is not None:  # restore targets must be writable
             self._prefix.assert_unfrozen(new, frozen_base=self._frozen_base)
-        npg_priv = kvc.pages_needed(spill.ctx_len, self.page_size) - spill.shared_pages
-        ids = self._ids(new[:npg_priv])
-        for pool, part in zip(self.pools, spill.payload):
-            kvc.restore_pages(pool, part, ids)
         if self._encdec:
-            kvc.restore_pages(self.cross_pool, spill.payload[-1],
-                              self._ids(self._alloc_cross(slot)))
+            self._alloc_cross(slot)
             self.enc_lengths[slot] = self.cfg.encoder_seq
+        if self._has_slabs:
+            self._alloc_slab(slot, reset=False)  # its spill is written below
+        npg_priv = kvc.pages_needed(spill.ctx_len, self.page_size) - spill.shared_pages
+        for (pool, kind), part in zip(self._units, spill.payload):
+            kvc.restore_pages(pool, part, self._unit_ids(slot, kind, new[:npg_priv]))
         self.lengths[slot] = spill.ctx_len
         # the next draw's key is recomputed from the request; the spill's
         # copy of the stream position must agree with it
@@ -1016,6 +1163,8 @@ class Server:
         """Allocate a page for every active row whose next token crosses
         into an unallocated page, higher priority first, then arrival:
         reclaim parked pages first and steal only when none is left."""
+        if not self._has_pages:
+            return
         order = sorted((s for s, r in enumerate(self.active) if r is not None),
                        key=lambda s: (-self.active[s].priority, self._slot_seq[s]))
         for slot in order:
@@ -1185,22 +1334,23 @@ class Server:
 
     # -- request-level failure isolation -----------------------------------------
     def _scrub_slot(self, slot: int, include_null: bool = False):
-        """Zero the private pages of a quarantined row, and the null page
-        where a failing prefill's padded overhang wrote it: NaN codes would
-        survive attention's zero weights (0 * NaN = NaN) and fail healthy
-        rows that later read the recycled page. Registered pages were
-        frozen by a healthy prefill and are left alone, as is the frozen
-        region (the transcode is its only writer)."""
+        """Zero the private pages, cross pages and slab of a quarantined
+        row, and the null page where a failing prefill's padded overhang
+        wrote it: NaN codes would survive attention's zero weights (0 * NaN
+        = NaN) and fail healthy rows that later read the recycled page.
+        Registered pages were frozen by a healthy prefill and are left
+        alone, as is the frozen region (the transcode is its only writer).
+        The null slab is not scrubbed: it is never read as live state (a
+        slab is reset when it is allocated)."""
         priv = list(self.slot_pages[slot][self.slot_shared[slot]:])
         if include_null:
             priv.append(self._null_page)
-        parts = [(pool, priv) for pool in self.pools]
-        if self._encdec:
-            parts.append((self.cross_pool, self.slot_cross[slot]))
-        for pool, pids in parts:
-            if not pids:
+        for pool, kind in self._units:
+            if kind == "slab" and self.slot_slab[slot] < 0:
                 continue
-            ids = self._ids(pids)
+            ids = self._unit_ids(slot, kind, priv)
+            if not ids.numel():
+                continue
             for name, leaf in pool.items():
                 if "_fz" not in name and leaf.numel():
                     leaf[:, ids] = 0
@@ -1234,19 +1384,22 @@ class Server:
             self.queue.remove(req)
             self._fail_request(req, reason)
 
+    def _pages_for(self, n: int) -> int:
+        """Pages (with cross pages) a context of ``n`` tokens holds."""
+        return kvc.pages_needed(n, self.page_size) + self._cross_pp if self._has_pages else 0
+
     def _pending_diagnostics(self) -> List[Dict]:
         """One dict per request still waiting or running, for ServingError."""
-        page = self.page_size
         diag = []
         for req in self.queue:
             ctx = req.resume_ctx if req.resume_ctx is not None else req.prompt
             diag.append({"rid": req.rid, "state": "queued", "since": req.since,
                          "out_tokens": len(req.out), "ctx_len": len(ctx),
-                         "pages_needed": kvc.pages_needed(len(ctx), page) + self._cross_pp})
+                         "pages_needed": self._pages_for(len(ctx))})
         for sp in self.preempted:
             diag.append({"rid": sp.req.rid, "state": "spilled", "since": sp.req.since,
                          "out_tokens": len(sp.req.out), "ctx_len": sp.ctx_len,
-                         "pages_needed": kvc.pages_needed(sp.ctx_len, page) + self._cross_pp,
+                         "pages_needed": self._pages_for(sp.ctx_len),
                          "spill_bytes": sp.nbytes})
         for s, req in enumerate(self.active):
             if req is not None:
@@ -1273,8 +1426,9 @@ class Server:
             msg = (f"serving starved: {len(self.queue)} queued + {len(self.preempted)} "
                    f"preempted request(s) cannot be (re)admitted with "
                    f"{self._free_capacity()}/{self._n_pages} allocatable pool pages (incl. "
-                   "reusable cached) and no active work to retire: the pool is too small "
-                   "for the waiting context (or pages leaked)")
+                   f"reusable cached) and {len(self.free_slabs)}/{self._n_slabs} slabs free and "
+                   "no active work to retire: the pool is too small for the waiting context "
+                   "(or pages leaked)")
             if not self.strict:
                 self._fail_pending(msg)
                 continue
@@ -1297,7 +1451,9 @@ class Server:
         leak, no double free); the page table mirrors the slot lists; each
         slot holds a leading run of registered shared pages and then
         private pages (refcount 1, unregistered, active-class); no active
-        row's boundary page is frozen. Raises ``PoolCorruptionError`` with
+        row's boundary page is frozen; slabs are owned by one slot each,
+        owned and free slabs partition the slab pool (the null slab in
+        neither) and the slab table mirrors ownership. Raises ``PoolCorruptionError`` with
         every violation and a state dump, else returns a summary."""
         v: List[str] = []
         base = self._frozen_base
@@ -1361,6 +1517,16 @@ class Server:
                         self._prefix.registered(self.slot_pages[s][bidx]):
                     v.append(f"slot {s}: boundary (write-target) page "
                              f"{self.slot_pages[s][bidx]} is frozen")
+        owned = [sid for sid in self.slot_slab if sid >= 0]
+        if len(owned) != len(set(owned)):
+            v.append(f"slab double-owned: {owned}")
+        if sorted(owned + self.free_slabs) != list(range(self._n_slabs)):
+            v.append(f"slabs leaked: owned {sorted(owned)} + free {sorted(self.free_slabs)} "
+                     f"!= 0..{self._n_slabs - 1}")
+        for slot in range(self.slots):
+            want = self.slot_slab[slot] if self.slot_slab[slot] >= 0 else self._n_slabs
+            if int(self.slab_table[slot]) != want:
+                v.append(f"slot {slot}: slab table {int(self.slab_table[slot])} != owned {want}")
         if v:
             raise PoolCorruptionError(v, {
                 "step": self._step_no, "tick": self._tick,
@@ -1371,13 +1537,15 @@ class Server:
                 "free_pages": list(self.free_pages),
                 "free_frozen": list(self.free_frozen),
                 "parked_pages": list(parked),
+                "slot_slab": list(self.slot_slab),
+                "free_slabs": list(self.free_slabs),
                 "lengths": self.lengths.tolist(),
                 "active_rids": [r.rid if r is not None else None for r in self.active]})
         return {"step": self._step_no, "pages_mapped": len(mapped), "pages_free": len(free),
                 "pages_parked": len(parked),
                 "frozen_mapped": sum(1 for pid in mapped if pid >= base),
                 "frozen_free": len(self.free_frozen),
-                "slabs_owned": 0, "slabs_free": 0,  # no recurrent family yet (item 12)
+                "slabs_owned": len(owned), "slabs_free": len(self.free_slabs),
                 "active": sum(r is not None for r in self.active), "violations": 0}
 
     def utilization(self) -> float:
@@ -1395,8 +1563,9 @@ class Server:
         return self.stats["decoded_tokens"] / (self.stats["programs"] * self.slots)
 
     def _page_pools(self) -> List[Dict]:
-        """The self-attention pools, then the cross pool (enc-dec)."""
-        return self.pools + ([self.cross_pool] if self._encdec else [])
+        """The self-attention pools, then the cross pool (enc-dec); none
+        for a family of slabs alone."""
+        return self._unit_pools("kv", "cross")
 
     def kv_bytes_per_token(self) -> float:
         """Active-pool bytes per token slot across the layer stack (cross

@@ -45,12 +45,12 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("ssm", "mamba2", "item 12"), ("mtp_depth", 1, "item 12"), ("temperature", 0.7, "item 9")])
+    ("mtp_depth", 1, "item 12"), ("temperature", 0.7, "item 9")])
 def test_unported_serving_options_raise(field, value, item):
-    """What the port still refuses names its ROADMAP item: the recurrent
-    families and multi-token prediction (queue 1, item 12; refused as their
-    params are built). Sampled decoding (item 9) is ported: ``temperature >
-    0`` validates, and the bounds checks still raise."""
+    """What the port still refuses names its ROADMAP item: multi-token
+    prediction (queue 1, item 12; refused as its params are built).
+    Sampled decoding (item 9) is ported: ``temperature > 0`` validates, and
+    the bounds checks still raise."""
     if field == "temperature":
         assert serve.SamplingParams(temperature=value).validate().temperature == value
         for bad, match in ((dict(temperature=-value), "temperature"),
@@ -59,10 +59,6 @@ def test_unported_serving_options_raise(field, value, item):
             with pytest.raises(ValueError, match=match):
                 serve.SamplingParams(**bad).validate()
         return
-    if field == "ssm":
-        from repro_torch.models.config import SSMSpec
-
-        value = SSMSpec(kind=value)
     cfg = dataclasses.replace(SMOKE, **{field: value})
     with pytest.raises(NotImplementedError, match=item):
         srv = serve.Server(api.init_params(cfg, seed=0, device="cpu"), cfg,
@@ -73,11 +69,12 @@ def test_unported_serving_options_raise(field, value, item):
 
 @pytest.mark.parametrize("name", ["opt-125m", "olmo-1b", "minitron-8b", "nemotron-4-340b",
                                   "llava-next-34b", "whisper-tiny", "minicpm3-4b",
-                                  "olmoe-1b-7b"])
+                                  "olmoe-1b-7b", "xlstm-125m", "zamba2-1.2b"])
 def test_no_module_refuses_a_ported_config(name):
-    """Every config the port carries (dense, VLM, enc-dec, MLA, MoE) builds,
-    serves a request and runs the cache-free forward where its blocks have
-    one; no refusal names item 12 for them."""
+    """Every config the port carries (dense, VLM, enc-dec, MLA, MoE, and the
+    recurrent xLSTM and Zamba2 hybrid over state slabs) builds, serves a
+    request and runs the cache-free forward where its blocks have one; no
+    refusal names item 12 for them."""
     from repro_torch.configs import get_smoke
 
     cfg = get_smoke(name)
@@ -99,9 +96,9 @@ def test_no_module_refuses_a_ported_config(name):
 
 
 def test_refusals_name_item_12_only_for_the_recurrent_families_and_mtp():
-    """The port's refusals that name item 12 speak of the recurrent
-    families and multi-token prediction, never of the enc-dec family or the
-    vision/audio front-ends."""
+    """The port's refusals that name item 12 speak of multi-token
+    prediction (the recurrent families are ported), never of the enc-dec
+    family or the vision/audio front-ends."""
     src = ROOT / "src" / "repro_torch"
     named = 0
     for path in sorted(src.rglob("*.py")):
