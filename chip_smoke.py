@@ -36,7 +36,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               must end ok and every decode step must have launched both
               kernels (72 GEMMs and 12 attention launches);
 5. cpu     -- the same packed model, moved to the CPU, through the plain
-              versions: one prefill chunk and 4 decode steps for 2
+              versions: one prefill chunk and 1 decode step for 2
               requests, logits compared with the card's; a witness (the
               plain versions on the card) and two injected faults show
               what the comparison can and cannot tell apart;
@@ -69,11 +69,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               batched expert GEMMs with FP8 activations and 16 frozen GQA
               decode launches at hd 128 a step), the live-pool check with an
               injected fault, and a profiled decode step;
-10. moe cpu -- phase 9's model cut to 2 layers against the CPU plain path
-              (2 requests: a prefill chunk and 1 decode step),
+10. moe cpu -- phase 9's model cut to 2 layers against the plain versions
+              on the card (2 requests: a prefill chunk and 1 decode step),
               teacher-forced at each MoE layer and each expert GEMM call
-              (free-running against the plain versions on the card, a
-              gross check), with the router's experts compared and two
+              (and free-running, a gross check), with the router's
+              experts compared and two
               injected faults (wd's LoRC dropped, one expert of wu reading
               its neighbour's weights), on phase 9's seed alone;
 11. kernel api -- the kernels no served path reaches, through the kernel
@@ -191,9 +191,35 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               plain path (2 requests: an exact prefill chunk and 2 decode
               steps), teacher-forced per block within BLOCK_RTOL, with a
               recycled slab not reset and the conv tail shifted by one token
-              each read at least 2 x BLOCK_RTOL. At most 75 s.
+              each read at least 2 x BLOCK_RTOL. At most 75 s;
+18. deepseek -- DeepSeek-V3 at its published widths (d_model 7168, 128
+              heads, MLA q_lora 1536 / kv_lora 512 / nope 128 / rope 64 / v
+              128, 256 experts top-8 of d_ff 2048 + 1 shared, dense d_ff
+              18432, vocab 129280), cut to 4 of its 61 layers (the 3 dense
+              layers and the first MoE layer) plus the MTP block, random
+              weights from the seed initialized and packed on the card leaf
+              by leaf, on phase 6's server and traffic: every request ok,
+              a step's launches equal to the invariant (28 GEMMs, 4 + 4
+              per-head GEMMs, 3 expert GEMMs with FP8 activations, 4 frozen
+              latent decode launches; none for the MTP block), the live
+              latent pool's check with its injected fault, a profiled
+              decode step; then against the plain versions on the card: the
+              served blocks teacher-forced (a prefill chunk and a decode
+              step), the cache-free dense, MoE and MTP blocks, one expert's
+              group scale doubled at least 10 tolerances off, and
+              ``loss_fn(mtp_weight=0.3)`` on 2 x 1024 tokens (nll, aux and
+              mtp within DS_LOSS_RTOL; 46 GEMMs and 6 expert GEMMs), with
+              four planted faults read beside it (dense layer 0's down with
+              its scales doubled must read above DS_LOSS_RTOL). Pack
+              time, peak memory, tokens/s, the step medians and the losses
+              printed. At most 240 s.
 
-Phase 3 also checks and times the recurrent families' shapes (row 1 at
+Phase 3 also checks and times DeepSeek-V3's shapes on weights drawn as
+stored (row 1 at its 9 (K, N), N = 576 and K = 14336 among them, timed at
+M = 4 and checked at 128; rows 1b / 1c at 128 heads of 128 x 512; row 1d
+over 256 experts, routed at M = 4 and as 80-row capacity slabs; row 3 at
+r 512, dr 64, H 128 over the three page variants, with NaN planted), the
+recurrent families' shapes (row 1 at
 xLSTM's and Zamba2's 10 (K, N), among them N = 8384, timed at M = 4 and
 checked at a prefill chunk's M = 128; row 2 at H = KV = 32, hd 64) and
 MiniCPM3's kernels (the GEMM at its 7
@@ -210,6 +236,7 @@ every column.
 The last two lines are the card line and ``{"ok": true, "device": ...}``.
 The script imports nothing of jax and nothing of the JAX package.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -404,6 +431,32 @@ def _packed(torch, k, n, gen, w_fmt="fp4_e2m1", scale_mode="m2", lorc_rank=8, gr
     return pack_linear(w, policy)
 
 
+def _synthetic_packed(torch, lead, n, k, gen, lorc_rank=8, group_size=256):
+    """A packed (*lead, n, k) FP4 E2M1 weight drawn as it is stored: random
+    codes, random group scales (~0.5 / sqrt(k), a random weight's) under
+    the M2 constraint, and rank-``lorc_rank`` LoRC factors. The kernels'
+    shapes at DeepSeek-V3's widths, without packing billions of random
+    weights first (LoRC's eigendecomposition of a 7168-wide Gram matrix
+    takes seconds a slice)."""
+    from repro_torch.core.ptq import effective_group
+    from repro_torch.core.scales import apply_scale_constraint, constrain_scales_m2
+    from repro_torch.models.layers import PackedLinear
+
+    lead, group_size = tuple(lead), effective_group(k, group_size)
+    codes = torch.randint(0, 256, lead + (n, k // 2), generator=gen, device=DEV,
+                          dtype=torch.uint8)
+    raw = (torch.rand(lead + (n, k // group_size), generator=gen, device=DEV) + 0.25) \
+        * (0.5 / math.sqrt(k))
+    scale = apply_scale_constraint(raw, "m2")
+    m2 = constrain_scales_m2(scale)
+    lorc = lambda shape, sd: (torch.randn(shape, generator=gen, device=DEV) * sd).to(torch.bfloat16)
+    return PackedLinear(codes=codes, scale=scale.float(), s_max=m2.s_max,
+                        shifts=m2.shifts.to(torch.int8),
+                        lorc_a=lorc(lead + (n, lorc_rank), 0.05),
+                        lorc_b=lorc(lead + (lorc_rank, k), 0.05 / math.sqrt(k)),
+                        w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=group_size)
+
+
 def _same_bits(torch, a, b):
     return a.shape == b.shape and a.dtype == b.dtype and bool(
         torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
@@ -420,13 +473,15 @@ def _deterministic(torch, kernel, y, what):
 
 
 def _w4a8_check(torch, m, k, n, gen, scale_mode="m2", lorc_rank=8, w_fmt="fp4_e2m1",
-                a_fmt="fp8_e4m3"):
-    """A packed (n, k) weight and an (m, k) input; the kernel's output
-    held against its plain version. Returns (packed, x, kernel, plain, err)."""
+                a_fmt="fp8_e4m3", p=None):
+    """A packed (n, k) weight (``p``, or one packed from random weights)
+    and an (m, k) input; the kernel's output held against its plain
+    version. Returns (packed, x, kernel, plain, err)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda
 
-    p = _packed(torch, k, n, gen, w_fmt, scale_mode=scale_mode, lorc_rank=lorc_rank)
+    if p is None:
+        p = _packed(torch, k, n, gen, w_fmt, scale_mode=scale_mode, lorc_rank=lorc_rank)
     x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
     args = (x, p.codes, p.scale, p.s_max, p.shifts, p.lorc_a, p.lorc_b)
     kw = dict(w_fmt=p.w_fmt, a_fmt=a_fmt, group_size=p.group_size)
@@ -443,10 +498,10 @@ def _w4a8_check(torch, m, k, n, gen, scale_mode="m2", lorc_rank=8, w_fmt="fp4_e2
     return p, x, kernel, plain, err
 
 
-def _w4a8_case(torch, timer, m, k, n, gen):
+def _w4a8_case(torch, timer, m, k, n, gen, p=None):
     from repro_torch.kernels import ref
 
-    p, x, kernel, plain, err = _w4a8_check(torch, m, k, n, gen)
+    p, x, kernel, plain, err = _w4a8_check(torch, m, k, n, gen, p=p)
     w_deq = ref.dequant_packed_ref(p.codes, p.scale, p.w_fmt, p.group_size)
     library = lambda: torch.matmul(x, w_deq.t())
     g, r = k // p.group_size, p.lorc_a.shape[1]
@@ -701,19 +756,20 @@ def _attn_frozen_case(torch, timer, gen, kv=12, hd=64):
     return row
 
 
-def _batched_check(torch, transpose, m, gen, scale_mode="m2", lorc_rank=8, w_fmt="fp4_e2m1"):
-    """MiniCPM3's absorbed head projections: a packed (40 * 64, 256) weight
-    viewed per head (``packed_head_view``), wk_b transposed (x (40, M, 64)
-    -> (40, M, 256)) or wv_b normal (x (40, M, 256) -> (40, M, 64)), bf16
-    activations unquantized; the kernel held against its plain version.
-    Returns (view, x, kernel, plain, err)."""
+def _batched_check(torch, transpose, m, gen, scale_mode="m2", lorc_rank=8, w_fmt="fp4_e2m1",
+                   heads=40, n=64, r=256):
+    """The absorbed head projections (MiniCPM3's widths by default): a
+    packed (heads * n, r) weight viewed per head (``packed_head_view``),
+    wk_b transposed (x (heads, M, n) -> (heads, M, r)) or wv_b normal (x
+    (heads, M, r) -> (heads, M, n)), bf16 activations unquantized; the
+    kernel held against its plain version. Returns (view, x, kernel, plain,
+    err)."""
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.core.ptq import pack_linear
     from repro_torch.kernels import ref
     from repro_torch.kernels.w4a8_fused import w4a8_fused_batched_cuda
     from repro_torch.models.layers import packed_head_view
 
-    heads, n, r = 40, 64, 256
     policy = QuantPolicy(w_fmt=w_fmt, a_fmt="fp8_e4m3", group_size=256,
                          scale_mode=scale_mode, lorc_rank=lorc_rank)
     w = (torch.randn((heads * n, r), generator=gen, device=DEV) / math.sqrt(r)).to(torch.bfloat16)
@@ -727,23 +783,23 @@ def _batched_check(torch, transpose, m, gen, scale_mode="m2", lorc_rank=8, w_fmt
     y_k, y_p = kernel(), plain()
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
-    what = (f"w4a8_fused batched {'transposed (wk_b)' if transpose else 'normal (wv_b)'} E=40 "
-            f"M={m} {w_fmt} scale_mode={scale_mode} lorc_rank={lorc_rank}")
+    what = (f"w4a8_fused batched {'transposed (wk_b)' if transpose else 'normal (wv_b)'} "
+            f"E={heads} M={m} {n}x{r} {w_fmt} scale_mode={scale_mode} lorc_rank={lorc_rank}")
     _deterministic(torch, kernel, y_k, what)
     if not torch.allclose(y_k, y_p, rtol=W4A8_TOL, atol=W4A8_TOL):
         fail(f"{what} disagrees with its plain version: max |err| {err}")
     return v, x, kernel, plain, err
 
 
-def _batched_case(torch, timer, transpose, gen):
+def _batched_case(torch, timer, transpose, gen, heads=40, n=64, r=256):
     """The served variant (M2, LoRC 8) at a decode step's M=4, timed."""
     from repro_torch.kernels import ref
 
-    v, x, kernel, plain, err = _batched_check(torch, transpose, 4, gen)
-    w_deq = ref.dequant_packed_ref(v.codes, v.scale, v.w_fmt, v.group_size)  # (40, 64, 256)
+    v, x, kernel, plain, err = _batched_check(torch, transpose, 4, gen, heads=heads, n=n, r=r)
+    w_deq = ref.dequant_packed_ref(v.codes, v.scale, v.w_fmt, v.group_size)  # (heads, n, r)
     library = (lambda: torch.matmul(x, w_deq)) if transpose else \
         (lambda: torch.matmul(x, w_deq.transpose(1, 2)))
-    e, n, in_f, m, r = 40, 64, 256, 4, v.lorc_a.shape[-1]
+    e, in_f, m, r = heads, r, 4, v.lorc_a.shape[-1]
     d, n_out = (n, in_f) if transpose else (in_f, n)
     nbytes = (e * m * d * 2 + e * n * in_f // 2 + e * n * (in_f // v.group_size) + e * n * 4
               + e * n * r * 2 + r * in_f * 2 + e * m * n_out * 4)  # lorc_b: one factor for all heads
@@ -751,8 +807,8 @@ def _batched_case(torch, timer, transpose, gen):
     b_ms, by = bound(nbytes, flops, "bf16")
     row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
                max_abs_err=err, bytes=nbytes, flops=flops)
-    name = "transposed (wk_b, 64->256)" if transpose else "normal (wv_b, 256->64)"
-    log(f"    w4a8_fused batched {name} E=40 M=4: kernel {row['ms']:.4f} ms  plain "
+    name = f"transposed (wk_b, {n}->{in_f})" if transpose else f"normal (wv_b, {in_f}->{n})"
+    log(f"    w4a8_fused batched {name} E={e} M=4: kernel {row['ms']:.4f} ms  plain "
         f"{row['plain_ms']:.4f} ms  library(bf16 matmul per head) {row['library_ms']:.4f} ms  "
         f"bound {b_ms * 1e3:.3f} us ({by}; {nbytes} B)  max|err| {err:.3g}  "
         f"{_dev(row)}")
@@ -774,11 +830,12 @@ def _moe_weights(torch, k, n, gen, scale_mode="m2", lorc_rank=8, w_fmt="fp4_e2m1
 
 
 def _moe_check(torch, p, m, gen, routed=False):
-    """Row 1d at OLMoE-1B-7B's expert stacks: ``p`` 64 packed (n, k) expert
-    weights (wu and wg 2048 -> 1024, wd 1024 -> 2048) and x (64, m, k) raw
-    N(0,1) bf16 activations, quantized to FP8 in-kernel; with ``routed``
-    they are as served: each of the m tokens' rows is nonzero in 8 of the
-    64 slabs (its top-8 experts) and zero in the rest. The kernel held
+    """Row 1d at an expert stack: ``p`` E packed (n, k) expert weights
+    (OLMoE-1B-7B's 64: wu and wg 2048 -> 1024, wd 1024 -> 2048; DeepSeek-V3's
+    256: 7168 -> 2048 and 2048 -> 7168) and x (E, m, k) raw N(0,1) bf16
+    activations, quantized to FP8 in-kernel; with ``routed`` they are as
+    served: each of the m tokens' rows is nonzero in 8 of the E slabs (its
+    top-8 experts) and zero in the rest. The kernel held
     against its plain version. Returns (x, nonzero rows, kernel, plain,
     err, what)."""
     from repro_torch.kernels import ref
@@ -800,7 +857,7 @@ def _moe_check(torch, p, m, gen, routed=False):
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
     what = (f"w4a8_fused batched fp8 (row 1d) E={e} M={m} {k}->{n} {p.w_fmt}"
-            f"{' routed (8 of 64 slabs per token)' if routed else ''} scale_mode="
+            f"{f' routed (8 of {e} slabs per token)' if routed else ''} scale_mode="
             f"{'m2' if p.shifts is not None else 'none'} lorc_rank="
             f"{0 if p.lorc_a is None else p.lorc_a.shape[-1]}")
     _deterministic(torch, kernel, y_k, what)
@@ -865,17 +922,20 @@ def _moe_case(torch, timer, p, m, gen, routed):
     from repro_torch.kernels import ref
 
     x, rows, kernel, plain, err, what = _moe_check(torch, p, m, gen, routed)
-    w_deq = ref.dequant_packed_ref(p.codes, p.scale, p.w_fmt, p.group_size)  # (64, n, k)
+    w_deq = ref.dequant_packed_ref(p.codes, p.scale, p.w_fmt, p.group_size)  # library's (E, n, k)
     library = lambda: torch.bmm(x, w_deq.transpose(1, 2))
     (e, n, k), g, r = w_deq.shape, p.scale.shape[-1], p.lorc_a.shape[-1]
-    nbytes = (e * m * k * 2 + e * n * k // 2 + e * n * g + e * n * 4 + (e * n * r + e * r * k) * 2
+    # an expert whose slab holds no nonzero row needs none of its weights
+    live = int((x.abs().amax((1, 2)) > 0).sum())
+    nbytes = (e * m * k * 2 + live * (n * k // 2 + n * g + n * 4 + (n * r + r * k) * 2)
               + e * m * n * 4)
     flops = 2 * rows * n * k + 2 * rows * r * (k + n)
     b_ms, by = bound(nbytes, flops, "bf16")
     row = dict(**_timed(torch, timer, kernel, plain, library), bound_ms=b_ms, bound_by=by,
                max_abs_err=err, bytes=nbytes, flops=flops)
     log(f"    {what}: kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library(bf16 "
-        f"bmm) {row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {nbytes} B, "
+        f"bmm) {row['library_ms']:.4f} ms  bound {b_ms * 1e3:.2f} us ({by}; {live} of {e} "
+        f"experts' weights, {nbytes} B, "
         f"{flops} FLOP)  max|err| {err:.3g}  "
         f"{_dev(row)}")
     return row
@@ -933,7 +993,8 @@ def _mla_calls(layer, table, kv_lens, q_lat, q_rope, scale):
 MLA_SHAPE = dict(b=4, h=40, r=256, dr=32, page=64, lens=[2048, 1337, 300, 1])
 
 
-def _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens, nan=False):
+def _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens, nan=False,
+               scale=1.0 / math.sqrt(96)):
     """A random latent pool (``_mla_layer``) and the MLA decode kernel's
     output held against its plain version within ATTN_TOL, launched twice
     (bit-identical) and finite where NaN was planted (``nan``)."""
@@ -941,7 +1002,7 @@ def _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens, nan=False):
                                                  nan)
     q_lat = torch.randn((b, h, r), generator=gen, device=DEV).to(torch.bfloat16)
     q_rope = torch.randn((b, h, dr), generator=gen, device=DEV).to(torch.bfloat16)
-    scale = 1.0 / math.sqrt(96)  # MiniCPM3: 1 / sqrt(qk_nope + qk_rope)
+    # 1 / sqrt(qk_nope + qk_rope): MiniCPM3's by default
     kernel, plain = _mla_calls(layer, table, kv_lens, q_lat, q_rope, scale)
     o_k, o_p = kernel(), plain()
     what = (f"paged_mla_decode_attn {fmt or 'bf16'} pages{' + fp4 frozen' if frozen else ''} "
@@ -1006,12 +1067,12 @@ def _mla_edge_checks(torch, gen):
     return worst, fault
 
 
-def _mla_case(torch, timer, gen, fmt, frozen):
+def _mla_case(torch, timer, gen, fmt, frozen, shape=MLA_SHAPE, scale=1.0 / math.sqrt(96)):
     from repro_torch.runtime import kv_cache as kvc
 
-    b, h, r, dr, page, lens = (MLA_SHAPE[k] for k in ("b", "h", "r", "dr", "page", "lens"))
+    b, h, r, dr, page, lens = (shape[k] for k in ("b", "h", "r", "dr", "page", "lens"))
     layer, table, kv_lens, n_frozen, q_lat, q_rope, scale, kernel, plain, err, what = \
-        _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens)
+        _mla_check(torch, gen, fmt, frozen, b, h, r, dr, page, lens, scale=scale)
     # the library yardstick: SDPA over the gathered, dequantized latents,
     # k = concat(ckv, krope) and v = ckv, one KV head broadcast to the H heads
     st = kvc.PagedState(table, kv_lens)
@@ -1139,7 +1200,64 @@ def phase_kernels(torch):
     gemm[(4, 2048, 2048)] = _w4a8_case(torch, timer, 4, 2048, 2048, gen)  # OLMoE's q, k, v, o
     moe, olmoe_attn = _olmoe_kernels(torch, timer, gen)
     recurrent = _recurrent_kernels(torch, timer, gen, gemm)
-    return gemm, attn, frozen, batched, mla, moe, olmoe_attn, recurrent
+    deepseek = _deepseek_kernels(torch, timer, gen)
+    return gemm, attn, frozen, batched, mla, moe, olmoe_attn, recurrent, deepseek
+
+
+# slice 15, DeepSeek-V3 at its published widths. (K, N) of row 1: wq_a, wq_b,
+# wkv_a (N = 576, no multiple of 128), wo, the dense layers' gate / up and
+# down, the shared expert's gate / up and down, and mtp/proj (K = 14336)
+DS_MLA_GEMMS = ((7168, 1536), (1536, 24576), (7168, 576), (16384, 7168))
+DS_DENSE_GEMMS = ((7168, 18432), (7168, 18432), (18432, 7168))
+DS_SHARED_GEMMS = ((7168, 2048), (7168, 2048), (2048, 7168))
+DS_GEMMS = sorted(set(DS_MLA_GEMMS + DS_DENSE_GEMMS + DS_SHARED_GEMMS + ((14336, 7168),)))
+DS_HEADS = dict(heads=128, n=128, r=512)  # wk_b / wv_b per head: 128 heads of 128 x 512
+DS_EXPERTS = (("wu", 7168, 2048), ("wd", 2048, 7168))  # (weight, In, N); wg is wu's shape
+DS_CAPACITY_ROWS = 80  # a cache-free slab over 2048 tokens: 2 groups x C = 40
+DS_MLA_SHAPE = dict(b=4, h=128, r=512, dr=64, page=64, lens=[2048, 1337, 300, 1])
+DS_MLA_SCALE = 1.0 / math.sqrt(192)  # 1 / sqrt(qk_nope 128 + qk_rope 64)
+
+
+def _deepseek_kernels(torch, timer, gen):
+    """Slice 15: the five rows DeepSeek-V3 runs, at its shapes, on weights
+    drawn as stored (``_synthetic_packed``). Row 1 timed at a decode step's
+    M = 4 and checked at a prefill chunk's 128 rows at every (K, N) of
+    DS_GEMMS; rows 1b / 1c (128 heads of 128 x 512) timed at M = 4 and
+    checked at 260; row 1d at 256 experts (wu 7168 -> 2048, wd 2048 ->
+    7168), timed as served (M = 4, each token's row nonzero in 8 of the 256
+    slabs) and as the cache-free grouped dispatch gives it (80 rows a slab,
+    all nonzero); row 3 at r 512, dr 64, H 128 over FP8 + FP4 frozen, FP8
+    and bf16 pages, timed against SDPA, and checked with NaN planted outside
+    the valid tokens. Returns {"gemm": {(4, K, N): row}, "batched": {bool:
+    row}, "moe": {(weight, kind): row}, "mla": {(fmt, frozen): row}}."""
+    gemm = {}
+    for k, n in DS_GEMMS:
+        p = _synthetic_packed(torch, (), n, k, gen)
+        gemm[(4, k, n)] = row = _w4a8_case(torch, timer, 4, k, n, gen, p=p)
+        err = _w4a8_check(torch, 128, k, n, gen, p=p)[-1]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        log(f"    w4a8_fused M=128 {k:5d}->{n:5d} (DeepSeek-V3's prefill chunk): max|err| {err:.3g}")
+    batched = {tr: _batched_case(torch, timer, tr, gen, **DS_HEADS) for tr in (False, True)}
+    for tr in (False, True):
+        err = _batched_check(torch, tr, 260, gen, **DS_HEADS)[-1]
+        batched[tr]["max_abs_err"] = max(batched[tr]["max_abs_err"], err)
+        log(f"    w4a8_fused batched {'transposed' if tr else 'normal'} E={DS_HEADS['heads']} M=260 "
+            f"(DeepSeek-V3's heads): max|err| {err:.3g}")
+    moe = {}
+    for name, k, n in DS_EXPERTS:
+        p = _synthetic_packed(torch, (256,), n, k, gen)
+        moe[(name, "routed")] = _moe_case(torch, timer, p, 4, gen, routed=True)
+        moe[(name, "grouped")] = _moe_case(torch, timer, p, DS_CAPACITY_ROWS, gen, routed=False)
+        del p
+        torch.cuda.empty_cache()
+    mla = {key: _mla_case(torch, timer, gen, *key, shape=DS_MLA_SHAPE, scale=DS_MLA_SCALE)
+           for key in (("fp8_e4m3", True), ("fp8_e4m3", False), (None, False))}
+    for (fmt, fz), row in mla.items():
+        *_, err, what = _mla_check(torch, gen, fmt, fz, *(DS_MLA_SHAPE[k] for k in (
+            "b", "h", "r", "dr", "page", "lens")), nan=True, scale=DS_MLA_SCALE)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        log(f"    {what}, NaN outside the valid tokens: max|err| {err:.3g}")
+    return {"gemm": gemm, "batched": batched, "moe": moe, "mla": mla}
 
 
 def _recurrent_kernels(torch, timer, gen, gemm):
@@ -1214,14 +1332,10 @@ def _olmoe_kernels(torch, timer, gen):
 
 def _opt_125m():
     from repro_torch.configs.opt_125m import CONFIG
-    from repro_torch.core.policy import QuantPolicy
-    from repro_torch.core.ptq import pack_params
-    from repro_torch.models import api
+    from repro_torch.core.ptq import init_packed
 
-    policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256, scale_mode="m2",
-                         lorc_rank=8)
     t0 = time.perf_counter()
-    packed = pack_params(api.init_params(CONFIG, seed=SEED), CONFIG, policy)
+    packed = init_packed(CONFIG, _serve_policy(), seed=SEED)
     return CONFIG, packed, time.perf_counter() - t0
 
 
@@ -1319,7 +1433,35 @@ def _profiled(torch, srv, n_steps, what):
             f"top: " + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n_steps:.2f} ms" for e in top))
 
 
-def _routes(torch, packed, family="dense"):
+PLAIN = {"_route": lambda t: "cpu"}  # kernels.ops on the plain versions, CUDA tensors on the card
+
+
+@contextlib.contextmanager
+def _ops_patched(patch):
+    """``kernels.ops`` with the attributes in ``patch`` (a route's third
+    field, e.g. PLAIN) replaced, restored on exit."""
+    from repro_torch.kernels import ops
+
+    saved = {k: getattr(ops, k) for k in patch}
+    for k, v in patch.items():
+        setattr(ops, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(ops, k, v)
+
+
+def _in_segments(packed, part, name, fn):
+    """``packed`` with ``fn`` applied to every ``segments[i][part][k][name]``
+    (e.g. part "ffn", name "wd": each MoE layer's expert stack)."""
+    return {**packed, "segments": [
+        {**seg, part: {**seg[part], **{k: {**v, name: fn(v[name])} for k, v in seg[part].items()
+                                         if isinstance(v, dict) and name in v}}}
+        for seg in packed["segments"]]}
+
+
+def _routes(torch, packed, family="dense", cpu=True):
     """name -> (params, device, attributes of ``ops`` replaced for the run).
     The faults: ``no_lorc`` drops the LoRC correction (dense: from every
     linear, through the plain versions; MLA: from ``wk_b`` only, MoE: from
@@ -1340,24 +1482,20 @@ def _routes(torch, packed, family="dense"):
         t[:, 0] = t[:, 1]
         return t
 
-    def in_segments(part, name, fn):
-        return {**packed, "segments": [
-            {**seg, part: {**seg[part], **{k: {**v, name: fn(v[name])} for k, v in seg[part].items()
-                                             if isinstance(v, dict) and name in v}}}
-            for seg in packed["segments"]]}
-
     routes = {"card": (packed, DEV, {}),
-              "card_plain": (packed, DEV, {"_route": lambda t: "cpu"}),  # the plain versions
-              "cpu": (tree_map(to_cpu, packed, is_leaf=is_packed), "cpu", {})}
+              "card_plain": (packed, DEV, PLAIN)}
+    if cpu:
+        routes["cpu"] = (tree_map(to_cpu, packed, is_leaf=is_packed), "cpu", {})
     if family == "moe":  # its faults run through the kernels themselves
-        routes["no_lorc"] = (in_segments("ffn", "wd", drop), DEV, {})
-        routes["expert_swap"] = (in_segments("ffn", "wu", lambda t: t.apply(swap)), DEV, {})
+        routes["no_lorc"] = (_in_segments(packed, "ffn", "wd", drop), DEV, {})
+        routes["expert_swap"] = (_in_segments(packed, "ffn", "wu", lambda t: t.apply(swap)), DEV,
+                                 {})
         return routes
     if family == "mla":
         attn = ops.paged_mla_decode_attn
         short = {"paged_mla_decode_attn": lambda ql, qr, layer, pt, lens, scale:
                  attn(ql, qr, layer, pt, lens - 1, scale)}
-        routes["no_lorc"] = (in_segments("mixer", "wk_b", drop), DEV, {})
+        routes["no_lorc"] = (_in_segments(packed, "mixer", "wk_b", drop), DEV, {})
         routes["short_kv"] = (packed, DEV, short)
         return routes
     attn = ops.paged_decode_attn
@@ -1429,15 +1567,12 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
             enc_cfg, post = (encoders or {}).get(name, (cfg, None))
             cross[name] = kvc.init_cross_pool(cfg.n_layers, 2 * cpp, page, cfg.n_kv_heads,
                                               cfg.resolved_head_dim, "fp8_e4m3", device=d)
-            saved = {k: getattr(ops, k) for k in patch}
-            for k, v in patch.items():
-                setattr(ops, k, v)
-            for row, fr in enumerate(frames):
-                api.encode_cross_pages(params, enc_cfg, torch.as_tensor(fr)[None].to(d),
-                                       cross[name], t(np.arange(row * cpp, (row + 1) * cpp)[None], d),
-                                       a_fmt="fp8_e4m3")
-            for k, v in saved.items():
-                setattr(ops, k, v)
+            with _ops_patched(patch):
+                for row, fr in enumerate(frames):
+                    api.encode_cross_pages(params, enc_cfg, torch.as_tensor(fr)[None].to(d),
+                                           cross[name],
+                                           t(np.arange(row * cpp, (row + 1) * cpp)[None], d),
+                                           a_fmt="fp8_e4m3")
             if post is not None:
                 post(cross[name])
     cross_table = np.arange(2 * max(cpp, 1), dtype=np.int32).reshape(2, -1)
@@ -1461,7 +1596,7 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
                 entry = ["block", (x,), None]  # before the cross site the block calls
                 trace.append(entry)
                 y = fn(p, x, *args, **kw)
-                entry[2] = y[0] if site == "mixer" else y
+                entry[2] = y[0]
                 return y
 
             def cross_block(p, x, *args, **kw):
@@ -1534,21 +1669,19 @@ def _compare(torch, cfg, routes, forced, site="block", logit_rtol=LOGIT_RTOL, n_
     def run(name, tokens, pt, lengths, chunk_len, lead, rows):
         params, d, patch = routes[name]
         trace = []  # (site key, inputs, output) of every site, in order
-        saved = {(ops, k): getattr(ops, k) for k in patch}
-        for k, v in patch.items():
-            setattr(ops, k, v)
-        wrapped = hooks(d, lead, trace)  # around the route's own ops
-        for key in wrapped:
-            saved.setdefault(key, getattr(*key))
-        for (mod, attr), v in wrapped.items():
-            setattr(mod, attr, v)
-        st = kvc.PagedState(t(pt, d), t(lengths, d), None if chunk_len is None else t([chunk_len], d),
-                            cross_table=t(cross_table[rows], d) if cross else None,
-                            enc_lengths=t([cfg.encoder_seq] * len(rows), d) if cross else None)
-        logits = api.decode_step(params, cfg, t(tokens, d), pools[name], st, a_fmt="fp8_e4m3",
-                                 cross=cross.get(name))
-        for (mod, attr), v in saved.items():
-            setattr(mod, attr, v)
+        with _ops_patched(patch):
+            wrapped = hooks(d, lead, trace)  # around the route's own ops
+            saved = {key: getattr(*key) for key in wrapped}
+            for (mod, attr), v in wrapped.items():
+                setattr(mod, attr, v)
+            st = kvc.PagedState(t(pt, d), t(lengths, d),
+                                None if chunk_len is None else t([chunk_len], d),
+                                cross_table=t(cross_table[rows], d) if cross else None,
+                                enc_lengths=t([cfg.encoder_seq] * len(rows), d) if cross else None)
+            logits = api.decode_step(params, cfg, t(tokens, d), pools[name], st, a_fmt="fp8_e4m3",
+                                     cross=cross.get(name))
+            for (mod, attr), v in saved.items():
+                setattr(mod, attr, v)
         return logits.float().cpu(), trace
 
     def step(tokens, pt, lengths, rows, chunk_len=None):
@@ -1627,10 +1760,12 @@ def phase_cpu(torch, cfg, packed):
     and the plain versions on the card must read at most BLOCK_RTOL, each
     fault more."""
     routes = _routes(torch, packed)
-    free, agree = _compare(torch, cfg, routes, forced=False)
-    forced, _ = _compare(torch, cfg, routes, forced=True)
+    # 1 decode step, not 4 (since phase 18 came): every site, the decode
+    # attention's included, still runs on both requests
+    free, agree = _compare(torch, cfg, routes, forced=False, n_dec=1)
+    forced, _ = _compare(torch, cfg, routes, forced=True, n_dec=1)
     show = lambda rd, key: ", ".join(f"{n} {rd[n][key]:.4g}" for n in routes if n != "cpu")
-    log(f"[5 cpu] 2 requests (1 prefill chunk + 4 decode steps) against the CPU plain path")
+    log(f"[5 cpu] 2 requests (1 prefill chunk + 1 decode step) against the CPU plain path")
     log(f"    free-running, largest |logit err| / largest |logit| (tolerance {LOGIT_RTOL}): "
         f"{show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, all {agree[1]} "
         f"decisive ones")
@@ -1858,23 +1993,30 @@ def phase_prefix(torch, cfg, packed, card):
     return launches, live, {r.rid: list(r.tokens) for r in results}
 
 
+def _serve_policy():
+    """Phase 4's serving policy: RTN, FP4 E2M1 weights in groups of 256,
+    M2, LoRC 8, FP8 E4M3 activations."""
+    from repro_torch.core.policy import QuantPolicy
+
+    return QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256, scale_mode="m2",
+                       lorc_rank=8)
+
+
 def _random_packed(torch, name, n_layers=None):
     """A config of the port at its published widths (``n_layers`` cuts the
-    depth), random weights from SEED, initialized on the card and
-    packed there by the port's ``pack_params``. Returns (cfg, packed,
-    seconds)."""
+    depth), random weights from SEED, initialized and packed on the card
+    leaf by leaf by the port's ``init_packed`` (the bits of
+    ``pack_params(init_params(...))``; the dense tree of DeepSeek-V3's 4
+    layers + MTP, ~53 GB in bf16, would not fit beside the packed one).
+    Returns (cfg, packed, seconds)."""
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import QuantPolicy
-    from repro_torch.core.ptq import pack_params
-    from repro_torch.models import api
+    from repro_torch.core.ptq import init_packed
 
     cfg = get_config(name)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    policy = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256, scale_mode="m2",
-                         lorc_rank=8)
     t0 = time.perf_counter()
-    packed = pack_params(api.init_params(cfg, seed=SEED), cfg, policy)
+    packed = init_packed(cfg, _serve_policy(), seed=SEED)
     torch.cuda.synchronize()
     return cfg, packed, time.perf_counter() - t0
 
@@ -2100,23 +2242,23 @@ def phase_moe(torch, card):
 
 
 def phase_moe_cpu(torch, cfg, packed):
-    """OLMoE at full width cut to 2 layers along five routes against the CPU
-    plain path (see phase_cpu): the kernels, the plain versions on the
-    card, the CPU, and two faults through the kernels -- ``no_lorc`` drops
-    wd's LoRC correction, ``expert_swap`` makes expert 0 of wu read expert
-    1's weights. Phase 9's weights (its first 2 layers), prompts from SEED,
+    """OLMoE at full width cut to 2 layers along four routes against the
+    plain versions on the card (see phase_cpu): the kernels, the plain
+    versions, and two faults through the kernels -- ``no_lorc`` drops wd's
+    LoRC correction, ``expert_swap`` makes expert 0 of wu read expert 1's
+    weights. Phase 9's weights (its first 2 layers), prompts from SEED,
     read teacher-forced at each MoE layer and each expert GEMM call, fed
-    the card's operands: every wu, wg and wd call of the sound routes
-    within MOE_OP_RTOL of the CPU's output, ``no_lorc`` above it on wd and
-    ``expert_swap`` on wu (the MoE layer's reading shows what its last call
-    and the combine add; the forcing hides wu's fault there); the router,
-    fed the card's hidden states, picks the CPU's experts for every token
-    but where the CPU's gap between its 8th and 9th probability is below
-    MOE_TIE. Also read free-running against the plain versions on the card,
-    a gross check of the whole path: the card within MOE_LOGIT_RTOL, which
-    no fault has to exceed. (A second seed, 2 layers packed anew from SEED
-    + 1, was read the same way until phase 14 took its time; the
-    free-running pass ran the CPU route too until phase 17 took its time.)"""
+    the card's operands: every wu, wg and wd call of the kernels within
+    MOE_OP_RTOL of the plain versions' output, ``no_lorc`` above it on wd
+    and ``expert_swap`` on wu (the MoE layer's reading shows what its last
+    call and the combine add; the forcing hides wu's fault there); the
+    router, fed the card's hidden states, picks the plain route's experts
+    for every token but where its gap between its 8th and 9th probability
+    is below MOE_TIE. Also read free-running, a gross check of the whole
+    path: the card within MOE_LOGIT_RTOL, which no fault has to exceed. (A
+    second seed, 2 layers packed anew from SEED + 1, was read the same way
+    until phase 14 took its time; the free-running pass ran the CPU route
+    too until phase 17 took its time, the forced pass until phase 18 did.)"""
     from repro_torch.models.layers import PackedLinear
     from repro_torch.models.params import tree_map
 
@@ -2125,15 +2267,12 @@ def phase_moe_cpu(torch, cfg, packed):
     cut = lambda t: t.apply(lambda a: a[:n]) if isinstance(t, PackedLinear) else t[:n]
     packed = {**packed, "segments": [tree_map(cut, seg, is_leaf=lambda x: isinstance(x, PackedLinear))
                                      for seg in packed["segments"]]}
-    # 1 decode step, not 4: the CPU's plain expert GEMMs (a dequantized f32
-    # copy of 64 experts a call) take most of this phase, ~20 s a program
-    kw = dict(logit_rtol=MOE_LOGIT_RTOL, n_dec=1)
-    routes = _routes(torch, packed, "moe")
-    show = lambda rd, key, f=".4g": ", ".join(f"{n} {rd[n][key]:{f}}" for n in routes if n != "cpu")
-    free, agree = _compare(torch, cfg, {k: v for k, v in routes.items() if k != "cpu"},
-                           forced=False, ref="card_plain", **kw)
+    kw = dict(logit_rtol=MOE_LOGIT_RTOL, n_dec=1, ref="card_plain")
+    routes = _routes(torch, packed, "moe", cpu=False)
+    show = lambda rd, key, f=".4g": ", ".join(f"{n} {rd[n][key]:{f}}" for n in routes)
+    free, agree = _compare(torch, cfg, routes, forced=False, **kw)
     log(f"[10 moe cpu] OLMoE at full width, 2 layers: 2 requests (1 prefill chunk + 1 decode "
-        f"step) against the CPU plain path")
+        f"step) against the plain versions on the card")
     free_read = ", ".join(f"{n} {r['logits']:.4g}" for n, r in free.items() if n != "card_plain")
     log(f"    free-running (seed {SEED}) against the plain versions on the card, largest |logit "
         f"err| / largest |logit| (gross bound {MOE_LOGIT_RTOL}): {free_read}; greedy tokens "
@@ -2146,17 +2285,17 @@ def phase_moe_cpu(torch, cfg, packed):
         log(f"    teacher-forced expert GEMM calls (row 1d), {key}, largest |output err| / "
             f"|output| (bound {MOE_OP_RTOL}): {show(op, key)}")
     log(f"    teacher-forced MoE layers, largest |output err| / |output|: {show(op, 'moe')}")
-    log(f"    router, fed the card's hidden states: tokens whose experts differ from the CPU's "
-        f"{show(op, 'router_flips', 'd')} of {op['card']['router_tokens']} per route; largest "
-        f"CPU probability gap among them {show(op, 'router_gap', '.3g')} (tie below {MOE_TIE})")
-    for name in ("card", "card_plain"):
-        for key in ("wu", "wg", "wd"):
-            if op[name][key] > MOE_OP_RTOL:
-                fail(f"the {key} calls of route {name} differ from the CPU plain path by "
-                     f"{op[name][key]:.4g} of their output > {MOE_OP_RTOL}")
-        if op[name]["router_gap"] >= MOE_TIE:
-            fail(f"route {name} picks other experts than the CPU where the CPU's probability gap "
-                 f"is {op[name]['router_gap']:.3g} >= {MOE_TIE}")
+    log(f"    router, fed the card's hidden states: tokens whose experts differ from the plain "
+        f"route's {show(op, 'router_flips', 'd')} of {op['card']['router_tokens']} per route; "
+        f"largest plain-route probability gap among them {show(op, 'router_gap', '.3g')} (tie "
+        f"below {MOE_TIE})")
+    for key in ("wu", "wg", "wd"):
+        if op["card"][key] > MOE_OP_RTOL:
+            fail(f"the {key} calls of the kernels differ from the plain versions on the card by "
+                 f"{op['card'][key]:.4g} of their output > {MOE_OP_RTOL}")
+    if op["card"]["router_gap"] >= MOE_TIE:
+        fail(f"the kernels' route picks other experts than the plain versions' where its "
+             f"probability gap is {op['card']['router_gap']:.3g} >= {MOE_TIE}")
     for name, key in (("no_lorc", "wd"), ("expert_swap", "wu")):
         if op[name][key] <= MOE_OP_RTOL:
             fail(f"injected fault {name} reads {op[name][key]:.4g} <= {MOE_OP_RTOL} on {key}: "
@@ -3585,7 +3724,8 @@ def phase_dense(torch, card):
         if launches != want or st["programs"] != st["steps"] or st["decoded_tokens"] != 8:
             fail(f"{name}: kernel launches {launches}, want {want} ({st['steps']} steps, "
                  f"{st['programs']} programs, {st['decoded_tokens']} decoded tokens)")
-        routes = {"card": (packed, DEV, {}), "card_plain": (packed, DEV, {"_route": lambda t: "cpu"})}
+        routes = {k: v for k, v in _routes(torch, packed, cpu=False).items()
+                  if k in ("card", "card_plain")}
         forced, agree = _compare(torch, cfg, routes, forced=True, n_dec=1, ref="card_plain")
         if forced["card"]["block"] > BLOCK_RTOL:
             fail(f"{name}: the blocks differ from the plain versions on the card by "
@@ -4164,6 +4304,274 @@ def phase_recurrent(torch, card):
     return out
 
 
+# -- phase 18: DeepSeek-V3 ------------------------------------------------------------
+DEEPSEEK_BUDGET_S = 240
+DS_SERVED_LAYERS = 4  # of 61: the 3 dense layers and the first MoE layer (+ the MTP block)
+DS_BLOCK_TOKENS = 512  # the cache-free blocks' teacher-forced input: one sequence
+DS_LOSS_BATCH = (2, 1024)  # loss_fn's tokens: 2 sequences of 1024
+# nll, aux and mtp through the kernels against the plain versions on the
+# card, relative. A mean over 2048 tokens moves far less than the blocks
+# under it (a sound pass reads ~5e-4 on the H100, aux from the tokens whose
+# routing flips between the two, F1; PERF.md), and DS_LOSS_FAULT, dense
+# layer 0's down with its scales doubled through the kernels, must read
+# above DS_LOSS_RTOL. The other planted faults are printed beside it.
+DS_LOSS_RTOL = 2e-3
+DS_LOSS_FAULT = "down_scale"
+
+
+def _ds_gemms(cfg, cache_free=False):
+    """Row-1 launches of one DeepSeek program: per MLA layer wq_a, wq_b,
+    wkv_a and wo (cache-free also wk_b and wv_b, which a served step runs
+    per head through rows 1b / 1c); gate, up and down per dense layer and
+    the shared expert's per MoE layer. Cache-free (the loss) adds the MTP
+    block (an MLA + MoE block) and mtp/proj."""
+    n_dense = cfg.moe.n_dense_layers
+    n_moe = cfg.n_layers - n_dense
+    mla, ffn = (6 if cache_free else 4), 3
+    if not cache_free:
+        return mla * cfg.n_layers + ffn * n_dense + ffn * n_moe
+    return mla * (cfg.n_layers + 1) + ffn * n_dense + ffn * (n_moe + 1) + 1
+
+
+def _doubled_scales(p, i):
+    """PackedLinear ``p`` with every scale of its slice ``i`` (an index into
+    its leading axes) doubled: the M2 row scale ``s_max`` that the kernel
+    reads and the group scales of the plain version, so the slice's
+    quantized product doubles (its LoRC term does not)."""
+    scale, s_max = p.scale.clone(), p.s_max.clone()
+    scale[i] *= 2
+    s_max[i] *= 2
+    return dataclasses.replace(p, scale=scale, s_max=s_max)
+
+
+def _ds_blocks(torch, cfg, packed):
+    """DeepSeek's cache-free blocks teacher-forced against the plain
+    versions on the card, each fed the kernels' input (DS_BLOCK_TOKENS
+    tokens from SEED): the 3 dense layers, the MoE layer (its grouped
+    capacity dispatch) and the MTP block on its projected input; the
+    reading is |output err| / |update| (Frobenius), within BLOCK_RTOL.
+    Returns {block: reading}."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import linear, norm
+
+    segs = tf.segments_for(cfg)
+    rng = np.random.default_rng(SEED + 18)
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (1, DS_BLOCK_TOKENS))).to(DEV)
+    pos = torch.arange(tokens.shape[1], device=DEV)
+    reading = {}
+
+    def held(name, p, x, seg):
+        y_k = tf.block_apply(p, x, cfg, seg, pos, a_fmt="fp8_e4m3")[0]
+        with _ops_patched(PLAIN):
+            y_p = tf.block_apply(p, x, cfg, seg, pos, a_fmt="fp8_e4m3")[0]
+        err = float((y_k.double() - y_p.double()).norm() / (y_p.double() - x.double()).norm())
+        reading[name] = max(reading.get(name, 0.0), err)
+        return y_k
+
+    x = packed["embed"][tokens]
+    for seg, stack in zip(segs, packed["segments"]):
+        for i in range(seg.count):
+            x = held("dense" if seg.ffn == "mlp" else "moe", tf.layer_view(stack, i), x, seg)
+    hidden = norm(packed["final_ln"], x, cfg.norm_kind, cfg.norm_eps)
+    p = packed["mtp"]
+    h_in = torch.cat([hidden[:, :-1], packed["embed"][tokens[:, 1:]].to(hidden.dtype)], -1)
+    h_in = linear(p["proj"], torch.nn.functional.pad(h_in, (0, 0, 0, 1)))
+    held("mtp", p["block"], h_in, segs[-1])
+    torch.cuda.synchronize()
+    for name, err in reading.items():
+        if err > BLOCK_RTOL:
+            fail(f"DeepSeek's cache-free {name} block differs from the plain versions on the card "
+                 f"by {err:.4g} of its update > {BLOCK_RTOL}")
+    return reading
+
+
+def _expert_scale_fault(torch, stack, gen):
+    """Row 1d on the served MoE layer's wu stack at a decode step (4 tokens,
+    each routed to 8 of the 256 experts, expert 0 to all four) within
+    W4A8_TOL of its plain version; expert 0's group contributing most, its
+    scale doubled (a shift one less), must read DENSE_FAULT excesses or
+    more against the sound plain version. Launches not counted. Returns
+    (sound excess, fault excess)."""
+    from repro_torch.kernels import ops
+
+    saved = _counts()
+    e, m, k = stack.codes.shape[0], 4, stack.codes.shape[2] * 2
+    pick = torch.rand((m, e), generator=gen, device=DEV)
+    pick[:, 0] = 2.0  # expert 0 among every token's top 8
+    keep = torch.zeros((m, e), dtype=torch.bool, device=DEV).scatter_(
+        1, pick.topk(8, dim=-1).indices, True)
+    x = torch.randn((e, m, k), generator=gen, device=DEV).to(torch.bfloat16)
+    x = torch.where(keep.t()[..., None], x, torch.zeros((), dtype=x.dtype, device=DEV))
+    y_k = ops.w4a8_matmul_batched(x, stack)
+    with _ops_patched(PLAIN):
+        y_p = ops.w4a8_matmul_batched(x, stack)
+    one = _doubled_top_group(torch, stack.apply(lambda t: t[0]), x[0])
+    faulty = dataclasses.replace(stack, scale=stack.scale.clone(), shifts=stack.shifts.clone())
+    faulty.scale[0], faulty.shifts[0] = one.scale, one.shifts
+    y_f = ops.w4a8_matmul_batched(x, faulty)
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    sound, fault = _excess(y_k, y_p), _excess(y_f, y_p)
+    if sound > 1:
+        fail(f"DeepSeek wu stack: row 1d reads {sound:.3g} W4A8_TOL excesses against its plain "
+             "version")
+    if fault < DENSE_FAULT:
+        fail(f"DeepSeek wu stack: expert 0's doubled group scale reads {fault:.3g} < "
+             f"{DENSE_FAULT} excesses: the comparison cannot tell it from the sound weight")
+    return sound, fault
+
+
+def _ds_loss(torch, cfg, routes):
+    """``loss_fn(mtp_weight=0.3)`` on DS_LOSS_BATCH tokens from SEED (labels
+    the next tokens) along each route of ``routes`` (name -> (params,
+    device, ``ops`` patch), as ``_routes``), every launch counter set to 0
+    before each. Returns ({route: (seconds, total, metrics)}, the launches
+    of route "card")."""
+    import numpy as np
+
+    from repro_torch.models import api
+
+    b, s = DS_LOSS_BATCH
+    seq = torch.as_tensor(np.random.default_rng(SEED + 19).integers(
+        2, cfg.vocab_size, (b, s + 1)).astype(np.int32)).to(DEV)
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    out = {}
+    for name, (params, _, patch) in routes.items():
+        _set_counts(dict.fromkeys(_counts(), 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _ops_patched(patch):
+            total, metrics = api.loss_fn(params, cfg, batch, a_fmt="fp8_e4m3", remat=False,
+                                         mtp_weight=0.3)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0, float(total),
+                     {k: float(v) for k, v in metrics.items()})
+        if name == "card":
+            launches = _counts()
+    return out, launches
+
+
+def phase_deepseek(torch, card, kernels):
+    """DeepSeek-V3 (MLA + 256-expert MoE + MTP) at its published widths, cut
+    to DS_SERVED_LAYERS of its 61 layers plus the MTP block, random weights
+    from SEED initialized and packed on the card leaf by leaf
+    (``_random_packed``: the dense tree would not fit beside the packed
+    one), on the reference Server's default path with phase 6's traffic:
+    every request ok, the launches of a step equal to the invariant (none
+    for the MTP block), the live latent pool's frozen kernel held with its
+    injected fault. Then, against the plain versions on the card: the
+    served blocks teacher-forced (``_compare``), the cache-free dense, MoE
+    and MTP blocks (``_ds_blocks``), one expert's doubled group scale, and
+    ``loss_fn(mtp_weight=0.3)`` (nll, aux, mtp within DS_LOSS_RTOL, its
+    launches equal to the cache-free invariant; the planted fault
+    DS_LOSS_FAULT must read above DS_LOSS_RTOL). ``kernels``: phase 3's
+    DeepSeek rows. Returns (serving launches, live, loss launches)."""
+    from repro_torch.models.transformer import layer_view
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, packed, t_pack = _random_packed(torch, "deepseek-v3-671b", n_layers=DS_SERVED_LAYERS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m, ml = cfg.moe, cfg.mla
+    log(f"[18 deepseek] DeepSeek-V3 ({cfg.n_layers} of 61 layers: {m.n_dense_layers} dense + "
+        f"{cfg.n_layers - m.n_dense_layers} MoE, + the MTP block; d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, q_lora {ml.q_lora_rank}, kv_lora {ml.kv_lora_rank}, nope "
+        f"{ml.qk_nope_dim}, rope {ml.qk_rope_dim}, v {ml.v_head_dim}; {m.n_experts} experts "
+        f"top-{m.top_k} of d_ff {m.d_ff} + {m.n_shared_experts} shared; dense d_ff "
+        f"{m.dense_d_ff}; vocab {cfg.vocab_size}): random init + W4A8 pack on the card, leaf by "
+        f"leaf, {t_pack:.1f} s, {peak:.2f} GB peak, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"held")
+    srv = _default_server(torch, cfg, packed)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 18)
+    wall, step_ms, live, results, launches, system, rng = _drive_waves(
+        torch, srv, cfg, lambda srv: _live_mla_check(torch, srv, gen))
+    steps = srv.stats["steps"]
+    n_moe = cfg.n_layers - m.n_dense_layers
+    # one program a step: the GEMMs of _ds_gemms, wv_b's batched and wk_b's
+    # transposed GEMM per layer, the 3 expert GEMMs (wu, wg, wd) of each
+    # MoE layer with FP8 activations, and one frozen latent decode per
+    # layer; the MTP block is never read by a served step
+    want = {**dict.fromkeys(launches, 0), "w4a8_fused": _ds_gemms(cfg) * steps,
+            "w4a8_fused_batched": cfg.n_layers * steps,
+            "w4a8_fused_transposed": cfg.n_layers * steps,
+            "w4a8_fused_batched_fp8": 3 * n_moe * steps,
+            "paged_mla_decode_attn_frozen": cfg.n_layers * steps}
+    if launches != want or min(launches[k] for k in want if want[k]) <= 0:
+        fail(f"kernel launches {launches}, want {want} ({steps} steps)")
+    log(f"    mixed engine, prefix cache, fp8 latent pages + fp4_e2m1 frozen pages, {srv.slots} "
+        f"slots, 8 requests (512-token system prompt + 16-200 token tails, 32 new tokens) in "
+        f"2 waves, on {card}:")
+    _report_waves(srv, wall, step_ms, results, launches, want)
+    log(f"    a step's launches: {_ds_gemms(cfg)} row-1 GEMMs, {cfg.n_layers} + {cfg.n_layers} "
+        f"rows 1b / 1c, {3 * n_moe} row 1d, {cfg.n_layers} frozen row 3; none for the MTP block")
+    log(f"    live latent pool, {cfg.n_layers} layers over 2 segments, H {cfg.n_heads}, r "
+        f"{ml.kv_lora_rank}, dr {ml.qk_rope_dim}: frozen MLA kernel vs plain max|err| "
+        f"{live[0]:.3g} (tolerance {ATTN_TOL}); injected fault ckv_fz_shift + 1 reads "
+        f"{live[1]:.3g} (>= {10 * ATTN_TOL} required)")
+    _profile_hits(torch, srv, cfg, system, rng)
+    del srv
+    routes = _routes(torch, packed, "moe", cpu=False)
+    t1 = time.perf_counter()
+    forced, agree = _compare(torch, cfg, {k: routes[k] for k in ("card", "card_plain")},
+                             forced=True, n_dec=1, ref="card_plain")
+    if forced["card"]["block"] > BLOCK_RTOL:
+        fail(f"DeepSeek's served blocks differ from the plain versions on the card by "
+             f"{forced['card']['block']:.4g} of their update > {BLOCK_RTOL}")
+    blocks = _ds_blocks(torch, cfg, packed)
+    wu = layer_view(packed["segments"][1], 0)["ffn"]["moe"]["wu"]
+    sound, fault = _expert_scale_fault(torch, wu, gen)
+    log(f"    teacher-forced against the plain versions on the card, |output err| / |update| "
+        f"(tolerance {BLOCK_RTOL}): served blocks (2 requests, a prefill chunk + 1 decode step) "
+        f"{forced['card']['block']:.4g}, greedy tokens agree {agree[0]}/{agree[2]}; cache-free "
+        f"({DS_BLOCK_TOKENS} tokens) "
+        + ", ".join(f"{k} {v:.4g}" for k, v in blocks.items())
+        + f"; MoE wu stack at M=4 {sound:.3g} W4A8_TOL excesses, expert 0's group scale doubled "
+        f"{fault:.3g} (>= {DENSE_FAULT}); {time.perf_counter() - t1:.1f} s")
+    # the loss's planted faults, through the kernels: no_lorc and expert_swap
+    # (``_routes``), dense layer 0's down and expert 0's wu (MoE layer) with
+    # their scales doubled
+    routes["down_scale"] = (_in_segments(packed, "ffn", "down", lambda t: _doubled_scales(t, 0)),
+                            DEV, {})
+    routes["expert0_scale"] = (_in_segments(packed, "ffn", "wu",
+                                            lambda t: _doubled_scales(t, (0, 0))), DEV, {})
+    loss, loss_launches = _ds_loss(torch, cfg, routes)
+    want = {**dict.fromkeys(loss_launches, 0), "w4a8_fused": _ds_gemms(cfg, cache_free=True),
+            "w4a8_fused_batched_fp8": 3 * (n_moe + 1)}
+    if loss_launches != want:
+        fail(f"loss_fn's kernel launches {loss_launches}, want {want}")
+    (t_k, tot_k, m_k), (t_p, tot_p, m_p) = loss["card"], loss["card_plain"]
+    rel = lambda m: {k: abs(m[k] - m_p[k]) / abs(m_p[k]) for k in ("nll", "aux", "mtp")}
+    sound = rel(m_k)
+    faults = {name: max(rel(r[2]).values()) for name, r in loss.items()
+              if name not in ("card", "card_plain")}
+    log(f"    loss_fn(mtp_weight=0.3) on {DS_LOSS_BATCH[0]} x {DS_LOSS_BATCH[1]} tokens: kernels "
+        f"total {tot_k:.6g} (nll {m_k['nll']:.6g}, aux {m_k['aux']:.6g}, mtp {m_k['mtp']:.6g}) "
+        f"in {t_k:.2f} s; plain versions on the card total {tot_p:.6g} (nll {m_p['nll']:.6g}, "
+        f"aux {m_p['aux']:.6g}, mtp {m_p['mtp']:.6g}) in {t_p:.2f} s; relative differences "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sound.items())
+        + f" (tolerance {DS_LOSS_RTOL}); launches {({k: v for k, v in loss_launches.items() if v})}"
+        + "; planted faults, largest relative difference: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in faults.items())
+        + f" ({DS_LOSS_FAULT} must exceed {DS_LOSS_RTOL})")
+    for k, v in sound.items():
+        if v > DS_LOSS_RTOL:
+            fail(f"loss_fn's {k} through the kernels differs from the plain versions on the card "
+                 f"by {v:.4g} > {DS_LOSS_RTOL}")
+    if faults[DS_LOSS_FAULT] <= DS_LOSS_RTOL:
+        fail(f"loss_fn's planted fault {DS_LOSS_FAULT} reads {faults[DS_LOSS_FAULT]:.4g} <= "
+             f"{DS_LOSS_RTOL}: the comparison cannot tell it from the sound kernels")
+    row = kernels["mla"][("fp8_e4m3", True)]
+    log(f"    row 3 at r {ml.kv_lora_rank}, dr {ml.qk_rope_dim}, H {cfg.n_heads} (phase 3, one "
+        f"launch, fp8 + fp4 frozen pages, contexts {DS_MLA_SHAPE['lens']}): device "
+        f"{row['device_ms'] * 1e3:.2f} us against SDPA on the dequantized pages "
+        f"{row['library_device_ms'] * 1e3:.2f} us ({row['device_ms'] / row['library_device_ms']:.3f}x)")
+    del packed, routes
+    torch.cuda.empty_cache()
+    return launches, live, loss_launches
+
+
 def step_sum(rows, n_layers, key):
     """One decode step's sum of a kernel's per-launch rows."""
     if key == "bound_ms":  # the bound of the whole step's bytes and operations
@@ -4245,7 +4653,7 @@ def main():
     card = phase_device()
     phase_build()
     lap(2)
-    gemm, attn, frozen, batched, mla, moe, olmoe_attn, recurrent = phase_kernels(torch)
+    gemm, attn, frozen, batched, mla, moe, olmoe_attn, recurrent, ds = phase_kernels(torch)
     lap(3)
     cfg, packed, t_pack = _opt_125m()
     log(f"    opt-125m init + W4A8 pack on the card: {t_pack:.1f} s")
@@ -4294,6 +4702,11 @@ def main():
     lap(17)
     if time.perf_counter() - t17 > RECURRENT_BUDGET_S:
         fail(f"phase 17 took {time.perf_counter() - t17:.1f} s > {RECURRENT_BUDGET_S} s")
+    t18 = time.perf_counter()
+    launches_18, live_18, loss_18 = phase_deepseek(torch, card, ds)
+    lap(18)
+    if time.perf_counter() - t18 > DEEPSEEK_BUDGET_S:
+        fail(f"phase 18 took {time.perf_counter() - t18:.1f} s > {DEEPSEEK_BUDGET_S} s")
 
     for r in gemm.values():
         r["kind"] = "bf16"
@@ -4304,6 +4717,19 @@ def main():
     for r in recurrent["gemm"].values():
         r["kind"] = "bf16"
     recurrent["attn"]["kind"] = "f32"
+    for part in ("gemm", "batched", "moe", "mla"):
+        for r in ds[part].values():
+            r["kind"] = "bf16"
+    # one DeepSeek-V3 decode step at 4 slots, 4 of 61 layers: per MLA layer
+    # wq_a, wq_b, wkv_a and wo, wv_b's and wk_b's per-head GEMMs and one
+    # frozen latent decode; per dense layer gate, up and down; the MoE
+    # layer's shared gate, up and down and its 3 expert GEMMs over 256 slabs
+    ds_step = ([ds["gemm"][(4, k, n)] for k, n in DS_MLA_GEMMS] * DS_SERVED_LAYERS
+               + [ds["gemm"][(4, k, n)] for k, n in DS_DENSE_GEMMS] * 3
+               + [ds["gemm"][(4, k, n)] for k, n in DS_SHARED_GEMMS])
+    ds_moe = [ds["moe"][("wu", "routed")]] * 2 + [ds["moe"][("wd", "routed")]]
+    ds_per = (f"one DeepSeek-V3 decode step ({DS_SERVED_LAYERS} of 61 layers, B=4); launches from "
+              "phase 18's serving run, loss_launches from its loss_fn pass")
     xlstm_step = [recurrent["gemm"][(4, k, n)] for k, n in XLSTM_PAIR_GEMMS] * 6
     zamba2_step = ([recurrent["gemm"][(4, k, n)] for k, n in ZAMBA2_LAYER_GEMMS] * 38
                    + [recurrent["gemm"][(4, k, n)] for k, n in ZAMBA2_SHARED_GEMMS] * 7)
@@ -4350,7 +4776,14 @@ def main():
                         "per": "one zamba2-1.2b decode step: 118 launches at M=4 (in_proj "
                                "2048->8384 and out_proj a Mamba2 layer, q, k, v, o, up, down a "
                                "shared-block invocation); launches from phase 17, fully backed"},
-             "max_abs_err_m128": max(r["max_abs_err"] for r in recurrent["gemm"].values())}},
+             "max_abs_err_m128": max(r["max_abs_err"] for r in recurrent["gemm"].values())},
+         "deepseek": {**entry(ds_step, 1), "launches": launches_18["w4a8_fused"],
+                      "loss_launches": loss_18["w4a8_fused"],
+                      "per": f"{ds_per}: 28 launches at M=4 (wq_a 7168->1536, wq_b 1536->24576, "
+                             "wkv_a 7168->576 and wo 16384->7168 a layer; gate, up 7168->18432 and "
+                             "down 18432->7168 a dense layer; the shared expert's 7168->2048, "
+                             "2048->7168); mtp/proj 14336->7168 and M=128 checked",
+                      "max_abs_err_all_shapes": max(r["max_abs_err"] for r in ds["gemm"].values())}},
         {"name": "paged_decode_attn", "route": "cuda", "source": "src/repro_torch/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:131",
          "launches": launches["paged_decode_attn"],
@@ -4385,18 +4818,24 @@ def main():
                    "per": "phase 15: 2 requests on each dense / VLM config at 2 layers"},
          "encdec": {"launches": launches_16["paged_decode_attn_frozen"],
                     "per": "phase 16: whisper-tiny's decoder self-attention"}},
-        entry([batched[False]], 62, name="w4a8_fused_batched", route="cuda",
-              source="src/repro_torch/csrc/w4a8_fused.cu",
-              replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt=None)",
-              launches=launches_7["w4a8_fused_batched"],
-              per="one MiniCPM3-4B decode step: 62 launches of wv_b (E=40, M=4, 256->64); "
-                  f"launches from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"),
-        entry([batched[True]], 62, name="w4a8_fused_transposed", route="cuda",
-              source="src/repro_torch/csrc/w4a8_fused.cu",
-              replaces="src/repro/kernels/w4a8_fused.py:169 (transpose_w=True, a_fmt=None)",
-              launches=launches_7["w4a8_fused_transposed"],
-              per="one MiniCPM3-4B decode step: 62 launches of wk_b (E=40, M=4, 64->256); "
-                  f"launches from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"),
+        {**entry([batched[False]], 62, name="w4a8_fused_batched", route="cuda",
+                 source="src/repro_torch/csrc/w4a8_fused.cu",
+                 replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt=None)",
+                 launches=launches_7["w4a8_fused_batched"],
+                 per="one MiniCPM3-4B decode step: 62 launches of wv_b (E=40, M=4, 256->64); "
+                     f"launches from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"),
+         "deepseek": {**entry([ds["batched"][False]], DS_SERVED_LAYERS),
+                      "launches": launches_18["w4a8_fused_batched"],
+                      "per": f"{ds_per}: 4 launches of wv_b (E=128, M=4, 512->128)"}},
+        {**entry([batched[True]], 62, name="w4a8_fused_transposed", route="cuda",
+                 source="src/repro_torch/csrc/w4a8_fused.cu",
+                 replaces="src/repro/kernels/w4a8_fused.py:169 (transpose_w=True, a_fmt=None)",
+                 launches=launches_7["w4a8_fused_transposed"],
+                 per="one MiniCPM3-4B decode step: 62 launches of wk_b (E=40, M=4, 64->256); "
+                     f"launches from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"),
+         "deepseek": {**entry([ds["batched"][True]], DS_SERVED_LAYERS),
+                      "launches": launches_18["w4a8_fused_transposed"],
+                      "per": f"{ds_per}: 4 launches of wk_b (E=128, M=4, 128->512)"}},
         {**entry(moe_layer, 16, name="w4a8_fused_batched_fp8", route="cuda",
                  source="src/repro_torch/csrc/w4a8_fused.cu",
                  replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt='fp8_e4m3')",
@@ -4408,7 +4847,16 @@ def main():
          "per_launch_ms": {f"{w} {m}": r["ms"] for (w, m), r in moe.items()},
          "per_launch_device_ms": {f"{w} {m}": r["device_ms"] for (w, m), r in moe.items()},
          "per_launch_library_device_ms": {f"{w} {m}": r["library_device_ms"]
-                                          for (w, m), r in moe.items()}},
+                                          for (w, m), r in moe.items()},
+         "deepseek": {**entry(ds_moe, 1), "launches": launches_18["w4a8_fused_batched_fp8"],
+                      "loss_launches": loss_18["w4a8_fused_batched_fp8"],
+                      "per": f"{ds_per}: 3 launches (wu, wg 7168->2048, wd 2048->7168) over "
+                             "E=256 slabs of M=4 rows, each token's row nonzero in 8 slabs",
+                      "max_abs_err": max(r["max_abs_err"] for r in ds["moe"].values()),
+                      "per_launch_device_ms": {f"{w} {m}": r["device_ms"]
+                                               for (w, m), r in ds["moe"].items()},
+                      "per_launch_library_device_ms": {f"{w} {m}": r["library_device_ms"]
+                                                       for (w, m), r in ds["moe"].items()}}},
         {**entry([mla[("fp8_e4m3", True)]], 62, name="paged_mla_decode_attn", route="cuda",
                  source="src/repro_torch/csrc/mla_decode_attn.cu",
                  replaces="src/repro/kernels/decode_attn.py:287",
@@ -4423,7 +4871,18 @@ def main():
                          for (fmt, fz), r in mla.items()},
          "variants_device_ms": {f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''}":
                                 r["device_ms"] for (fmt, fz), r in mla.items()},
-         "fault_combine_drops_last_split": mla[("fp8_e4m3", True)]["fault_combine_drops_last_split"]},
+         "fault_combine_drops_last_split": mla[("fp8_e4m3", True)]["fault_combine_drops_last_split"],
+         "deepseek": {**entry([ds["mla"][("fp8_e4m3", True)]], DS_SERVED_LAYERS),
+                      "launches": launches_18["paged_mla_decode_attn"]
+                      + launches_18["paged_mla_decode_attn_frozen"],
+                      "max_abs_err": max(max(r["max_abs_err"] for r in ds["mla"].values()),
+                                         live_18[0]),
+                      "fault_live_ckv_fz_shift": live_18[1],
+                      "variants_device_ms": {f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''}":
+                                             r["device_ms"] for (fmt, fz), r in ds["mla"].items()},
+                      "per": f"{ds_per}: 4 launches of the frozen variant, H=128, r=512, dr=64, "
+                             "page 64, contexts 2048/1337/300/1 with half of each row's full "
+                             "pages frozen (the generic path)"}},
     ]
     kernels += _api_entries(api_launches, act, split, versus, faults, flash)
     for k in kernels:  # its source's registers and spills, from phase 2's build log

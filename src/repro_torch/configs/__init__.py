@@ -8,13 +8,14 @@ __all__ = ["ARCHS", "get_config", "get_smoke"]
 
 ARCHS = ["whisper_tiny", "minitron_8b", "nemotron_4_340b", "minicpm3_4b", "olmo_1b",
          "olmoe_1b_7b", "llava_next_34b", "opt_125m",
-         "xlstm_125m", "zamba2_1p2b"]
+         "xlstm_125m", "zamba2_1p2b", "deepseek_v3_671b"]
 
 _ALIASES = {"whisper-tiny": "whisper_tiny", "minitron-8b": "minitron_8b",
             "nemotron-4-340b": "nemotron_4_340b", "minicpm3-4b": "minicpm3_4b",
             "olmo-1b": "olmo_1b", "olmoe-1b-7b": "olmoe_1b_7b",
             "llava-next-34b": "llava_next_34b", "opt-125m": "opt_125m",
-            "xlstm-125m": "xlstm_125m", "zamba2-1.2b": "zamba2_1p2b"}
+            "xlstm-125m": "xlstm_125m", "zamba2-1.2b": "zamba2_1p2b",
+            "deepseek-v3-671b": "deepseek_v3_671b"}
 
 
 def _module(name: str):

@@ -6,6 +6,9 @@
     leaf of a param tree by its W4A8 deployment form (RTN, no calibration).
   * ``pack_params(params, cfg, policy, device)`` — the serving entry point:
     the tree of ``models.build_def(cfg)`` RTN-quantized on ``device``.
+  * ``init_packed(cfg, policy, seed, device)`` — ``pack_params`` of the
+    seeded random init, drawn and packed leaf by leaf (the same bits, never
+    the dense tree whole).
   * ``quantized_shape_tree(defs, policy)`` — the serving checkpoint's
     shapes and dtypes as ``meta`` tensors (no allocation).
   * ``gptq_quantize_lm(params, cfg, calib, policy)`` — the paper's
@@ -31,8 +34,9 @@ from .policy import QuantPolicy
 from .quantize import QuantizedTensor, fake_quantize_weight, quantize_weight
 from .scales import apply_scale_constraint, constrain_scales_m2
 
-__all__ = ["is_quantizable", "effective_group", "pack_linear", "packed_def", "quantize_tree",
-           "quantized_shape_tree", "pack_params", "quantize_one", "gptq_quantize_lm"]
+__all__ = ["is_quantizable", "effective_group", "pack_linear", "packed_def", "quantize_leaf",
+           "quantize_tree", "quantized_shape_tree", "pack_params", "init_packed",
+           "quantize_one", "gptq_quantize_lm"]
 
 
 def is_quantizable(d: ParamDef, path: str = "") -> bool:
@@ -118,22 +122,27 @@ def _pack_batched(w: torch.Tensor, policy: QuantPolicy, chunk: Optional[int] = N
                         group_size=packed[0].group_size)
 
 
+def quantize_leaf(path: str, d: ParamDef, p: torch.Tensor, policy: QuantPolicy):
+    """One leaf ``p`` of a params tree (at ``path``, defined by ``d``) as
+    ``quantize_tree`` leaves it: a PackedLinear when quantizable under an
+    FP4 policy, fake-quantized in place of its values under another, or as
+    it is."""
+    if not is_quantizable(d, path):
+        return p
+    if str(policy.w_fmt).startswith("fp4"):
+        return pack_linear(p, policy) if len(d.shape) == 2 else _pack_batched(p, policy)
+    gs = effective_group(d.shape[-1], policy.group_size)
+    flat = p.reshape((-1,) + tuple(p.shape[-2:])).to(torch.float32)
+    q = torch.stack([fake_quantize_weight(flat[i], policy.w_fmt, gs)
+                     for i in range(flat.shape[0])])
+    return q.reshape(p.shape).to(p.dtype)
+
+
 def quantize_tree(params, defs, policy: QuantPolicy):
     """RTN-quantize every quantizable leaf of ``params`` (structure given by
     the ParamDef tree ``defs``). FP4 leaves become PackedLinear; other
     weight formats stay dense, fake-quantized."""
-    def visit(path, d, p):
-        if not is_quantizable(d, path):
-            return p
-        if str(policy.w_fmt).startswith("fp4"):
-            return pack_linear(p, policy) if len(d.shape) == 2 else _pack_batched(p, policy)
-        gs = effective_group(d.shape[-1], policy.group_size)
-        flat = p.reshape((-1,) + tuple(p.shape[-2:])).to(torch.float32)
-        q = torch.stack([fake_quantize_weight(flat[i], policy.w_fmt, gs)
-                         for i in range(flat.shape[0])])
-        return q.reshape(p.shape).to(p.dtype)
-
-    return _zip_map(visit, defs, params, "")
+    return _zip_map(lambda path, d, p: quantize_leaf(path, d, p, policy), defs, params, "")
 
 
 def _zip_map(fn, defs, params, path):
@@ -187,6 +196,25 @@ def pack_params(params, cfg, policy: QuantPolicy, device=None):
     params = tree_map(lambda t: t.to(device), params)
     with torch.no_grad():
         return quantize_tree(params, api.build_def(cfg), policy)
+
+
+@torch.no_grad()
+def init_packed(cfg, policy: QuantPolicy, seed: int = 0, device=None):
+    """``pack_params(api.init_params(cfg, seed), cfg, policy)`` taken leaf
+    by leaf: each weight is drawn from the one seeded generator in the
+    tree's order (``init_params``'s stream) and quantized before the next
+    is drawn, so ``device`` (the card unless ``device='cpu'``) never holds
+    the dense tree beside the packed one. The same bits as the two-step
+    route."""
+    from repro_torch.models import api
+    from repro_torch.models.params import init_leaf
+
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    defs = api.build_def(cfg)
+    return _zip_map(lambda path, d, _: quantize_leaf(path, d, init_leaf(d, gen, device), policy),
+                    defs, defs, "")
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +349,7 @@ def gptq_quantize_lm(params, cfg, calib_batches: List[dict], policy: QuantPolicy
                         observe(li, name, w_old.clone(), caps[cap], qt)
                     _leaf(new_stack, keys)[li] = w_new
             p_q = _tf.layer_view(new_stack, li)
-            xs = [_tf.block_apply(p_q, x, cfg, seg, torch.arange(x.shape[1], device=dev))
+            xs = [_tf.block_apply(p_q, x, cfg, seg, torch.arange(x.shape[1], device=dev))[0]
                   for x in xs]
     out = dict(params)
     out["segments"] = [new_stack]

@@ -6,6 +6,8 @@ kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.formats import FORMATS, f32, fp_decode, pow2i, unpack_nibbles
@@ -24,9 +26,29 @@ def act_quant_ref(x, fmt_name: str = "fp8_e4m3"):
     return quantize_act_tokenwise(x, fmt_name)
 
 
+_BATCH_WEIGHTS = 1 << 28  # weights of a stack decoded at once (1 GiB in f32)
+
+
+def _slices(codes):
+    """Slices of a stack's leading axis (codes (E, ..., In/2)) of at most
+    ``_BATCH_WEIGHTS`` weights each (one slice at least): a stack such as
+    DeepSeek-V3's 256 experts of 2048 x 7168 is decoded a chunk at a time,
+    so its f32 copy and the decode's temporaries never exist whole."""
+    step = max(1, _BATCH_WEIGHTS // (math.prod(codes.shape[1:]) * 2))
+    return [slice(i, i + step) for i in range(0, codes.shape[0], step)]
+
+
 def dequant_packed_ref(codes, scale, fmt_name: str = "fp4_e2m1", group_size: int = 256):
     """codes (..., out, in/2) packed nibbles, scale (..., out, n_groups) ->
-    (..., out, in) bf16 weights (decode * per-group scale, rounded once)."""
+    (..., out, in) bf16 weights (decode * per-group scale, rounded once).
+    A stacked ``codes`` is decoded over ``_slices`` into one bf16 tensor."""
+    parts = _slices(codes) if codes.dim() > 2 else []
+    if len(parts) > 1:
+        w = torch.empty(codes.shape[:-1] + (2 * codes.shape[-1],), dtype=torch.bfloat16,
+                        device=codes.device)
+        for sl in parts:
+            w[sl] = dequant_packed_ref(codes[sl], scale[sl], fmt_name, group_size)
+        return w
     q = fp_decode(unpack_nibbles(codes), FORMATS[fmt_name])
     out_f, in_f = q.shape[-2], q.shape[-1]
     n_groups = scale.shape[-1]
@@ -68,7 +90,14 @@ def w4a8_batched_matmul_ref(x, codes, scale, lorc_a=None, lorc_b=None,
     y[e] = x[e] @ W[e] -> (E, M, In) (the MLA absorbed q path contracts the
     weight's out rows). LoRC is the same side path as the 2-D kernel's:
     xr = bf16(x A) then xr B when transposed, xr = bf16(x B^T) then xr A^T
-    otherwise. Returns f32."""
+    otherwise. Returns f32. A large stack is taken over ``_slices`` (each
+    slice's result is its own either way)."""
+    parts = _slices(codes)
+    if len(parts) > 1:
+        part = lambda t, sl: None if t is None else t[sl]
+        return torch.cat([w4a8_batched_matmul_ref(
+            x[sl], codes[sl], scale[sl], part(lorc_a, sl), part(lorc_b, sl), w_fmt, a_fmt,
+            group_size, transpose_w) for sl in parts])
     if a_fmt:
         qx, sx = quantize_act_tokenwise(x, a_fmt)
         xq = (qx * sx).to(torch.bfloat16)

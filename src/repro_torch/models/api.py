@@ -1,8 +1,9 @@
 """Model API (port of ``repro.models.api``): build, init, the paged
-serving step, the enc-dec admission step, and the cache-free forward to
-final hidden states (calibration and perplexity). The Zamba2 hybrid
-dispatches to ``models.hybrid``, the enc-dec family to ``models.encdec``,
-every other decoder (xLSTM included) to ``models.transformer``."""
+serving step, the enc-dec admission step, the cache-free forward to final
+hidden states (calibration and perplexity) and the loss it feeds. The
+Zamba2 hybrid dispatches to ``models.hybrid``, the enc-dec family to
+``models.encdec``, every other decoder (xLSTM included) to
+``models.transformer``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,9 +16,11 @@ from repro_torch.runtime.kv_cache import PagedState
 from . import encdec as _encdec
 from . import hybrid as _hybrid
 from . import transformer as _tf
+from .losses import chunked_xent, mtp_loss
 from .params import init_tree
 
-__all__ = ["build_def", "init_params", "decode_step", "encode_cross_pages", "forward_hidden"]
+__all__ = ["build_def", "init_params", "decode_step", "encode_cross_pages", "forward_hidden",
+           "loss_fn"]
 
 
 def _is_encdec(cfg) -> bool:
@@ -71,7 +74,7 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
     elif _is_hybrid(cfg):
         hidden = _hybrid.hybrid_forward(params, cfg, tokens, caches, state, a_fmt=a_fmt)
     else:
-        hidden = _tf.lm_forward(params, cfg, tokens, caches, state, a_fmt=a_fmt)
+        hidden, _ = _tf.lm_forward(params, cfg, tokens, caches, state, a_fmt=a_fmt)
     if state.prefill is not None:
         nd = state.lengths.shape[0]
         h_pre = hidden[0, nd + int(state.prefill.chunk_len[0]) - 1]
@@ -93,12 +96,14 @@ def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None):
     (B, S) at positions 0..S-1, moved to the params' device, behind
     ``batch["patches"]`` (B, P, 1024) or ``batch["frames_prefix"]`` (B, P,
     d) when given; an enc-dec model encodes ``batch["frames"]`` first.
-    Returns ``(hidden (B, S, d), None, aux)`` as the reference does; ``aux``
-    (the MoE balance loss) is 0 for the families ported here (MLA and MoE
-    blocks raise, naming ROADMAP queue 1, item 13). The recurrent families
-    run from their pristine state (the chunked forms over the sequence)."""
+    Returns ``(hidden (B, S, d), None, aux)`` as the reference does: ``aux``
+    the MoE balance loss summed over the layers, an f32 0-d tensor (0
+    without an MoE layer). MLA runs its materialized form, MoE the grouped
+    capacity dispatch; the recurrent families run from their pristine state
+    (the chunked forms over the sequence)."""
     dev = params["embed"].device
     tokens = batch["tokens"].to(dev)
+    aux = 0.0
     if _is_encdec(cfg):
         enc = _encdec.encode(params, cfg, batch["frames"], a_fmt=a_fmt)
         hidden = _encdec.encdec_forward(params, cfg, tokens, enc, a_fmt=a_fmt)
@@ -108,5 +113,37 @@ def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None):
         prefix = batch.get("patches")
         if prefix is None:
             prefix = batch.get("frames_prefix")
-        hidden = _tf.lm_forward(params, cfg, tokens, a_fmt=a_fmt, embeds_prefix=prefix)
-    return hidden, None, torch.zeros((), dtype=torch.float32, device=dev)
+        hidden, aux = _tf.lm_forward(params, cfg, tokens, a_fmt=a_fmt, embeds_prefix=prefix)
+    return hidden, None, torch.as_tensor(aux, dtype=torch.float32, device=dev)
+
+
+@torch.no_grad()
+def loss_fn(params, cfg, batch: dict, a_fmt: Optional[str] = None, remat: bool = True,
+            aux_weight: float = 0.01, mtp_weight: float = 0.0):
+    """The training loss's value (+ metrics), as the reference computes it:
+    the chunked cross entropy of ``forward_hidden`` against
+    ``batch["labels"]`` (under ``batch["mask"]`` when given; a vision or
+    audio prefix carries no loss and is trimmed), plus ``aux_weight`` times
+    the MoE balance loss and, for a config with ``mtp_depth`` and
+    ``mtp_weight`` set, ``mtp_weight`` times ``losses.mtp_loss``. Returns
+    ``(total, {"nll", "aux", "tokens"[, "mtp"]})``. Values only: no
+    gradient is taken, so ``remat`` (the reference's rematerialization)
+    changes nothing here; gradients come with the training slice (ROADMAP
+    queue 1, item 13)."""
+    del remat
+    hidden, _, aux = forward_hidden(params, cfg, batch, a_fmt=a_fmt)
+    labels = batch["labels"].to(hidden.device)
+    if hidden.shape[1] != labels.shape[1]:  # vision/audio prefix tokens carry no loss
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
+    mask = batch.get("mask")
+    head_w = _head_w(params, cfg)
+    loss, n_tok = chunked_xent(hidden, head_w, labels,
+                               mask=None if mask is None else mask.to(hidden.device))
+    total = loss + aux_weight * aux
+    metrics = {"nll": loss, "aux": aux, "tokens": n_tok}
+    if mtp_weight and cfg.mtp_depth and "mtp" in params:
+        ml = mtp_loss(params, cfg, hidden, batch["tokens"].to(hidden.device), labels,
+                      _tf.segments_for(cfg)[-1], _tf.block_apply, head_w)
+        total = total + mtp_weight * ml
+        metrics["mtp"] = ml
+    return total, metrics

@@ -58,8 +58,8 @@ def encode(params, cfg, frames: torch.Tensor, a_fmt: Optional[str] = None) -> to
     t = frames.shape[1]
     x = frames + params["enc_pos"][None, :t].to(frames.dtype)
     enc_cfg = dataclasses.replace(cfg, causal=False, pos_embedding="learned_applied")
-    x = run_segment(params["encoder"], x, enc_cfg, _enc_seg(cfg),
-                    torch.arange(t, device=dev), a_fmt=a_fmt)
+    x, _ = run_segment(params["encoder"], x, enc_cfg, _enc_seg(cfg),
+                       torch.arange(t, device=dev), a_fmt=a_fmt)
     return norm(params["enc_ln"], x, cfg.norm_kind, cfg.norm_eps)
 
 
@@ -101,6 +101,6 @@ def encdec_forward(params, cfg, tokens: torch.Tensor, enc_out: Optional[torch.Te
         positions = torch.arange(s, device=x.device)
         x = x + params["pos_embed"][:s][None].to(x.dtype)
     dec_cfg = dataclasses.replace(cfg, pos_embedding="learned_applied")
-    x = run_segment(params["decoder"], x, dec_cfg, _dec_seg(cfg), positions,
-                    None if caches is None else caches[0], state, a_fmt, cross, enc_out)
+    x, _ = run_segment(params["decoder"], x, dec_cfg, _dec_seg(cfg), positions,
+                       None if caches is None else caches[0], state, a_fmt, cross, enc_out)
     return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)

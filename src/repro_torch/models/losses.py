@@ -1,14 +1,13 @@
 """Loss computation (port of ``repro.models.losses``): sequence-chunked
 cross entropy, so the live logits buffer is (B, chunk, vocab) f32 and never
-(B, S, vocab). Multi-token prediction's loss comes with training (ROADMAP
-queue 1, item 13)."""
+(B, S, vocab), and DeepSeek-V3's multi-token prediction loss."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-__all__ = ["chunked_xent"]
+__all__ = ["chunked_xent", "mtp_loss"]
 
 
 def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
@@ -38,3 +37,26 @@ def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tenso
         nll_sum = nll_sum + torch.sum((lse - gold) * m)
         tok_sum = tok_sum + torch.sum(m)
     return nll_sum / torch.clamp(tok_sum, min=1.0), tok_sum
+
+
+def mtp_loss(params, cfg, hidden: torch.Tensor, tokens: torch.Tensor, labels: torch.Tensor,
+             seg, block_apply_fn, head_w: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction at depth 1: h_t joined with the
+    embedding of token t+1, padded one position back to S, projected by
+    ``mtp/proj``, run through the unstacked ``mtp/block`` at positions
+    0..S-1 without a cache and normed by ``mtp/ln``; its first S-1 rows
+    predict ``labels[:, 1:]`` (the token two ahead). Returns the mean extra
+    nll (the caller weights it)."""
+    from .layers import linear, norm
+
+    p = params["mtp"]
+    s = tokens.shape[1]
+    nxt = params["embed"][tokens[:, 1:].long()]  # (B, S-1, d)
+    h_in = torch.cat([hidden[:, :-1], nxt.to(hidden.dtype)], dim=-1)
+    h_in = torch.nn.functional.pad(h_in, (0, 0, 0, 1))
+    h_in = linear(p["proj"], h_in)
+    h_out, _ = block_apply_fn(p["block"], h_in, cfg, seg,
+                              torch.arange(s, device=hidden.device))
+    h_out = norm(p["ln"], h_out, cfg.norm_kind, cfg.norm_eps)
+    loss, _ = chunked_xent(h_out[:, :s - 1], head_w, labels[:, 1:], chunk=chunk)
+    return loss

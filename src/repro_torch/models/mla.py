@@ -11,8 +11,13 @@ attending the gathered history pages plus its own exact latents), and the
 mixed engine's fused row of both. A packed ``wk_b`` / ``wv_b`` runs the
 batched W4A8 kernel per head (``layers.batched_linear``; transposed for
 ``wk_b``, whose out rows are contracted). The chunk's attention is plain
-torch, as it is plain ``jnp`` in the reference. The materialized form
-(training and the contiguous-cache prefill) comes with the training slice.
+torch, as it is plain ``jnp`` in the reference. Without a cache (the loss,
+calibration, perplexity) MLA takes the reference's materialized form:
+``wk_b`` and ``wv_b`` expand c_kv into per-head keys and values (plain
+``linear``s, so packed weights run the W4A8 GEMM), the rope key is
+broadcast over the heads and the attention is ``attention._sdpa_full`` or,
+past ``attn_chunk`` tokens, ``_sdpa_chunked``, v at its own width. The
+contiguous-cache prefill comes with the training slice.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from repro_torch.kernels import ops
 from repro_torch.runtime.kv_cache import (PagedState, append_paged, append_prefill_chunk,
                                           gather_history)
 
+from .attention import _sdpa_chunked, _sdpa_full, block_mask
 from .layers import (PackedLinear, ParamDef, apply_rope, batched_linear, linear, norm,
                      packed_head_view, quant_act)
 
@@ -90,13 +96,32 @@ def _chunk_attn(q_lat, q_rope, ckv, krope, mask, scale_dim: int, dtype):
     return ctx.transpose(1, 2).to(dtype)
 
 
-def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache,
-                  state: PagedState, a_fmt: Optional[str] = None):
+def _materialized(p, q_nope, q_rope, c_kv, k_rope, cfg) -> torch.Tensor:
+    """Cache-free attention of a whole sequence at positions 0..S-1: keys
+    and values expanded from the latents, (B, S, H * v_head_dim) out."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s = c_kv.shape[:2]
+    k_nope = linear(p["wk_b"], c_kv).reshape(b, s, h, m.qk_nope_dim)
+    v = linear(p["wv_b"], c_kv).reshape(b, s, h, m.v_head_dim)
+    k_rope_h = k_rope[:, :, None, :].expand(b, s, h, m.qk_rope_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h.to(k_nope.dtype)], dim=-1)
+    if s > cfg.attn_chunk:
+        o = _sdpa_chunked(q_full, k_full, v, cfg.causal, cfg.window, cfg.attn_chunk)
+    else:
+        o = _sdpa_full(q_full, k_full, v, block_mask(s, s, 0, 0, cfg.causal, 0,
+                                                     device=c_kv.device))
+    return o.reshape(b, s, h * m.v_head_dim)
+
+
+def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=None,
+                  state: Optional[PagedState] = None, a_fmt: Optional[str] = None):
     """Returns (out, kv_cache). ``kv_cache`` is one layer's latent pool
     slice, written in place; ``positions`` (B, S) the rope positions. A
     state with ``prefill`` is a mixed step (x the fused (1, slots + S)
     row); one with ``chunk_len`` a prefill chunk; otherwise x is one decode
-    token per row."""
+    token per row. Without a state x is a whole sequence at ``positions``
+    0..S-1 (the materialized form; no cache)."""
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
     scale_dim = m.qk_nope_dim + m.qk_rope_dim
@@ -109,6 +134,9 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache,
     c_kv = norm(p["kv_norm"], kv_a[..., :m.kv_lora_rank], "rmsnorm", cfg.norm_eps)
     k_rope = apply_rope(kv_a[..., m.kv_lora_rank:][:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
+    if state is None:
+        o = _materialized(p, q_nope, q_rope, c_kv, k_rope, cfg)
+        return linear(p["wo"], quant_act(o, a_fmt), p.get("bo")), None
 
     # q absorbed into the latent space: (B, S, H, r)
     if isinstance(p["wk_b"], PackedLinear):

@@ -6,14 +6,18 @@ lives in slabs (``kv_cache.gather_slabs``). Zamba2's hybrid builds on the
 same blocks in ``models.hybrid``. A ``cross``
 segment (the enc-dec decoder, ``models.encdec``) adds a cross-attention
 sub-block after the self-attention; a ``vision_patches`` front-end (LLaVA)
-projects patch embeddings through ``mm_proj`` and prepends them.
+projects patch embeddings through ``mm_proj`` and prepends them. A config
+with ``mtp_depth`` (DeepSeek-V3) carries one more block, unstacked, under
+``mtp`` with its norm and input projection: only ``losses.mtp_loss``
+reads it.
 
 Parameters stack per segment with a leading ``(L, ...)`` dim as in the
 reference; a Python loop over the layers takes the place of ``lax.scan``.
-Blocks run over the paged pool (serving) or, for GQA / MLP blocks, with no
-cache over whole sequences (calibration, perplexity). Multi-token
-prediction comes with a later slice (ROADMAP queue 1, item 12), the
-cache-free MLA and MoE blocks with training (item 13)."""
+Blocks run over the paged pool (serving) or with no cache over whole
+sequences (calibration, perplexity, the loss): MLA then takes its
+materialized form and MoE the capacity-bounded grouped dispatch, whose
+balance loss ``aux`` is summed over the layers as the reference's scan
+carries it."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,9 +51,6 @@ def segments_for(cfg) -> List[SegmentSpec]:
     """The stacked segments of a decoder LM. No config reaches the
     reference's ``mamba2`` segment (a pure Mamba2 LM): Zamba2 is built by
     ``models.hybrid``, so the port has none."""
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction is not ported yet (ROADMAP queue 1, item 12)")
     if cfg.ssm is not None and cfg.ssm.kind == "xlstm":
         assert cfg.n_layers % 2 == 0
         return [SegmentSpec("xlstm_pair", "none", cfg.n_layers // 2)]
@@ -117,6 +118,10 @@ def build_lm(cfg):
     p["final_ln"] = norm_params(cfg)
     if not cfg.tie_embeddings:
         p["lm_head"] = ParamDef((cfg.vocab_size, d), ("vocab", "embed"), dt, "embed")
+    if cfg.mtp_depth:  # one block of the last segment's kind, with no layer axis
+        p["mtp"] = {"block": block_params(cfg, segments_for(cfg)[-1]),
+                    "ln": norm_params(cfg),
+                    "proj": ParamDef((d, 2 * d), ("embed", None), dt)}
     return p
 
 
@@ -124,13 +129,6 @@ def layer_view(stack, i: int):
     """Layer ``i`` of a stacked segment (views, no copies)."""
     return tree_map(lambda t: t.layer(i) if isinstance(t, PackedLinear) else t[i], stack,
                     is_leaf=lambda x: isinstance(x, PackedLinear))
-
-
-def _require_cache_free(cfg, seg: SegmentSpec) -> None:
-    if (seg.mixer, seg.ffn) not in (("gqa", "mlp"), ("xlstm_pair", "none")):
-        raise NotImplementedError(
-            f"{cfg.name}: the cache-free forward of {seg.mixer} / {seg.ffn} blocks is not "
-            "ported yet (ROADMAP queue 1, item 13)")
 
 
 def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
@@ -144,15 +142,14 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
     "slstm" slab pools, stepped and scattered back. A ``seg.cross`` block
     adds x + cross(ln_cross(x)) after the self-attention: over the
     write-once cross pages ``cross_layer`` when serving, else against the
-    K/V of ``enc_out``. Without ``state`` (GQA / MLP and xLSTM blocks only)
-    x is a whole sequence at ``positions`` 0..S-1 and no cache is read or
-    written."""
-    if state is None:
-        _require_cache_free(cfg, seg)
+    K/V of ``enc_out``. Without ``state`` x is a whole sequence at
+    ``positions`` 0..S-1 and no cache is read or written. Returns (x, aux):
+    aux the MoE layer's balance loss (a 0-d f32 tensor), 0.0 for an MLP or
+    no ffn."""
     nk = cfg.norm_kind
     pm = p["mixer"]
     if seg.mixer == "xlstm_pair":
-        return _xlstm_pair(pm, x, cfg, cache_layer, state, a_fmt)
+        return _xlstm_pair(pm, x, cfg, cache_layer, state, a_fmt), 0.0
     pf = p["ffn"]
     hn = norm(pm["ln"], x, nk, cfg.norm_eps)
     if seg.mixer == "mla":
@@ -176,7 +173,7 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
         x = x + h
     x_ln = norm(pf["ln"], x, nk, cfg.norm_eps)
     if seg.ffn == "mlp":
-        return x + mlp(pf["mlp"], x_ln, cfg, a_fmt=a_fmt)
+        return x + mlp(pf["mlp"], x_ln, cfg, a_fmt=a_fmt), 0.0
     # Serving (paged) routes per-token: group_size=1 puts every token in its
     # own dispatch group, so capacity never drops an assignment and each
     # token's experts depend only on its own hidden state. Batch
@@ -184,8 +181,10 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
     # piggybacked prefill chunk, chunk bucketing -- can then never change a
     # token's routing, which is what makes serving outputs independent of
     # batchmates and the mixed engine bit-identical to the alternating one.
-    h, _ = moe_layer(pf["moe"], x_ln, cfg, a_fmt=a_fmt, group_size=1)
-    return x + h
+    # The cache-free forward keeps the capacity-bounded grouped dispatch.
+    h, aux = moe_layer(pf["moe"], x_ln, cfg, a_fmt=a_fmt,
+                       group_size=1 if state is not None else 1024)
+    return x + h, aux
 
 
 def _xlstm_pair(pm, x, cfg, cache_layer, state: Optional[PagedState], a_fmt):
@@ -239,14 +238,16 @@ def run_segment(seg_params, x, cfg, seg: SegmentSpec, positions, pool=None,
     """Every layer of one stacked segment over x, in order (``lax.scan``'s
     place): each layer with its slice of the segment's pool (a page pool,
     or xLSTM's {"mlstm", "slstm"} slab pools) and of the cross pool, when
-    there are pools."""
+    there are pools. Returns (x, the layers' aux summed)."""
     n = seg.count if pool is None else next(tree_items(pool))[1].shape[0]
+    aux_sum = 0.0
     for i in range(n):
         cache_layer = None if pool is None else tree_map(lambda leaf: leaf[i], pool)
         cross_layer = None if cross is None else {k: leaf[i] for k, leaf in cross.items()}
-        x = block_apply(layer_view(seg_params, i), x, cfg, seg, positions, cache_layer, state,
-                        a_fmt, cross_layer, enc_out)
-    return x
+        x, aux = block_apply(layer_view(seg_params, i), x, cfg, seg, positions, cache_layer,
+                             state, a_fmt, cross_layer, enc_out)
+        aux_sum = aux_sum + aux
+    return x, aux_sum
 
 
 def lm_forward(params, cfg, tokens: torch.Tensor, caches=None,
@@ -256,27 +257,24 @@ def lm_forward(params, cfg, tokens: torch.Tensor, caches=None,
     (for a mixed step, the fused (1, slots + S) row of decode tokens and
     one prefill chunk). ``caches``: one pool dict per segment, written in
     place. Without ``state`` (and caches) the tokens are whole sequences at
-    positions 0..S-1 (the dense family only), behind ``embeds_prefix``
-    (patches or audio frames) when given. Returns the final-norm hidden
-    states (B, S, d)."""
+    positions 0..S-1, behind ``embeds_prefix`` (patches or audio frames)
+    when given. Returns the final-norm hidden states (B, S, d) and the MoE
+    balance loss summed over every layer (0.0 without an MoE layer)."""
     x = _embed_tokens(params, cfg, tokens, embeds_prefix)
     s = x.shape[1]
     if state is None:
-        segs = segments_for(cfg)
-        for seg in segs:
-            _require_cache_free(cfg, seg)
         if cfg.pos_embedding == "learned":
             x = x + params["pos_embed"][:s][None].to(x.dtype)
-        steps = torch.arange(s, device=x.device)
-        for seg, seg_params in zip(segs, params["segments"]):
-            x = run_segment(seg_params, x, cfg, seg, steps, a_fmt=a_fmt)
-        return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)
-    positions = positions_of(state, s, x.device)
-    if cfg.pos_embedding == "learned":
-        x = x + params["pos_embed"][positions].to(x.dtype)
-    for seg, seg_params, pool in zip(segments_for(cfg), params["segments"], caches):
-        x = run_segment(seg_params, x, cfg, seg, positions, pool, state, a_fmt)
-    return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)
+        positions, pools = torch.arange(s, device=x.device), [None] * len(params["segments"])
+    else:
+        positions, pools = positions_of(state, s, x.device), caches
+        if cfg.pos_embedding == "learned":
+            x = x + params["pos_embed"][positions].to(x.dtype)
+    aux_total = 0.0
+    for seg, seg_params, pool in zip(segments_for(cfg), params["segments"], pools):
+        x, aux = run_segment(seg_params, x, cfg, seg, positions, pool, state, a_fmt)
+        aux_total = aux_total + aux
+    return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps), aux_total
 
 
 def lm_logits(params, cfg, hidden: torch.Tensor) -> torch.Tensor:

@@ -87,12 +87,13 @@ a slot); when it runs dry the token budget steals a running request's
 slab for a waiter of strictly higher priority, the reserve policy waits.
 Their prompts stream in exact chunk lengths (a recurrence cannot mask pad
 tokens out of its carry), on the alternating engine, with no prefix cache.
-Not ported yet: multi-token prediction, refused with
-``NotImplementedError`` naming ROADMAP item 12 as its params are built;
-FP4 cross pages (``CachePolicy(cross_fmt="fp4_e2m1")`` on an
-enc-dec model raises, naming F9: the reference misreads them); and meshes
-(item 14): ``ServerConfig`` has no ``mesh`` field, so
-``ServerConfig(mesh=...)`` raises ``TypeError``.
+DeepSeek-V3's MLA segments (its dense layers, then its MoE layers) each
+hold a latent pool, walked in segment order wherever the pools are; its
+multi-token prediction block is never read by a served step, as in the
+reference. Not ported yet: FP4 cross pages (``CachePolicy(cross_fmt=
+"fp4_e2m1")`` on an enc-dec model raises, naming F9: the reference
+misreads them); and meshes (item 14): ``ServerConfig`` has no ``mesh``
+field, so ``ServerConfig(mesh=...)`` raises ``TypeError``.
 
 Sampling (``Request.sampling``): each step draws every row's token from
 its logits with the row's ``SamplingParams`` (``runtime.sampling``); a

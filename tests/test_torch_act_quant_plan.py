@@ -38,6 +38,7 @@ from repro_torch.kernels.act_quant import HELD, MAX_CLUSTER, MAX_THREADS, VEC, a
 from repro_torch.kernels.common import round_to_grid
 
 from test_torch_bridge import t, to_np
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 # (rows, d) of every act_quant launch chip_smoke.py times (phase 11's
 # ACT_QUANT_SHAPES), then the widths it checks

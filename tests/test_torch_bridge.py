@@ -23,6 +23,17 @@ POLICY = QuantPolicy(w_fmt="fp4_e2m1", a_fmt="fp8_e4m3", group_size=256,
                      scale_mode="m2", lorc_rank=8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU steps on one thread while a module that imports this
+    runs: at these widths torch's intra-op threads only spin, and under a
+    parallel test run they take cores from the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def flatten_jax(tree):
     """``tree_flatten_with_path`` -> {"/"-joined path: ndarray}; a
     PackedLinear contributes one leaf per (non-None) tensor field."""

@@ -46,7 +46,7 @@ NAMES = ("olmo-1b", "minitron-8b", "nemotron-4-340b", "llava-next-34b", "whisper
 DENSE = ("olmo-1b", "minitron-8b", "nemotron-4-340b", "llava-next-34b")
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ("deepseek-v3-671b",))
 def test_config_copies_reference(name):
     assert dataclasses.asdict(t_get_config(name)) == dataclasses.asdict(j_get_config(name))
     assert dataclasses.asdict(t_get_smoke(name)) == dataclasses.asdict(j_get_smoke(name))
@@ -54,13 +54,14 @@ def test_config_copies_reference(name):
 
 
 def test_archs_left_out_are_the_recurrent_families_and_deepseek():
-    """DeepSeek-V3 alone is left out: the recurrent families came with
-    their slice (tests/test_torch_recurrent.py)."""
+    """None is left out any more: the port carries every reference arch,
+    the recurrent families (tests/test_torch_recurrent.py) and DeepSeek-V3
+    (tests/test_torch_deepseek.py) last."""
     from repro.configs import ARCHS as J_ARCHS
 
-    assert sorted(set(J_ARCHS) - set(ARCHS)) == ["deepseek_v3_671b"]
-    with pytest.raises(KeyError):
-        t_get_config("deepseek-v3-671b")
+    assert sorted(ARCHS) == sorted(J_ARCHS)
+    for name in J_ARCHS:
+        assert t_get_config(name).name == j_get_config(name).name
 
 
 @functools.lru_cache(maxsize=None)

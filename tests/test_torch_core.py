@@ -24,6 +24,7 @@ from repro_torch.kernels import common as TC
 from repro_torch.models.layers import PackedLinear
 
 from test_torch_bridge import t, to_np
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 FLOAT_FMTS = ["fp8_e4m3", "fp8_e5m2", "fp4_e2m1", "fp4_e3m0"]
 

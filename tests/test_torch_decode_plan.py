@@ -38,6 +38,7 @@ from repro_torch.kernels.w4a8_fused import SMS
 from repro_torch.runtime import kv_cache as tkvc
 
 from test_torch_bridge import to_np
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 _jattn = jax.jit(jref.paged_decode_attn_ref, static_argnames=("fmt", "frozen", "window"))

@@ -27,7 +27,6 @@ from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.data.pipeline import calibration_stream as j_calibration
 from repro.models import attention as jattn
 from repro.models.losses import chunked_xent as j_xent
-from repro_torch.configs import get_smoke as t_get_smoke
 from repro_torch.data.pipeline import DataConfig as TDataConfig
 from repro_torch.data.pipeline import SyntheticLM as TSyntheticLM
 from repro_torch.data.pipeline import calibration_stream as t_calibration
@@ -41,7 +40,7 @@ from test_torch_bridge import port_cfg, t, to_np
 from test_torch_mixed_engine import STRICT_OPTIONS
 import test_torch_mla_logits as mla_logits
 from test_torch_mla_logits import Roundings
-from test_torch_moe import MOE_CFG, ROPE_CFG
+from test_torch_moe import ROPE_CFG
 from test_torch_scheduler import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 TOL = 1e-5  # logits, as tests/test_torch_forward.py
@@ -217,11 +216,3 @@ def test_chunked_xent_matches_reference(s, chunk, masked):
                     chunk=chunk)
     assert float(tn) == float(jn) == (mask.sum() if masked else 3 * s)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
-
-
-@pytest.mark.parametrize("name", ["minicpm3-4b", "moe"])
-def test_mla_and_moe_forward_raise_naming_item_13(name):
-    cfg = t_get_smoke(name) if name != "moe" else port_cfg(MOE_CFG)
-    params = tapi.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tapi.forward_hidden(params, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})

@@ -25,6 +25,7 @@ from repro_torch.runtime import kv_cache as tkvc
 
 from conftest import tiny_lm_cfg
 from test_torch_bridge import POLICY, flatten_jax, port_cfg, t, to_np
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 TOL = 1e-5
 PAGE, N_PAGES = 8, 8

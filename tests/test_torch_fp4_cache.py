@@ -23,6 +23,7 @@ from repro_torch.kernels.decode_attn import paged_decode_attn_cuda
 from repro_torch.runtime import kv_cache as tkvc
 
 from test_torch_bridge import t, to_np
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 MIXED = dict(fmt="fp8_e4m3", frozen_fmt="fp4_e2m1")
 # repro's gathers and oracle, jitted: one compile instead of one per op

@@ -1,7 +1,6 @@
 """Guards of the port's boundaries: it imports neither jax nor the JAX
 package, and its entry points never fall back to the CPU on their own."""
 import ast
-import dataclasses
 import re
 from pathlib import Path
 
@@ -44,37 +43,30 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
         serve.Server(params, SMOKE, device="cuda")
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("mtp_depth", 1, "item 12"), ("temperature", 0.7, "item 9")])
+@pytest.mark.parametrize("field,value,item", [("temperature", 0.7, "item 9")])
 def test_unported_serving_options_raise(field, value, item):
-    """What the port still refuses names its ROADMAP item: multi-token
-    prediction (queue 1, item 12; refused as its params are built).
-    Sampled decoding (item 9) is ported: ``temperature > 0`` validates, and
-    the bounds checks still raise."""
-    if field == "temperature":
-        assert serve.SamplingParams(temperature=value).validate().temperature == value
-        for bad, match in ((dict(temperature=-value), "temperature"),
-                           (dict(temperature=value, top_p=0.0), "top_p"),
-                           (dict(temperature=value, top_k=-1), "top_k")):
-            with pytest.raises(ValueError, match=match):
-                serve.SamplingParams(**bad).validate()
-        return
-    cfg = dataclasses.replace(SMOKE, **{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        srv = serve.Server(api.init_params(cfg, seed=0, device="cpu"), cfg,
-                           serve.ServerConfig(slots=1, max_seq=64, page_size=8), device="cpu")
-        srv.submit(serve.Request(rid=0, prompt=[1, 2, 3], max_new=2))
-        srv.run_until_drained()
+    """Serving options the port once refused, by their ROADMAP item. Sampled
+    decoding (item 9) is ported: ``temperature > 0`` validates, and the
+    bounds checks still raise. Multi-token prediction (item 12) is ported
+    too: DeepSeek-V3 serves (``test_no_module_refuses_a_ported_config``)."""
+    assert serve.SamplingParams(**{field: value}).validate().temperature == value
+    for bad, match in ((dict(temperature=-value), "temperature"),
+                       (dict(temperature=value, top_p=0.0), "top_p"),
+                       (dict(temperature=value, top_k=-1), "top_k")):
+        with pytest.raises(ValueError, match=match):
+            serve.SamplingParams(**bad).validate()
 
 
 @pytest.mark.parametrize("name", ["opt-125m", "olmo-1b", "minitron-8b", "nemotron-4-340b",
                                   "llava-next-34b", "whisper-tiny", "minicpm3-4b",
-                                  "olmoe-1b-7b", "xlstm-125m", "zamba2-1.2b"])
+                                  "olmoe-1b-7b", "xlstm-125m", "zamba2-1.2b",
+                                  "deepseek-v3-671b"])
 def test_no_module_refuses_a_ported_config(name):
-    """Every config the port carries (dense, VLM, enc-dec, MLA, MoE, and the
-    recurrent xLSTM and Zamba2 hybrid over state slabs) builds, serves a
-    request and runs the cache-free forward where its blocks have one; no
-    refusal names item 12 for them."""
+    """Every config the port carries (dense, VLM, enc-dec, MLA, MoE, the
+    recurrent xLSTM and Zamba2 hybrid over state slabs, and DeepSeek-V3 with
+    its MTP block) builds, serves a request and runs the cache-free forward
+    (MLA's materialized form, MoE's grouped dispatch); no refusal names
+    item 12 or item 13 for them."""
     from repro_torch.configs import get_smoke
 
     cfg = get_smoke(name)
@@ -88,28 +80,18 @@ def test_no_module_refuses_a_ported_config(name):
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     if frames is not None:
         batch["frames"] = torch.from_numpy(frames)[None]
-    if name in ("minicpm3-4b", "olmoe-1b-7b"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            api.forward_hidden(params, cfg, batch)
-    else:
-        assert api.forward_hidden(params, cfg, batch)[0].shape == (1, 4, cfg.d_model)
+    hidden, _, aux = api.forward_hidden(params, cfg, batch)
+    assert hidden.shape == (1, 4, cfg.d_model) and bool(torch.isfinite(hidden.float()).all())
+    assert (float(aux) > 0) == (cfg.moe is not None)
 
 
 def test_refusals_name_item_12_only_for_the_recurrent_families_and_mtp():
-    """The port's refusals that name item 12 speak of multi-token
-    prediction (the recurrent families are ported), never of the enc-dec
-    family or the vision/audio front-ends."""
+    """Item 12's families are all ported, DeepSeek-V3's multi-token
+    prediction last: no line of the port names ROADMAP queue 1, item 12."""
     src = ROOT / "src" / "repro_torch"
-    named = 0
-    for path in sorted(src.rglob("*.py")):
-        lines = path.read_text().splitlines()
-        for i, line in enumerate(lines):
-            if "item 12" in line:
-                named += 1
-                context = " ".join(lines[max(0, i - 2): i + 1])
-                assert not re.search(r"enc-dec|encoder|front-end|frontend|vision", context), \
-                    (str(path), context)
-    assert named
+    named = [f"{p.relative_to(src)}:{i + 1}" for p in sorted(src.rglob("*.py"))
+             for i, line in enumerate(p.read_text().splitlines()) if "item 12" in line]
+    assert named == []
 
 
 def test_no_refusal_names_sampling_or_frontend():

@@ -33,6 +33,7 @@ from repro_torch.kernels import ref as tref
 
 from test_torch_bridge import t, to_np
 from test_torch_kernels import _port
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _bits(a):

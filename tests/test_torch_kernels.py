@@ -31,6 +31,7 @@ from repro_torch.kernels.w4a8_fused import w4a8_fused_matmul_cuda
 from repro_torch.models.layers import PackedLinear
 
 from test_torch_bridge import t, to_np
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _packed(rng, n, k, group, w_fmt, scale_mode, lorc_rank):

@@ -12,6 +12,7 @@ from repro.runtime import kv_cache as jkvc
 from repro_torch.runtime import kv_cache as tkvc
 
 from test_torch_bridge import t, to_np
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 PAGE, KV, HD, N_PAGES = 8, 2, 16, 6
 

@@ -38,6 +38,7 @@ from repro_torch.runtime import serve as tserve
 
 from conftest import tiny_lm_cfg
 from test_torch_bridge import POLICY, flatten_jax, port_cfg
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 STATS = ("prefix_hit_pages", "prefix_hit_tokens", "prefix_reclaims", "fp4_frozen_pages",
          "prefill_tokens", "steps")

@@ -45,6 +45,7 @@ from repro_torch.runtime import kv_cache as tkvc
 
 from test_torch_bridge import t, to_np
 from test_torch_mla import MLA_CFG, _model
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 TOL = 1e-5  # logits, against the strictly compiled reference
 # Elements a step's roundings may tip, over all its sites: the steps below

@@ -10,6 +10,7 @@ import pytest
 
 from test_torch_mixed_engine import release_compiled, serve_both
 from test_torch_mla import MLA_CFG, _model, bridge
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 # -- served streams ------------------------------------------------------------------

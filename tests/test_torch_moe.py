@@ -44,6 +44,7 @@ from repro_torch.models.transformer import layer_view
 
 from test_torch_bridge import t, to_np
 from test_torch_mla import _model
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 MOE_CFG = ArchConfig(
     name="moe-tiny", family="moe", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,

@@ -24,6 +24,7 @@ from test_torch_bridge import t
 from test_torch_mla import _model
 from test_torch_mla_logits import _Pair, roundings  # noqa: F401
 from test_torch_moe import MOE_CFG
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 class GqaPair(_Pair):

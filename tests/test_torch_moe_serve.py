@@ -20,6 +20,7 @@ from test_torch_mixed_engine import _serve, release_compiled, serve_both  # noqa
 from test_torch_mla import _model
 from test_torch_mla_serve import CACHES, _waves
 from test_torch_moe import MOE_CFG
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 @pytest.fixture(scope="module")

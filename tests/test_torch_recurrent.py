@@ -322,7 +322,7 @@ def _slab_pools(name, tcfg, n_slabs=1):
 def _hidden(name, tp, tcfg, tokens, caches, state):
     if name == "zamba2-1.2b":
         return thybrid.hybrid_forward(tp, tcfg, tokens, caches, state)
-    return ttf.lm_forward(tp, tcfg, tokens, caches, state)
+    return ttf.lm_forward(tp, tcfg, tokens, caches, state)[0]
 
 
 @pytest.mark.parametrize("name", NAMES)

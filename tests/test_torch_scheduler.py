@@ -25,7 +25,7 @@ from repro.runtime import serve as jserve
 from repro_torch.runtime import kv_cache as tkvc
 from repro_torch.runtime import serve as tserve
 
-from test_torch_bridge import t, to_np
+from test_torch_bridge import one_thread, t, to_np  # noqa: F401  (autouse: torch on one thread)
 from test_torch_mixed_engine import (MIXED, StrictReference, _packed, compare_streams,
                                      release_compiled)
 
@@ -134,17 +134,6 @@ def assert_same_outcome(tsrv, jsrv, strict):
 @pytest.fixture(scope="module")
 def tiny_packed():
     return _packed(2, traced=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's CPU steps on one thread while this module runs: at these
-    widths torch's intra-op threads only spin, and under a parallel test
-    run they take cores from the other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # (engine, cache, pool pages, scheduler knobs, new tokens): on these pools

@@ -41,6 +41,7 @@ from repro_torch.runtime import serve as tserve
 
 from conftest import tiny_lm_cfg
 from test_torch_bridge import POLICY, flatten_jax, port_cfg
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 PROMPT_LENS = (5, 19, 3, 12, 27, 9)
 MAX_NEW = 6

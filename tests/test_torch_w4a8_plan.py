@@ -27,6 +27,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.w4a8_fused import BK, MAX_KS, SMS, chunk_ranges, gemm_plan
 
 from test_torch_bridge import t, to_np
+from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 
