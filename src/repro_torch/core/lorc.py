@@ -30,22 +30,42 @@ class LorcFactors(NamedTuple):
     b: torch.Tensor  # (r, in)
 
 
+# An error matrix above this many elements is taken to f64 a block at a
+# time (its Gram matrix summed over the blocks), not whole: nemotron-4-340b's
+# 73728 x 18432 MLP weight would need an 11 GB f64 copy
+_F64_ELEMENTS = 1 << 28
+
+
+def _blocks(err: torch.Tensor, axis: int):
+    """f64 blocks of ``err`` along ``axis`` (-2 or -1), each of about
+    _F64_ELEMENTS / 4 elements; the whole of it, once, when it is small."""
+    if err.numel() <= _F64_ELEMENTS:
+        return [err.to(torch.float64)]
+    step = max(1, (_F64_ELEMENTS // 4) * err.shape[axis] // err.numel())
+    return (b.to(torch.float64) for b in err.split(step, dim=axis))
+
+
 def _truncated_svd_factors(err: torch.Tensor, rank: int):
     """(U_r sqrt(s_r), sqrt(s_r) V_r^T) of ``err`` (..., out, in), from the
     top eigenpairs of its smaller f64 Gram matrix; a component whose
-    singular value is 0 gets zero factors."""
-    e = err.to(torch.float64)
-    wide = e.shape[-2] <= e.shape[-1]
-    lam, vec = torch.linalg.eigh(e @ e.mT if wide else e.mT @ e)  # ascending
+    singular value is 0 gets zero factors. A large ``err`` goes to f64 in
+    blocks along the Gram matrix's contracted axis (``_blocks``)."""
+    wide = err.shape[-2] <= err.shape[-1]
+    axis = -1 if wide else -2  # the axis the Gram matrix sums over
+    gram = sum(b @ b.mT if wide else b.mT @ b for b in _blocks(err, axis))
+    lam, vec = torch.linalg.eigh(gram)  # ascending
+    del gram
     r = min(rank, lam.shape[-1])
     vec = vec[..., -r:].flip(-1)  # the top r, largest first, as the SVD orders them
     s = lam[..., -r:].flip(-1).clamp(min=0).sqrt()
     sq = s.sqrt()
     inv = torch.where(s > 0, 1 / sq, torch.zeros((), dtype=sq.dtype, device=sq.device))
     if wide:  # vec = U_r: B = S^-1/2 U_r^T E = S^1/2 V_r^T
-        a, b = vec * sq[..., None, :], inv[..., :, None] * (vec.mT @ e)
+        proj = torch.cat([vec.mT @ b for b in _blocks(err, -1)], dim=-1)
+        a, b = vec * sq[..., None, :], inv[..., :, None] * proj
     else:  # vec = V_r: A = E V_r S^-1/2 = U_r S^1/2
-        a, b = (e @ vec) * inv[..., None, :], sq[..., :, None] * vec.mT
+        proj = torch.cat([b @ vec for b in _blocks(err, -2)], dim=-2)
+        a, b = proj * inv[..., None, :], sq[..., :, None] * vec.mT
     return a.to(torch.float32), b.to(torch.float32)
 
 

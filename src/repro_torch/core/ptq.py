@@ -70,6 +70,17 @@ def _rtn(w32: torch.Tensor, policy: QuantPolicy, gs: int) -> QuantizedTensor:
     return quantize_weight(w32, policy.w_fmt, gs, scale=scale)
 
 
+def _encode_codes(values: torch.Tensor, fmt, block: int = 1 << 26) -> torch.Tensor:
+    """``pack_nibbles(fp_encode(values, fmt))`` a block of rows (about
+    ``block`` values) at a time: the same codes, with the encoder's
+    temporaries bounded (a 73728 x 18432 weight's whole-tensor encode holds
+    ~25 GB of them)."""
+    rows = values.reshape(-1, values.shape[-1])
+    step = max(1, block // rows.shape[-1])
+    codes = torch.cat([pack_nibbles(fp_encode(r, fmt)) for r in rows.split(step)])
+    return codes.reshape(tuple(values.shape[:-1]) + (-1,))
+
+
 def pack_linear(w: torch.Tensor, policy: QuantPolicy, qt: Optional[QuantizedTensor] = None,
                 with_lorc: Optional[bool] = None) -> Optional[PackedLinear]:
     """Quantize and nibble-pack one (out, in) FP4 weight, or a stack
@@ -87,7 +98,8 @@ def pack_linear(w: torch.Tensor, policy: QuantPolicy, qt: Optional[QuantizedTens
     if (policy.lorc_rank > 0) if with_lorc is None else with_lorc:
         lorc = lorc_compensate(w32, qt.dequantize(), policy.lorc_rank,
                                quantize_factors=policy.lorc_fmt)
-    codes = pack_nibbles(fp_encode(qt.values, FORMATS[policy.w_fmt]))
+    del w32
+    codes = _encode_codes(qt.values, FORMATS[policy.w_fmt])
     s_max = shifts = None
     if policy.scale_mode == "m2":
         m2 = constrain_scales_m2(qt.scale)

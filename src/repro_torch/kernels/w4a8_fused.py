@@ -18,7 +18,9 @@ activations, which no ``repro`` path runs.
 
 ``gemm_plan`` is the launch plan of every W4A8 GEMM launch (this kernel
 and the split GEMM, ``csrc/w4a8_gemm.cuh``): the output channels of a
-block and the number of blocks of a thread-block cluster that split K.
+block and the number of blocks of a thread-block cluster that split K;
+``fitted_plan`` raises its split where a launch's shared memory
+(``smem_bytes``) would outgrow the card's.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from repro_torch.core.formats import FORMATS
 
 from . import build
 
-__all__ = ["w4a8_fused_matmul_cuda", "w4a8_fused_batched_cuda", "gemm_plan", "chunk_ranges",
-           "grid_args", "W_FORMATS", "A_FORMATS"]
+__all__ = ["w4a8_fused_matmul_cuda", "w4a8_fused_batched_cuda", "gemm_plan", "fitted_plan",
+           "smem_bytes", "chunk_ranges", "grid_args", "W_FORMATS", "A_FORMATS"]
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -43,6 +45,9 @@ BK = 64         # the kernel's contraction chunk (csrc/w4a8_gemm.cuh)
 TM = 64         # its rows of a block
 MAX_KS = 8      # blocks of a cluster (the portable limit)
 SLOTS = 2 * SMS  # blocks the card runs at once: two of 256 threads a streaming multiprocessor
+# csrc/w4a8_gemm.cuh's shared-memory layout: cp.async ring depth, the
+# mma.sync path's most rows, and the dynamic shared memory a block may take
+STAGES, SKINNY, MAX_SMEM = 4, 32, 232448
 
 
 def gemm_plan(m: int, n_out: int, k: int, e: int = 1):
@@ -62,6 +67,46 @@ def gemm_plan(m: int, n_out: int, k: int, e: int = 1):
         if tiles * min(MAX_KS, chunks) >= SMS:
             break
     ks = max(1, min(MAX_KS, chunks, SLOTS // tiles))
+    return bn, ks
+
+
+def smem_bytes(m: int, bn: int, ks: int, k: int, gs: int, r: int, transpose: bool = False,
+               n_out: int = 0) -> int:
+    """The dynamic shared memory of one launch with plan (bn, ks), as
+    ``launch`` / ``make_layout`` in csrc/w4a8_gemm.cuh compute it: the
+    cp.async ring (or the partial sums over it), the decoded tile, the
+    activation and LoRC staging, and the scale-factor table, which holds
+    every group of a rank's K slice (transposed: of its output columns)."""
+    kr = -(-(-(-k // BK)) // ks) * BK  # most contraction rows of one rank
+    groups = (n_out if transpose else k) // gs
+    tab_cols = min((-(-(bn if transpose else kr) // gs)) + 1, groups)
+    tab = (kr if transpose else bn) * tab_cols
+    rows = -(-m // 8) * 8 if m <= SKINNY else TM
+    lc = 0 if r == 0 else (32 if m > SKINNY else -(-r // 16) * 16)
+    lr = 0 if transpose else -(-r // 8) * 8
+    stage = bn * BK // 2 + rows * BK * 2 + lr * BK * 2
+    wdec = max(STAGES * stage, rows * (bn + lc + 4) * 4)
+    lf = wdec + (bn + lc) * BK * 2 + rows * BK * 2
+    ftab = lf + -(-(bn * r * 2) // 16) * 16 + bn * 4 + 5 * TM * 4 + 16
+    return ftab + tab * 4
+
+
+def fitted_plan(m: int, n_out: int, k: int, gs: int, r: int, transpose: bool = False,
+                e: int = 1):
+    """``gemm_plan``'s (bn, ks), with more blocks splitting K (then a
+    narrower tile) until the launch's shared memory fits MAX_SMEM: a rank's
+    scale table holds its whole K slice's groups, which outgrow it at K =
+    73728 (nemotron-4-340b's MLP) on one rank. Every plan that fits is
+    gemm_plan's own."""
+    bn, ks = gemm_plan(m, n_out, k, e)
+    top = min(MAX_KS, -(-k // BK))
+    while smem_bytes(m, bn, ks, k, gs, r, transpose, n_out) > MAX_SMEM:
+        if ks < top:
+            ks += 1
+        elif bn > 32:
+            bn //= 2
+        else:
+            break  # the launcher refuses it
     return bn, ks
 
 
@@ -170,7 +215,7 @@ def w4a8_fused_matmul_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=None
     rc = _lib()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(shifts), _ptr(s_max),
                 _ptr(lorc_a) if r else None, _ptr(lorc_b) if r else None, out.data_ptr(),
                 m, n, k, group_size, r, *_grid(a_fmt), int(a_fmt is not None),
-                int(w_fmt == "fp4_e3m0"), *gemm_plan(m, n, k),
+                int(w_fmt == "fp4_e3m0"), *fitted_plan(m, n, k, group_size, r),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"w4a8_fused kernel launch failed: CUDA error {rc}")
@@ -235,7 +280,8 @@ def w4a8_fused_batched_cuda(x, codes, scale, s_max=None, shifts=None, lorc_a=Non
                         _ptr(s_max), _ptr(lorc_a) if r else None, _ptr(lorc_b) if r else None,
                         out.data_ptr(), e, m, n, in_f, group_size, r, n * r, s_lb,
                         int(transpose_w), int(a_fmt is not None), *_grid(a_fmt),
-                        int(w_fmt == "fp4_e3m0"), *gemm_plan(m, n_out, d, e),
+                        int(w_fmt == "fp4_e3m0"),
+                        *fitted_plan(m, n_out, d, group_size, r, transpose_w, e),
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"w4a8_fused batched kernel launch failed: CUDA error {rc}")

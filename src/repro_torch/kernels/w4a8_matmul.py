@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from . import build
-from .w4a8_fused import W_FORMATS as SPLIT_W_FORMATS, _check, _ptr, gemm_plan
+from .w4a8_fused import W_FORMATS as SPLIT_W_FORMATS, _check, _ptr, fitted_plan
 
 __all__ = ["w4a8_matmul_cuda", "SPLIT_W_FORMATS"]
 
@@ -62,7 +62,7 @@ def w4a8_matmul_cuda(x_q, codes, scale, s_max: Optional[torch.Tensor] = None,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     rc = _lib()(x_q.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(shifts), _ptr(s_max),
                 out.data_ptr(), m, n, k, group_size, int(w_fmt == "fp4_e3m0"),
-                *gemm_plan(m, n, k), torch.cuda.current_stream(dev).cuda_stream)
+                *fitted_plan(m, n, k, group_size, 0), torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"w4a8_matmul kernel launch failed: CUDA error {rc}")
     w4a8_matmul_cuda.launches += 1

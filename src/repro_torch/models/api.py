@@ -90,8 +90,7 @@ def _head_w(params, cfg) -> torch.Tensor:
     return params["embed"] if (cfg.tie_embeddings or "lm_head" not in params) else params["lm_head"]
 
 
-@torch.no_grad()
-def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None):
+def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None, remat: bool = False):
     """The whole forward to final hidden states, no cache: ``batch["tokens"]``
     (B, S) at positions 0..S-1, moved to the params' device, behind
     ``batch["patches"]`` (B, P, 1024) or ``batch["frames_prefix"]`` (B, P,
@@ -100,38 +99,40 @@ def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None):
     the MoE balance loss summed over the layers, an f32 0-d tensor (0
     without an MoE layer). MLA runs its materialized form, MoE the grouped
     capacity dispatch; the recurrent families run from their pristine state
-    (the chunked forms over the sequence)."""
+    (the chunked forms over the sequence). Autograd records the pass when
+    a leaf requires a gradient (a caller who wants values only runs it
+    under ``torch.no_grad()``); ``remat`` recomputes each block in the
+    backward pass, as the reference's ``jax.checkpoint`` does."""
     dev = params["embed"].device
     tokens = batch["tokens"].to(dev)
     aux = 0.0
     if _is_encdec(cfg):
-        enc = _encdec.encode(params, cfg, batch["frames"], a_fmt=a_fmt)
-        hidden = _encdec.encdec_forward(params, cfg, tokens, enc, a_fmt=a_fmt)
+        enc = _encdec.encode(params, cfg, batch["frames"], a_fmt=a_fmt, remat=remat)
+        hidden = _encdec.encdec_forward(params, cfg, tokens, enc, a_fmt=a_fmt, remat=remat)
     elif _is_hybrid(cfg):
-        hidden = _hybrid.hybrid_forward(params, cfg, tokens, a_fmt=a_fmt)
+        hidden = _hybrid.hybrid_forward(params, cfg, tokens, a_fmt=a_fmt, remat=remat)
     else:
         prefix = batch.get("patches")
         if prefix is None:
             prefix = batch.get("frames_prefix")
-        hidden, aux = _tf.lm_forward(params, cfg, tokens, a_fmt=a_fmt, embeds_prefix=prefix)
+        hidden, aux = _tf.lm_forward(params, cfg, tokens, a_fmt=a_fmt, embeds_prefix=prefix,
+                                     remat=remat)
     return hidden, None, torch.as_tensor(aux, dtype=torch.float32, device=dev)
 
 
-@torch.no_grad()
 def loss_fn(params, cfg, batch: dict, a_fmt: Optional[str] = None, remat: bool = True,
             aux_weight: float = 0.01, mtp_weight: float = 0.0):
-    """The training loss's value (+ metrics), as the reference computes it:
-    the chunked cross entropy of ``forward_hidden`` against
-    ``batch["labels"]`` (under ``batch["mask"]`` when given; a vision or
-    audio prefix carries no loss and is trimmed), plus ``aux_weight`` times
-    the MoE balance loss and, for a config with ``mtp_depth`` and
-    ``mtp_weight`` set, ``mtp_weight`` times ``losses.mtp_loss``. Returns
-    ``(total, {"nll", "aux", "tokens"[, "mtp"]})``. Values only: no
-    gradient is taken, so ``remat`` (the reference's rematerialization)
-    changes nothing here; gradients come with the training slice (ROADMAP
-    queue 1, item 13)."""
-    del remat
-    hidden, _, aux = forward_hidden(params, cfg, batch, a_fmt=a_fmt)
+    """The training loss (+ metrics), as the reference computes it: the
+    chunked cross entropy of ``forward_hidden`` against ``batch["labels"]``
+    (under ``batch["mask"]`` when given; a vision or audio prefix carries no
+    loss and is trimmed), plus ``aux_weight`` times the MoE balance loss
+    and, for a config with ``mtp_depth`` and ``mtp_weight`` set,
+    ``mtp_weight`` times ``losses.mtp_loss``. Returns ``(total, {"nll",
+    "aux", "tokens"[, "mtp"]})``. ``total.backward()`` gives every leaf
+    that requires a gradient its gradient (``launch.steps.make_train_step``);
+    ``remat`` recomputes each block in the backward pass. Under
+    ``torch.no_grad()`` it is the loss's value alone."""
+    hidden, _, aux = forward_hidden(params, cfg, batch, a_fmt=a_fmt, remat=remat)
     labels = batch["labels"].to(hidden.device)
     if hidden.shape[1] != labels.shape[1]:  # vision/audio prefix tokens carry no loss
         hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]

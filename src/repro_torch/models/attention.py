@@ -7,7 +7,8 @@ whole sequence (full softmax rows, query-chunked above ``attn_chunk``),
 which calibration and perplexity run; and the enc-dec decoder's
 cross-attention, over the write-once cross pages when serving
 (``paged_cross_attention``) or against the encoder's K/V. The
-contiguous-cache modes come with a later slice (ROADMAP queue 1, item 13)."""
+contiguous-cache modes come with a later slice (ROADMAP queue 1, item 13
+step 4)."""
 from __future__ import annotations
 
 import math

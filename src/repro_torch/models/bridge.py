@@ -14,7 +14,9 @@ family's tree crosses the same way, Zamba2's stacked ``mamba`` layers and
 ``shared`` block and xLSTM's pair leaves included; a batched pack (sLSTM's
 ``r_gates``, codes (L, H, out, in/2)) takes its group size from the last
 axes. The helper that produces ``flat`` imports jax and so lives with the
-tests, not here.
+tests, not here. A ``repro.launch.steps.TrainState`` crosses the same way
+(``train_state_from_numpy``): its flattened paths are ``params/...``,
+``opt/mu/...``, ``opt/nu/...`` and ``opt/step``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from .api import build_def
 from .layers import PackedLinear
 from .params import ParamDef, tree_items
 
-__all__ = ["from_numpy"]
+__all__ = ["from_numpy", "train_state_from_numpy"]
 
 
 def _tensor(arr: np.ndarray, device) -> torch.Tensor:
@@ -90,3 +92,19 @@ def from_numpy(flat: Dict[str, np.ndarray], cfg, device, policy=None):
             node = node.setdefault(p, {})
         node[parts[-1]] = _tensor(arr, device)
     return _fill_empty(build_def(cfg), _build(root, policy))
+
+
+def train_state_from_numpy(flat: Dict[str, np.ndarray], cfg, device):
+    """The port's ``launch.steps.TrainState`` (params, AdamW's ``mu`` and
+    ``nu`` in their own dtype, the int32 ``step``) from the flattened
+    paths of a reference TrainState, on ``device``."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optimizer import OptState
+
+    def sub(prefix):
+        return from_numpy({k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)},
+                          cfg, device)
+
+    return TrainState(params=sub("params/"),
+                      opt=OptState(mu=sub("opt/mu/"), nu=sub("opt/nu/"),
+                                   step=_tensor(flat["opt/step"], device)))

@@ -10,7 +10,8 @@ Serving runs the encoder once per request, at admission
 (``encode_cross_pages``): every decoder layer's cross K/V is quantized into
 the request's write-once cross pages, which each decode step reads through
 the paged decode kernel. The contiguous decode cache
-(``init_encdec_cache``) comes with training (ROADMAP queue 1, item 13).
+(``init_encdec_cache``) comes with the contiguous-cache slice (ROADMAP
+queue 1, item 13 step 4).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.runtime.kv_cache import PagedState, write_cross_pages
 
-from .layers import ParamDef, linear, norm, norm_params
+from .layers import ParamDef, embed_lookup, linear, norm, norm_params
 from .transformer import (SegmentSpec, _stack_defs, block_params, layer_view, positions_of,
                           run_segment)
 
@@ -50,16 +51,18 @@ def build_encdec(cfg):
     }
 
 
-def encode(params, cfg, frames: torch.Tensor, a_fmt: Optional[str] = None) -> torch.Tensor:
+def encode(params, cfg, frames: torch.Tensor, a_fmt: Optional[str] = None,
+           remat: bool = False) -> torch.Tensor:
     """frames (B, T, d) stub embeddings -> the encoder's output (B, T, d):
-    non-causal blocks (query-chunked above ``attn_chunk``), then ``enc_ln``."""
+    non-causal blocks (query-chunked above ``attn_chunk``), then ``enc_ln``;
+    ``remat`` recomputes each block in the backward pass."""
     dev = params["enc_pos"].device
     frames = frames.to(dev).to(params["enc_pos"].dtype)
     t = frames.shape[1]
     x = frames + params["enc_pos"][None, :t].to(frames.dtype)
     enc_cfg = dataclasses.replace(cfg, causal=False, pos_embedding="learned_applied")
     x, _ = run_segment(params["encoder"], x, enc_cfg, _enc_seg(cfg),
-                       torch.arange(t, device=dev), a_fmt=a_fmt)
+                       torch.arange(t, device=dev), a_fmt=a_fmt, remat=remat)
     return norm(params["enc_ln"], x, cfg.norm_kind, cfg.norm_eps)
 
 
@@ -85,15 +88,16 @@ def encode_cross_pages(params, cfg, frames: torch.Tensor, cross_pool, cross_tabl
 
 def encdec_forward(params, cfg, tokens: torch.Tensor, enc_out: Optional[torch.Tensor] = None,
                    caches=None, state: Optional[PagedState] = None,
-                   a_fmt: Optional[str] = None, cross=None) -> torch.Tensor:
+                   a_fmt: Optional[str] = None, cross=None, remat: bool = False) -> torch.Tensor:
     """The decoder. Serving (``state``): tokens (B, S) at per-row positions
     ``state.lengths + j``, the self pages ``caches`` (one pool, written in
     place) and the cross pages ``cross`` (read only). Without a state: whole
-    sequences at positions 0..S-1 attending to ``enc_out``. Returns the
-    final-norm hidden states (B, S, d)."""
+    sequences at positions 0..S-1 attending to ``enc_out`` (``remat``
+    recomputes each block in the backward pass). Returns the final-norm
+    hidden states (B, S, d)."""
     tokens = tokens.to(params["embed"].device)
     s = tokens.shape[1]
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     if state is not None:
         positions = positions_of(state, s, x.device)
         x = x + params["pos_embed"][positions].to(x.dtype)
@@ -102,5 +106,6 @@ def encdec_forward(params, cfg, tokens: torch.Tensor, enc_out: Optional[torch.Te
         x = x + params["pos_embed"][:s][None].to(x.dtype)
     dec_cfg = dataclasses.replace(cfg, pos_embedding="learned_applied")
     x, _ = run_segment(params["decoder"], x, dec_cfg, _dec_seg(cfg), positions,
-                       None if caches is None else caches[0], state, a_fmt, cross, enc_out)
+                       None if caches is None else caches[0], state, a_fmt, cross, enc_out,
+                       remat=remat)
     return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)

@@ -24,7 +24,7 @@ from .attention import attention, attn_params
 from .layers import ParamDef, mlp, mlp_params, norm, norm_params
 from .params import tree_map
 from .ssm import mamba2_block, mamba2_params
-from .transformer import _embed_tokens, _stack_defs, layer_view, positions_of
+from .transformer import _embed_tokens, _stack_defs, layer_view, positions_of, rematerialized
 
 __all__ = ["build_hybrid", "hybrid_forward", "n_attn_invocations"]
 
@@ -56,33 +56,46 @@ def _shared_block(p, x, cfg, positions, kv_layer, state, a_fmt):
     return x + mlp(p["mlp"], norm(p["ln2"], x, nk, eps), cfg, a_fmt=a_fmt)
 
 
+def _cache_free_layer(p_layer, shared, x, cfg, positions, attn: bool, a_fmt):
+    """One layer of the cache-free forward: the shared block first when
+    ``attn``, then the Mamba2 layer (the reference's scan body)."""
+    if attn:
+        x = _shared_block(shared, x, cfg, positions, None, None, a_fmt)
+    dh, _ = mamba2_block(p_layer["mamba"], norm(p_layer["ln"], x, cfg.norm_kind, cfg.norm_eps),
+                         cfg, a_fmt=a_fmt)
+    return x + dh
+
+
 def hybrid_forward(params, cfg, tokens: torch.Tensor, caches=None,
-                   state: Optional[PagedState] = None, a_fmt: Optional[str] = None):
+                   state: Optional[PagedState] = None, a_fmt: Optional[str] = None,
+                   remat: bool = False):
     """tokens (B, S) -> final-norm hidden states (B, S, d). Served
     (``state`` and ``caches`` = {"mamba": slab pools, "shared_kv": the
     invocation-indexed page pool}), written in place; without them the
     tokens are whole sequences at positions 0..S-1 from the pristine
-    state (no cache read or written)."""
+    state (no cache read or written), and ``remat`` recomputes each layer
+    (with its shared block) in the backward pass."""
     x = _embed_tokens(params, cfg, tokens)
     s = x.shape[1]
     positions = (torch.arange(s, device=x.device) if state is None
                  else positions_of(state, s, x.device))
     every = cfg.ssm.attn_every
     shared = params.get("shared")
+    if caches is None:
+        layer = rematerialized(_cache_free_layer, remat)
+        for li in range(cfg.n_layers):
+            x = layer(layer_view(params["mamba"], li), shared, x, cfg, positions,
+                      shared is not None and li % every == 0, a_fmt)
+        return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)
     for li in range(cfg.n_layers):
         if shared is not None and li % every == 0:
-            kv_i = None
-            if caches is not None:
-                kv_i = {k: leaf[li // every] for k, leaf in caches["shared_kv"].items()}
+            kv_i = {k: leaf[li // every] for k, leaf in caches["shared_kv"].items()}
             x = _shared_block(shared, x, cfg, positions, kv_i, state, a_fmt)
         p_layer = layer_view(params["mamba"], li)
-        pool = mc = None
-        if caches is not None:
-            pool = tree_map(lambda leaf: leaf[li], caches["mamba"])
-            mc = gather_slabs(pool, state.slabs)
+        pool = tree_map(lambda leaf: leaf[li], caches["mamba"])
         dh, new_m = mamba2_block(p_layer["mamba"], norm(p_layer["ln"], x, cfg.norm_kind,
-                                                        cfg.norm_eps), cfg, cache=mc, a_fmt=a_fmt)
+                                                        cfg.norm_eps), cfg,
+                                 cache=gather_slabs(pool, state.slabs), a_fmt=a_fmt)
         x = x + dh
-        if pool is not None:
-            scatter_slabs(pool, state.slabs, new_m)
+        scatter_slabs(pool, state.slabs, new_m)
     return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)

@@ -18,7 +18,7 @@ from repro_torch.core.quantize import fake_quantize_act
 
 from .params import ParamDef
 
-__all__ = ["PackedLinear", "linear", "as_dense", "batched_linear", "packed_head_view",
+__all__ = ["PackedLinear", "linear", "embed_lookup", "as_dense", "batched_linear", "packed_head_view",
            "quant_act", "norm", "norm_params", "activation", "xla_tanh", "softplus", "log_sigmoid",
            "mlp_params", "mlp", "rope_freqs", "apply_rope"]
 
@@ -72,6 +72,32 @@ def linear(w, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Ten
     if bias is not None:
         y = y + bias
     return y
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """Rows of ``w`` at ``idx``; the backward pass sums each row's
+    cotangents in f32 and rounds once to ``w``'s dtype, so a token seen
+    many times gets the same gradient on the card (f32 atomics) as on the
+    CPU (autograd's own bf16 index backward adds the repeats one bf16
+    rounding at a time on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, w, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = w.shape
+        return w[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        acc.index_add_(0, idx.reshape(-1), g.reshape(-1, ctx.shape[-1]).float())
+        return acc.to(g.dtype), None
+
+
+def embed_lookup(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``w[idx]`` for integer token ids (``_EmbedLookup``'s gradient)."""
+    return _EmbedLookup.apply(w, idx.long())
 
 
 def as_dense(w, dtype=torch.bfloat16) -> torch.Tensor:
@@ -170,9 +196,7 @@ def _horner_fma(x2: torch.Tensor, coeffs) -> torch.Tensor:
     return p.float()
 
 
-def xla_tanh(x: torch.Tensor) -> torch.Tensor:
-    """tanh of an f32 tensor as XLA computes it on the CPU (the reference's
-    backend): its rational approximation, not torch's tanh."""
+def _xla_tanh_f32(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
     ax = x.abs()
     x2 = x * x
@@ -181,22 +205,77 @@ def xla_tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ax < _TANH_SMALL, x, r)
 
 
+class _XlaTanh(torch.autograd.Function):
+    """XLA's tanh rounded to ``x``'s dtype; its gradient is JAX's rule for
+    tanh, (g + g*y) * (1 - y), each op in that dtype, not the derivative of
+    the rational approximation and its clamps."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _xla_tanh_f32(x).to(x.dtype)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return (g + g * y) * (1 - y)
+
+
+def xla_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh as XLA computes it on the CPU (the reference's backend): its
+    f32 rational approximation, not torch's tanh, returned in f32."""
+    return _XlaTanh.apply(x.float())
+
+
+class _Cube(torch.autograd.Function):
+    """``x ** 3`` as XLA expands it, x * (x * x), each product rounded to
+    x.dtype; the gradient is JAX's ``integer_pow`` rule, g * (3 * (x * x))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * (x * x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (3 * (x * x))
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.gelu(x, approximate=True)'s op chain, each op rounded to
     x.dtype as the reference rounds it: its constants sqrt(2/pi) and 0.044715
     in x.dtype, x**3 as x * (x * x), tanh in f32 (XLA's) rounded once."""
     dt = x.dtype
     const = lambda v: torch.tensor(v, dtype=torch.float64).to(dt)
-    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * (x * x)))
-    return x * (0.5 * (1.0 + xla_tanh(inner).to(dt)))
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * _Cube.apply(x))
+    return x * (0.5 * (1.0 + _XlaTanh.apply(inner)))
+
+
+class _Softplus(torch.autograd.Function):
+    """jax.nn.softplus's forward, ``logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)), NaN passed through; its gradient is logaddexp's
+    custom JVP, g * exp(x - out) (an infinite x or out read as 0 there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        zero = torch.zeros_like(x)
+        out = torch.maximum(x, zero) + torch.log1p(torch.exp(-x.abs()))
+        out = torch.where(torch.isnan(x), x, out)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        finite = lambda a: torch.where(torch.isinf(a), torch.zeros_like(a), a)
+        return g * torch.exp(finite(x) - finite(out))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.softplus's formula, ``logaddexp(x, 0)``: max(x, 0) +
-    log1p(exp(-|x|)), NaN passed through."""
-    zero = torch.zeros_like(x)
-    out = torch.maximum(x, zero) + torch.log1p(torch.exp(-x.abs()))
-    return torch.where(torch.isnan(x), x, out)
+    """jax.nn.softplus (``_Softplus``)."""
+    return _Softplus.apply(x)
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -204,11 +283,27 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return -softplus(-x)
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic`` as XLA expands it, 1 / (1 + exp(-x)), each op
+    rounded to x.dtype; the gradient is JAX's rule, g * (y * (1 - y))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
-        # jax.nn.silu's op chain, each op rounded to x.dtype as the
-        # reference rounds it (torch's fused silu rounds once)
-        return x * (1 / (1 + torch.exp(-x)))
+        # jax.nn.silu's op chain, x * logistic(x), each op rounded to
+        # x.dtype as the reference rounds it (torch's fused silu rounds once)
+        return x * _Logistic.apply(x)
     if kind == "gelu":
         return _gelu_tanh(x)
     if kind == "relu":

@@ -10,12 +10,35 @@ import torch
 __all__ = ["chunked_xent", "mtp_loss"]
 
 
+class _HeadLogits(torch.autograd.Function):
+    """f32 logits (B, c, V) of hidden (B, c, d) against the head (V, d),
+    the products of their own dtype's values summed in f32 (the
+    reference's ``dot_general`` with ``preferred_element_type=f32``). The
+    backward is that dot's transpose: each operand's cotangent summed in
+    f32 and rounded to its dtype, so a bf16 head takes a bf16 cotangent
+    from every chunk, as the reference's scan adds them. Only the operands
+    are kept for the backward pass, not their f32 copies."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.matmul(h.float(), w.float().t())
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        gh = torch.matmul(g, w.float()).to(h.dtype)
+        gw = torch.einsum("bcv,bcd->vd", g, h.float()).to(w.dtype)
+        return gh, gw
+
+
 def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None, chunk: int = 512):
     """hidden (B, S, d); head_w (V, d); labels (B, S) int; mask (B, S)
     float / bool or None. Returns (mean_nll, n_tokens), f32 scalars: the
     summed nll and token count accumulate chunk by chunk, as the
-    reference's scan does."""
+    reference's scan does (and so does the head's gradient, see
+    ``_HeadLogits``)."""
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
     nc = -(-s // chunk)
@@ -26,11 +49,10 @@ def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tenso
         hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
         labels = torch.nn.functional.pad(labels, (0, pad))
         mask = torch.nn.functional.pad(mask, (0, pad))
-    w = head_w.float()
     nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     tok_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, nc * chunk, chunk):
-        logits = torch.matmul(hidden[:, c0:c0 + chunk].float(), w.t())  # (B, c, V)
+        logits = _HeadLogits.apply(hidden[:, c0:c0 + chunk], head_w)  # (B, c, V) f32
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[:, c0:c0 + chunk].long()[..., None])[..., 0]
         m = mask[:, c0:c0 + chunk]
@@ -47,11 +69,11 @@ def mtp_loss(params, cfg, hidden: torch.Tensor, tokens: torch.Tensor, labels: to
     0..S-1 without a cache and normed by ``mtp/ln``; its first S-1 rows
     predict ``labels[:, 1:]`` (the token two ahead). Returns the mean extra
     nll (the caller weights it)."""
-    from .layers import linear, norm
+    from .layers import embed_lookup, linear, norm
 
     p = params["mtp"]
     s = tokens.shape[1]
-    nxt = params["embed"][tokens[:, 1:].long()]  # (B, S-1, d)
+    nxt = embed_lookup(params["embed"], tokens[:, 1:])  # (B, S-1, d)
     h_in = torch.cat([hidden[:, :-1], nxt.to(hidden.dtype)], dim=-1)
     h_in = torch.nn.functional.pad(h_in, (0, 0, 0, 1))
     h_in = linear(p["proj"], h_in)

@@ -28,14 +28,16 @@ import torch
 from repro_torch.runtime.kv_cache import PagedState, gather_slabs, scatter_slabs
 
 from .attention import attention, attn_params, paged_cross_attention
-from .layers import PackedLinear, ParamDef, activation, linear, mlp, mlp_params, norm, norm_params
+from .layers import (PackedLinear, ParamDef, activation, embed_lookup, linear, mlp, mlp_params,
+                     norm, norm_params)
 from .mla import mla_attention, mla_params
 from .moe import moe_layer, moe_params
 from .params import tree_items, tree_map
 from .xlstm import mlstm_block, mlstm_params, slstm_block, slstm_params
 
 __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_apply",
-           "layer_view", "positions_of", "run_segment", "lm_forward", "lm_logits"]
+           "layer_view", "positions_of", "rematerialized", "run_segment", "lm_forward",
+           "lm_logits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +213,7 @@ def _embed_tokens(params, cfg, tokens: torch.Tensor,
     """Token embeddings, behind an optional prefix: patch embeddings
     (B, P, 1024) through ``mm_proj`` (fc1, tanh-approximate gelu, fc2), or
     audio frames already at d_model, cast."""
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     if embeds_prefix is not None:
         pe = embeds_prefix.to(x.device)
         if cfg.frontend == "vision_patches":
@@ -233,33 +235,49 @@ def positions_of(state: PagedState, s: int, device) -> torch.Tensor:
     return state.lengths.long()[:, None] + steps[None]
 
 
+def rematerialized(fn, remat: bool):
+    """``fn`` itself, or (``remat``) ``fn`` under
+    ``torch.utils.checkpoint``: its activations are not kept for the
+    backward pass but computed again there, as ``jax.checkpoint`` around
+    the reference's scan body does. Values and gradients are the same."""
+    if not remat:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def run_segment(seg_params, x, cfg, seg: SegmentSpec, positions, pool=None,
-                state: Optional[PagedState] = None, a_fmt=None, cross=None, enc_out=None):
+                state: Optional[PagedState] = None, a_fmt=None, cross=None, enc_out=None,
+                remat: bool = False):
     """Every layer of one stacked segment over x, in order (``lax.scan``'s
     place): each layer with its slice of the segment's pool (a page pool,
     or xLSTM's {"mlstm", "slstm"} slab pools) and of the cross pool, when
-    there are pools. Returns (x, the layers' aux summed)."""
+    there are pools; ``remat`` recomputes each block in the backward pass.
+    Returns (x, the layers' aux summed)."""
     n = seg.count if pool is None else next(tree_items(pool))[1].shape[0]
+    block = rematerialized(block_apply, remat)
     aux_sum = 0.0
     for i in range(n):
         cache_layer = None if pool is None else tree_map(lambda leaf: leaf[i], pool)
         cross_layer = None if cross is None else {k: leaf[i] for k, leaf in cross.items()}
-        x, aux = block_apply(layer_view(seg_params, i), x, cfg, seg, positions, cache_layer,
-                             state, a_fmt, cross_layer, enc_out)
+        x, aux = block(layer_view(seg_params, i), x, cfg, seg, positions, cache_layer,
+                       state, a_fmt, cross_layer, enc_out)
         aux_sum = aux_sum + aux
     return x, aux_sum
 
 
 def lm_forward(params, cfg, tokens: torch.Tensor, caches=None,
                state: Optional[PagedState] = None, a_fmt: Optional[str] = None,
-               embeds_prefix: Optional[torch.Tensor] = None):
+               embeds_prefix: Optional[torch.Tensor] = None, remat: bool = False):
     """tokens (B, S) at per-row positions ``state.lengths[:, None] + j``
     (for a mixed step, the fused (1, slots + S) row of decode tokens and
     one prefill chunk). ``caches``: one pool dict per segment, written in
     place. Without ``state`` (and caches) the tokens are whole sequences at
     positions 0..S-1, behind ``embeds_prefix`` (patches or audio frames)
-    when given. Returns the final-norm hidden states (B, S, d) and the MoE
-    balance loss summed over every layer (0.0 without an MoE layer)."""
+    when given; ``remat`` recomputes each block in the backward pass.
+    Returns the final-norm hidden states (B, S, d) and the MoE balance loss
+    summed over every layer (0.0 without an MoE layer)."""
     x = _embed_tokens(params, cfg, tokens, embeds_prefix)
     s = x.shape[1]
     if state is None:
@@ -272,7 +290,8 @@ def lm_forward(params, cfg, tokens: torch.Tensor, caches=None,
             x = x + params["pos_embed"][positions].to(x.dtype)
     aux_total = 0.0
     for seg, seg_params, pool in zip(segments_for(cfg), params["segments"], pools):
-        x, aux = run_segment(seg_params, x, cfg, seg, positions, pool, state, a_fmt)
+        x, aux = run_segment(seg_params, x, cfg, seg, positions, pool, state, a_fmt,
+                             remat=remat)
         aux_total = aux_total + aux
     return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps), aux_total
 

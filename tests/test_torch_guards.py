@@ -1,5 +1,6 @@
-"""Guards of the port's boundaries: it imports neither jax nor the JAX
-package, and its entry points never fall back to the CPU on their own."""
+"""Guards of the port's boundaries: it imports neither jax, nor the JAX
+package, nor ml_dtypes, and its entry points never fall back to the CPU on
+their own."""
 import ast
 import re
 from pathlib import Path
@@ -13,7 +14,7 @@ from repro_torch.models import api
 from repro_torch.runtime import serve
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 
 def _imported_roots(path: Path):
@@ -41,6 +42,24 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
         api.init_params(SMOKE, seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.Server(params, SMOKE, device="cuda")
+
+
+def test_training_entry_points_refuse_to_fall_back_without_cuda(monkeypatch, tmp_path):
+    """``train_loop`` (and the ``init_params`` it calls) take the card unless
+    asked for the CPU; asked, they train there."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optimizer import AdamWConfig
+    from repro_torch.runtime.train import TrainLoopConfig, train_loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dc = DataConfig(vocab_size=SMOKE.vocab_size, seq_len=8, global_batch=2)
+    loop = TrainLoopConfig(steps=1, ckpt_dir=str(tmp_path), ckpt_every=1)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_loop(SMOKE, dc, AdamWConfig(), loop, device=device)
+    assert not list(tmp_path.iterdir())
+    state, hist = train_loop(SMOKE, dc, AdamWConfig(), loop, device="cpu")
+    assert [h["step"] for h in hist] == [0] and next(iter(state.params.values())).device.type == "cpu"
 
 
 @pytest.mark.parametrize("field,value,item", [("temperature", 0.7, "item 9")])

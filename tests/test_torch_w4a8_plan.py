@@ -10,7 +10,11 @@
   ``chip_smoke.py`` serves or times (opt-125m, MiniCPM3-4B, OLMoE-1B-7B,
   the kernel API's), the ranks of a cluster cover each K chunk exactly
   once, each rank at least one; at a decode step's M = 4 every weight of
-  1 MB or more puts at least 132 blocks in flight.
+  1 MB or more puts at least 132 blocks in flight. Its shared memory
+  (``smem_bytes``, the kernel's layout) fits the card's at every such
+  shape, where ``fitted_plan`` is the plan itself; at nemotron-4-340b's
+  K = 73728 one rank's scale table outgrows it, and ``fitted_plan`` splits
+  K further.
 """
 import importlib.util
 from pathlib import Path
@@ -24,7 +28,8 @@ from repro.core.ptq import _pack_batched, pack_linear as j_pack_linear
 from repro.kernels import ref as jref
 from repro.kernels.w4a8_fused import w4a8_fused_batched_pallas, w4a8_fused_matmul_pallas
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.w4a8_fused import BK, MAX_KS, SMS, chunk_ranges, gemm_plan
+from repro_torch.kernels.w4a8_fused import (BK, MAX_KS, MAX_SMEM, SMS, chunk_ranges, fitted_plan,
+                                            gemm_plan, smem_bytes)
 
 from test_torch_bridge import t, to_np
 from test_torch_bridge import one_thread  # noqa: F401  (autouse: torch on one thread)
@@ -64,6 +69,42 @@ def test_plan_covers_each_chunk_once(shape):
     blocks = -(-n // bn) * ks * -(-m // 64) * e
     if m == 4 and n * k * e // 2 >= 1 << 20:
         assert blocks >= SMS, (shape, bn, ks, blocks)
+
+
+@pytest.mark.parametrize("r", [0, 8])
+def test_fitted_plan_is_the_plan_where_it_fits(r):
+    """At every served shape (groups of 256; the batched MLA shapes also
+    transposed) the plan's shared memory fits, so fitted_plan keeps it."""
+    for m, k, n, e in _served_shapes():
+        for transpose in ((False, True) if e > 1 else (False,)):
+            kk, nn = (n, k) if transpose else (k, n)
+            bn, ks = gemm_plan(m, nn, kk, e)
+            assert smem_bytes(m, bn, ks, kk, 256, r, transpose, nn) <= MAX_SMEM, (m, k, n, e)
+            assert fitted_plan(m, nn, kk, 256, r, transpose, e) == (bn, ks)
+
+
+# nemotron-4-340b's GEMMs (d_model 18432, 96 heads of 192 over 8 KV heads,
+# d_ff 73728): q / o, k / v, up, down
+NEMOTRON_GEMMS = ((18432, 18432), (18432, 1536), (18432, 73728), (73728, 18432))
+
+
+@pytest.mark.parametrize("m", [4, 64, 256])
+@pytest.mark.parametrize("k,n", NEMOTRON_GEMMS)
+def test_fitted_plan_fits_nemotron(m, k, n):
+    """The down projection's K = 73728 on one rank needs a 147 KB scale
+    table: with a wgmma tile (M > 32) the launch outgrows MAX_SMEM, which
+    the kernel refuses (CUDA error 1 on the card); the fitted plan splits K
+    over more ranks, each chunk still covered once."""
+    bn, ks = fitted_plan(m, n, k, 256, 8)
+    assert smem_bytes(m, bn, ks, k, 256, 8) <= MAX_SMEM
+    ranges = chunk_ranges(k, ks)
+    assert [c for rg in ranges for c in rg] == list(range(-(-k // BK)))
+    assert all(len(rg) > 0 for rg in ranges) and bn in (32, 64, 128) and ks <= MAX_KS
+    plain = gemm_plan(m, n, k)
+    if (m, k) == (256, 73728):
+        assert smem_bytes(m, *plain, k, 256, 8) > MAX_SMEM and (bn, ks) != plain
+    if k != 73728:
+        assert (bn, ks) == plain
 
 
 def _x(rng, e, m, k, zero_rows, nan_row=None):
