@@ -35,11 +35,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               activations), served greedily over FP8 pages; every request
               must end ok and every decode step must have launched both
               kernels (72 GEMMs and 12 attention launches);
-5. cpu     -- the same packed model, moved to the CPU, through the plain
-              versions: one prefill chunk and 1 decode step for 2
-              requests, logits compared with the card's; a witness (the
-              plain versions on the card) and two injected faults show
-              what the comparison can and cannot tell apart;
+5. cpu     -- the same packed model through the plain versions on the
+              card (phase 20's time paid for its CPU route):
+              one prefill chunk and 1 decode step for 2 requests, logits
+              and teacher-forced blocks compared with the kernels'; two
+              injected faults show what the comparison can and cannot
+              tell apart;
 6. prefix -- the reference Server's default path: the mixed prefill+decode
               engine, the prefix cache and FP8 pages with a packed-FP4
               frozen region, at opt-125m's full width; 8 requests in two
@@ -61,7 +62,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               free-running, teacher-forced at each attention block and at
               each batched-GEMM and latent-decode call, with two injected
               faults (wk_b's LoRC dropped in the batched kernel, the latent
-              decode one token short);
+              decode one token short); then over contiguous caches (2
+              prompts of 64 tokens + 2 scalar-index steps, card against the
+              CPU, 9 row-1 launches a layer at the prefill and 7 row-1 +
+              1 row-1b + 1 row-1c a step; every row-1b and row-1c call
+              held on its own operands against the plain version, wk_b
+              without its LoRC factors CONTIG_FAULT x the bound), each prompt
+              spliced into FP8 latent pages and one paged step through
+              row 3;
 9. moe     -- OLMoE-1B-7B (64 experts top-8, 16 layers) at full width,
               random weights initialized and packed on the card, on phase
               6's server and traffic: every request ok, every route's
@@ -75,7 +83,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               (and free-running, a gross check), with the router's
               experts compared and two
               injected faults (wd's LoRC dropped, one expert of wu reading
-              its neighbour's weights), on phase 9's seed alone;
+              its neighbour's weights), on phase 9's seed alone; then
+              over contiguous caches (2 prompts of 64 tokens + 1
+              scalar-index step: the grouped capacity dispatch, 4 row-1
+              and 3 row-1d launches a layer a program) against the plain
+              versions on the card, every row-1d call held on its own
+              operands within MOE_OP_RTOL of the plain version, expert 0
+              reading expert 1's weights CONTIG_FAULT x above it;
 11. kernel api -- the kernels no served path reaches, through the kernel
               API's entry points: the split W4A8 pipeline (ops.act_quant,
               the bf16 cast, ops.w4a8_matmul_split, LoRC by two bf16
@@ -237,12 +251,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
               (every request ok, rows 1 and 2 launched as the invariant
               says), its perplexity in bf16 and W4A8 on 4 held-out batches
               and the greedy streams' distinct tokens printed. At most
-              TRAIN_BUDGET_S.
+              TRAIN_BUDGET_S;
+20. contiguous -- (run after phase 13, on phase 4's packed tree) the
+              contiguous-cache path: 4 prompts of 512 tokens through
+              ``api.prefill`` into caches of 1024, 64 greedy steps of
+              ``api.decode_step`` at a scalar index, every program 72
+              row-1 launches and no attention launch, tokens/s and the
+              median step printed, not gated; its prefill (M = 2048 a
+              call) and first step run again, every row-1 call held on its
+              own operands within W4A8_TOL of the plain version, with its
+              top group scale doubled above it in every call and
+              CONTIG_FAULT x in one; the prompts prefilled again
+              with activations unquantized, spliced
+              (``kv_cache.splice_prefill``) into bf16 and FP8 pages, 8
+              paged steps through row 2 on the same tokens within
+              CONTIG_RTOL of the contiguous logits, the same steps one
+              position short at least CONTIG_FAULT x that bound;
+              the paged bf16 Server's streams of the same prompts equal to
+              the contiguous ones up to a tie each. At most
+              CONTIG_BUDGET_S.
 
 Phase 3 also checks and times DeepSeek-V3's shapes on weights drawn as
 stored (row 1 at its 9 (K, N), N = 576 and K = 14336 among them, timed at
 M = 4 and checked at 128; rows 1b / 1c at 128 heads of 128 x 512; row 1d
-over 256 experts, routed at M = 4 and as 80-row capacity slabs; row 3 at
+over 256 experts, routed at M = 4 and as 80-row capacity slabs, checked
+and not timed; row 3 at
 r 512, dr 64, H 128 over the three page variants, with NaN planted), the
 recurrent families' shapes (row 1 at
 xLSTM's and Zamba2's 10 (K, N), among them N = 8384, timed at M = 4 and
@@ -263,6 +296,7 @@ The script imports nothing of jax and nothing of the JAX package.
 """
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -1249,12 +1283,14 @@ def _deepseek_kernels(torch, timer, gen):
     M = 4 and checked at a prefill chunk's 128 rows at every (K, N) of
     DS_GEMMS; rows 1b / 1c (128 heads of 128 x 512) timed at M = 4 and
     checked at 260; row 1d at 256 experts (wu 7168 -> 2048, wd 2048 ->
-    7168), timed as served (M = 4, each token's row nonzero in 8 of the 256
-    slabs) and as the cache-free grouped dispatch gives it (80 rows a slab,
-    all nonzero); row 3 at r 512, dr 64, H 128 over FP8 + FP4 frozen, FP8
-    and bf16 pages, timed against SDPA, and checked with NaN planted outside
-    the valid tokens. Returns {"gemm": {(4, K, N): row}, "batched": {bool:
-    row}, "moe": {(weight, kind): row}, "mla": {(fmt, frozen): row}}."""
+    7168), checked (not timed: PERF.md keeps their times) as served (M =
+    4, each token's row nonzero in 8 of the 256 slabs) and as the
+    cache-free grouped dispatch gives it (80 rows a slab, all nonzero);
+    row 3 at r 512, dr 64, H 128 over FP8 + FP4 frozen, FP8 and bf16
+    pages, timed against SDPA, and checked with NaN planted outside the
+    valid tokens. Returns
+    {"gemm": {(4, K, N): row}, "batched": {bool: row}, "moe": {(weight,
+    kind): row}, "mla": {(fmt, frozen): row}}."""
     gemm = {}
     for k, n in DS_GEMMS:
         p = _synthetic_packed(torch, (), n, k, gen)
@@ -1268,11 +1304,13 @@ def _deepseek_kernels(torch, timer, gen):
         batched[tr]["max_abs_err"] = max(batched[tr]["max_abs_err"], err)
         log(f"    w4a8_fused batched {'transposed' if tr else 'normal'} E={DS_HEADS['heads']} M=260 "
             f"(DeepSeek-V3's heads): max|err| {err:.3g}")
-    moe = {}
+    moe = {}  # checked, not timed (PERF.md §6 keeps their times)
     for name, k, n in DS_EXPERTS:
         p = _synthetic_packed(torch, (256,), n, k, gen)
-        moe[(name, "routed")] = _moe_case(torch, timer, p, 4, gen, routed=True)
-        moe[(name, "grouped")] = _moe_case(torch, timer, p, DS_CAPACITY_ROWS, gen, routed=False)
+        for kind, m in (("routed", 4), ("grouped", DS_CAPACITY_ROWS)):
+            *_, err, what = _moe_check(torch, p, m, gen, routed=kind == "routed")
+            moe[(name, kind)] = {"max_abs_err": err}
+            log(f"    {what}: max|err| {err:.3g} (checked, not timed)")
         del p
         torch.cuda.empty_cache()
     mla = {key: _mla_case(torch, timer, gen, *key, shape=DS_MLA_SHAPE, scale=DS_MLA_SCALE)
@@ -1761,13 +1799,15 @@ def _to_device(a, d):
 
 
 def phase_cpu(torch, cfg, packed):
-    """The packed model along five routes, against the CPU:
+    """The packed model along four routes, against the plain versions on
+    the card (phase 20's time paid for its CPU route; phases 8,
+    14, 16, 17 and 19 still compare the card with the CPU):
 
     * ``card``       -- the CUDA kernels, as served in phase 4;
     * ``card_plain`` -- the plain versions on the card's tensors (``ops``
       routed as for CPU tensors): the witness that separates the kernels
-      from the rest of the card path (FP8 fake-quant, page appends, norms);
-    * ``cpu``        -- the plain versions on the CPU: the reference;
+      from the rest of the card path (FP8 fake-quant, page appends, norms),
+      and the reference;
     * two injected faults, on the card through the plain versions, to show
       what a faulty card path reads: ``no_lorc`` drops the LoRC correction
       from every linear, ``short_kv`` hides the newest token from decode
@@ -1786,27 +1826,27 @@ def phase_cpu(torch, cfg, packed):
     the reference block's update (Frobenius norms). The kernels (which
     apply M2 as the TPU kernel does, 2^-k per group and s_max after the K
     loop, where the plain version rounds the scaled weight to bf16 once)
-    and the plain versions on the card must read at most BLOCK_RTOL, each
-    fault more."""
-    routes = _routes(torch, packed)
+    must read at most BLOCK_RTOL, each fault more."""
+    routes = _routes(torch, packed, cpu=False)
     # 1 decode step, not 4 (since phase 18 came): every site, the decode
     # attention's included, still runs on both requests
-    free, agree = _compare(torch, cfg, routes, forced=False, n_dec=1)
-    forced, _ = _compare(torch, cfg, routes, forced=True, n_dec=1)
-    show = lambda rd, key: ", ".join(f"{n} {rd[n][key]:.4g}" for n in routes if n != "cpu")
-    log(f"[5 cpu] 2 requests (1 prefill chunk + 1 decode step) against the CPU plain path")
+    kw = dict(n_dec=1, ref="card_plain")
+    free, agree = _compare(torch, cfg, routes, forced=False, **kw)
+    forced, _ = _compare(torch, cfg, routes, forced=True, **kw)
+    show = lambda rd, key: ", ".join(f"{n} {rd[n][key]:.4g}" for n in routes if n != "card_plain")
+    log(f"[5 cpu] 2 requests (1 prefill chunk + 1 decode step) against the plain versions on "
+        f"the card")
     log(f"    free-running, largest |logit err| / largest |logit| (tolerance {LOGIT_RTOL}): "
         f"{show(free, 'logits')}; greedy tokens agree {agree[0]}/{agree[2]}, all {agree[1]} "
         f"decisive ones")
     log(f"    teacher-forced blocks, largest |block output err| / |block update| "
         f"(tolerance {BLOCK_RTOL}): {show(forced, 'block')}")
-    for name in ("card", "card_plain"):
-        if free[name]["logits"] > LOGIT_RTOL:
-            fail(f"free-running logits of route {name} differ from the CPU plain path by "
-                 f"{free[name]['logits']:.4g} of the largest |logit| > {LOGIT_RTOL}")
-        if forced[name]["block"] > BLOCK_RTOL:
-            fail(f"the blocks of route {name} differ from the CPU plain path by "
-                 f"{forced[name]['block']:.4g} of their update > {BLOCK_RTOL}")
+    if free["card"]["logits"] > LOGIT_RTOL:
+        fail(f"free-running logits of the card differ from the plain versions on the card by "
+             f"{free['card']['logits']:.4g} of the largest |logit| > {LOGIT_RTOL}")
+    if forced["card"]["block"] > BLOCK_RTOL:
+        fail(f"the blocks of the card differ from the plain versions on the card by "
+             f"{forced['card']['block']:.4g} of their update > {BLOCK_RTOL}")
     for name in ("no_lorc", "short_kv"):
         if forced[name]["block"] <= BLOCK_RTOL:
             fail(f"injected fault {name} reads {forced[name]['block']:.4g} <= {BLOCK_RTOL}: "
@@ -1835,6 +1875,12 @@ def _counters():
             ("act_quant", act_quant_cuda, "launches"),
             ("w4a8_matmul_split", w4a8_matmul_cuda, "launches"),
             ("flash_attention", flash_attention_cuda, "launches"))
+
+
+def _mem(torch):
+    """The card's memory as the caching allocator holds it."""
+    return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
 
 
 def _counts():
@@ -2189,7 +2235,92 @@ def phase_mla_cpu(torch):
         if rd[name][key] <= tol:
             fail(f"injected fault {name} reads {rd[name][key]:.4g} <= {tol} on {key}: the "
                  f"comparison cannot tell it from a sound card path")
-    return free, forced, op
+    return free, forced, op, _mla_contiguous(torch, cfg, routes)
+
+
+MLA_CONTIG_PROMPT = 64  # tokens a row, one page: the splice fills it
+
+
+def _mla_contiguous(torch, cfg, routes):
+    """MLA over contiguous caches: 2 prompts of MLA_CONTIG_PROMPT
+    tokens prefilled (the materialized form: 9 row-1 launches a layer),
+    then 2 scalar-index decode steps (the absorbed form: 7 row-1, 1 row-1b
+    (wv_b) and 1 row-1c (wk_b) launches a layer), on the card and on the
+    CPU plain path fed the card's tokens: logits within MLA_LOGIT_RTOL.
+    Then each prompt spliced into a latent FP8 pool and one paged step
+    through row 3 on the first decode token, within MLA_LOGIT_RTOL of the
+    contiguous step. Returns (the card's launches of the contiguous run,
+    the paged step's)."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.runtime import kv_cache as kvc
+
+    n, b = cfg.n_layers, 2
+    prompts = np.random.default_rng(SEED + 8).integers(2, cfg.vocab_size, (b, MLA_CONTIG_PROMPT))
+    _set_counts(dict.fromkeys(_counts(), 0))
+    card, caches, toks, counts, _ = _contiguous_run(torch, cfg, routes["card"][0], prompts,
+                                                    2 * MLA_CONTIG_PROMPT, 2)
+    launches = _counts()
+    _launch_check(counts, {"w4a8_fused": 9 * n},
+                  {"w4a8_fused": 7 * n, "w4a8_fused_batched": n, "w4a8_fused_transposed": n},
+                  "phase 8 contiguous")
+    cpu, *_ = _contiguous_run(torch, cfg, routes["cpu"][0], prompts, 2 * MLA_CONTIG_PROMPT, 2,
+                              tokens=[t.cpu() for t in toks])
+    free = max(_share(torch, c.cpu(), p) for c, p in zip(card, cpu))
+    pool = kvc.init_mla_pool(n, 2 * b, MLA_CONTIG_PROMPT, cfg.mla.kv_lora_rank,
+                             cfg.mla.qk_rope_dim, "fp8_e4m3", device=DEV)
+    table = torch.arange(2 * b, dtype=torch.int32, device=DEV).reshape(b, 2)
+    for r in range(b):
+        kvc.splice_prefill(pool, {k: v[:, r:r + 1] for k, v in caches[0]["kv"].items()},
+                           [2 * r], MLA_CONTIG_PROMPT)
+    _set_counts(dict.fromkeys(_counts(), 0))
+    got = api.decode_step(routes["card"][0], cfg, toks[0].to(torch.int32)[:, None], [pool],
+                          kvc.PagedState(table, torch.full((b,), MLA_CONTIG_PROMPT,
+                                                           dtype=torch.int32, device=DEV)),
+                          a_fmt="fp8_e4m3")
+    paged = _counts()
+    spliced = _share(torch, got, card[1])
+    log(f"    contiguous caches: 2 prompts of {MLA_CONTIG_PROMPT} tokens + 2 scalar-index "
+        f"steps, card against the CPU plain path, largest |logit err| / largest |logit| "
+        f"{free:.4g} (bound {MLA_LOGIT_RTOL}); launches {launches} (9 row-1 a layer at the "
+        f"prefill, 7 row-1 + 1 row-1b + 1 row-1c a layer a step); spliced into FP8 latent "
+        f"pages, one paged step (row 3) {spliced:.4g} of the contiguous step's (bound "
+        f"{MLA_LOGIT_RTOL}), launches {paged}")
+    if free > MLA_LOGIT_RTOL or spliced > MLA_LOGIT_RTOL:
+        fail(f"phase 8 contiguous: card {free:.4g} / spliced {spliced:.4g} > {MLA_LOGIT_RTOL}")
+    if paged != {**dict.fromkeys(paged, 0), "w4a8_fused": 7 * n, "w4a8_fused_batched": n,
+                 "w4a8_fused_transposed": n, "paged_mla_decode_attn": n}:
+        fail(f"phase 8 spliced step: launches {paged}")
+    # the card's run again, each wk_b / wv_b call of its absorbed steps held
+    # on its own operands against the plain version (MLA_OP_RTOL,
+    # MLA_WVB_RTOL); wk_b without its LoRC factors must read CONTIG_FAULT x
+    # its bound
+    drop = lambda w: dataclasses.replace(w, lorc_a=None, lorc_b=None)
+    held, _ = _held_calls(
+        torch, cfg, routes["card"][0], prompts, 2 * MLA_CONTIG_PROMPT, toks,
+        "w4a8_matmul_batched",
+        key=lambda x, w, transpose_w=False, **kw: "wk_b" if transpose_w else "wv_b",
+        reading=_fro,
+        fault=lambda call, x, w, transpose_w=False, **kw:
+            call(x, drop(w), transpose_w=True, **kw) if transpose_w else None)
+    bounds = {"wk_b": MLA_OP_RTOL, "wv_b": MLA_WVB_RTOL}
+    log("    the card's run again, each absorbed step's call on its own operands against the "
+        "plain version, largest ||err|| / ||output||: "
+        + ", ".join(f"{k} {max(v[0]):.4g} ({len(v[0])} calls, bound {bounds[k]})"
+                    for k, v in held.items())
+        + f"; wk_b without its LoRC factors {max(held['wk_b'][1]):.4g} (>= {CONTIG_FAULT} x "
+        f"{MLA_OP_RTOL} required)")
+    if sorted(held) != ["wk_b", "wv_b"] or any(len(v[0]) != 2 * n for v in held.values()):
+        fail(f"phase 8 contiguous: held calls {[(k, len(v[0])) for k, v in held.items()]}")
+    for k, (sound, _) in held.items():
+        if max(sound) > bounds[k]:
+            fail(f"phase 8 contiguous: the {k} calls read {max(sound):.4g} > {bounds[k]}")
+    if max(held["wk_b"][1]) < CONTIG_FAULT * MLA_OP_RTOL:
+        fail(f"phase 8 contiguous: wk_b without LoRC reads {max(held['wk_b'][1]):.4g} < "
+             f"{CONTIG_FAULT} x {MLA_OP_RTOL}: the comparison cannot tell it from a sound card "
+             f"path")
+    return launches, paged, held
 
 
 def _lorc_routes(torch, n=8):
@@ -2329,7 +2460,60 @@ def phase_moe_cpu(torch, cfg, packed):
         if op[name][key] <= MOE_OP_RTOL:
             fail(f"injected fault {name} reads {op[name][key]:.4g} <= {MOE_OP_RTOL} on {key}: "
                  f"the comparison cannot tell it from a sound card path")
-    return free, op
+    return free, op, _moe_contiguous(torch, cfg, routes)
+
+
+def _moe_contiguous(torch, cfg, routes):
+    """MoE over contiguous caches: 2 prompts of 64 tokens prefilled,
+    then 1 scalar-index decode step, each MoE layer on the grouped capacity
+    dispatch (row 1d: wu, wg, wd over the capacity slabs; 4 row-1 launches
+    a layer for the attention), the card against the plain versions on the
+    card fed its tokens: logits within MOE_LOGIT_RTOL. Returns the card's
+    launches."""
+    import numpy as np
+
+    n = cfg.n_layers
+    prompts = np.random.default_rng(SEED + 10).integers(2, cfg.vocab_size, (2, 64))
+    _set_counts(dict.fromkeys(_counts(), 0))
+    card, _, toks, counts, _ = _contiguous_run(torch, cfg, routes["card"][0], prompts, 128, 1)
+    launches = _counts()
+    step = {"w4a8_fused": 4 * n, "w4a8_fused_batched_fp8": 3 * n}
+    _launch_check(counts, step, step, "phase 10 contiguous")
+    plain, *_ = _contiguous_run(torch, cfg, routes["card_plain"][0], prompts, 128, 1,
+                                tokens=toks, patch=PLAIN)
+    free = max(_share(torch, c, p) for c, p in zip(card, plain))
+    log(f"    contiguous caches: 2 prompts of 64 tokens + 1 scalar-index step (grouped "
+        f"capacity dispatch), card against the plain versions on the card, largest |logit err| "
+        f"/ largest |logit| {free:.4g} (gross bound {MOE_LOGIT_RTOL}); launches {launches}")
+    if free > MOE_LOGIT_RTOL:
+        fail(f"phase 10 contiguous: {free:.4g} > {MOE_LOGIT_RTOL}")
+    # the same run again, every expert GEMM call (row 1d over the capacity
+    # slabs) held on its own operands against the plain version within
+    # MOE_OP_RTOL; expert 0 reading expert 1's weights must read CONTIG_FAULT x
+    # that in every call's kind
+    order = itertools.count()
+    swap = lambda t: torch.cat([t[1:2], t[1:]])
+    held, _ = _held_calls(
+        torch, cfg, routes["card"][0], prompts, 128, toks, "w4a8_matmul_batched",
+        key=lambda *a, **kw: ("wu", "wg", "wd")[next(order) % 3], reading=_fro,
+        fault=lambda call, x, w, *a, **kw: call(x, w.apply(swap), *a, **kw))
+    log("    the same run, each expert GEMM call on its own operands against the plain version, "
+        f"largest ||err|| / ||output|| (bound {MOE_OP_RTOL}): "
+        + ", ".join(f"{k} {max(v[0]):.4g} ({len(v[0])} calls)" for k, v in held.items())
+        + "; expert 0 reading expert 1's weights: "
+        + ", ".join(f"{k} {max(v[1]):.4g}" for k, v in held.items())
+        + f" (>= {CONTIG_FAULT} x {MOE_OP_RTOL} required)")
+    for k, (sound, bad) in held.items():
+        if max(sound) > MOE_OP_RTOL:
+            fail(f"phase 10 contiguous: the {k} calls read {max(sound):.4g} > {MOE_OP_RTOL}")
+        if max(bad) < CONTIG_FAULT * MOE_OP_RTOL:
+            fail(f"phase 10 contiguous: expert 0 reading expert 1's {k} reads {max(bad):.4g} "
+                 f"< {CONTIG_FAULT} x {MOE_OP_RTOL}: the comparison cannot tell it from a sound "
+                 f"card path")
+    if sorted(held) != ["wd", "wg", "wu"] or any(len(v[0]) != 2 * cfg.n_layers
+                                                 for v in held.values()):
+        fail(f"phase 10 contiguous: held calls {[(k, len(v[0])) for k, v in held.items()]}")
+    return launches, held
 
 
 # -- phase 11: the kernel API ------------------------------------------------------
@@ -3730,13 +3914,32 @@ def phase_dense(torch, card):
     plain versions on the card; one group scale of layer 0's wd doubled
     (above DENSE_FAULT_MAX_K, of layer 0's up).
     Returns {config: its serving run's launches}."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    # nemotron-4-340b peaks at ~75 of the card's 79 GiB (its pack, then the
+    # plain route's 5 GiB decode of the 73728 x 18432 weight): expandable
+    # segments keep the allocator's free blocks from fragmenting that
+    # headroom (a run met 9.6 GiB reserved but unallocated, and ran out).
+    # The setting is the process's: restored however the phase ends
+    set_alloc = getattr(torch._C, "_accelerator_setAllocatorSettings", None) or \
+        torch.cuda.memory._set_allocator_settings
+    torch.cuda.empty_cache()
+    log(f"[15 dense] on entry: {_mem(torch)}")
+    set_alloc("expandable_segments:True")
+    try:
+        return _dense_configs(torch, card, gen)
+    finally:
+        torch.cuda.empty_cache()
+        set_alloc("expandable_segments:False")
+
+
+def _dense_configs(torch, card, gen):
+    """Phase 15's configurations in turn (see phase_dense)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import layer_view
     from repro_torch.runtime import serve
 
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
     out = {}
     for name in DENSE_CONFIGS:
         t0 = time.perf_counter()
@@ -4982,6 +5185,271 @@ def phase_train(torch, card):
     return launches
 
 
+# -- phase 20: the contiguous caches ---------------------------------------------------
+CONTIG_BUDGET_S = 45
+CONTIG_ROWS, CONTIG_PROMPT, CONTIG_MAX_SEQ, CONTIG_STEPS = 4, 512, 1024, 64
+CONTIG_PAGE = 64
+CONTIG_SPLICE_STEPS = 8  # paged steps after each splice, on the contiguous path's tokens
+CONTIG_STREAM_NEW = 32  # tokens of each request the paged bf16 Server serves
+# the paged steps' logits after a splice, as a share of the contiguous
+# path's largest |logit|, activations unquantized: bf16 pages at
+# tests/test_kv_cache.py:360-362's bound; FP8 pages tighter than its 0.1,
+# which no fault could read 10 times on this metric (two unrelated logit
+# rows read ~1.4): an H100 read 0.0092 and 0.015, a CPU rehearsal at 256
+# prompt tokens 0.0095 and 0.021, the faults 0.26-0.30 (PERF.md).
+# The fault (steps one position short, each overwriting the previous slot)
+# must read CONTIG_FAULT times the bound
+CONTIG_RTOL = {"bf16": 2e-2, "fp8_e4m3": 2.5e-2}
+CONTIG_FAULT = 10.0
+
+
+def _contiguous_run(torch, cfg, params, prompts, max_seq, n_dec, tokens=None, patch=None,
+                    timed=False, a_fmt="fp8_e4m3"):
+    """``api.prefill`` of ``prompts`` (a (B, S) array) into contiguous caches
+    of ``max_seq`` positions, then ``n_dec`` scalar-index decode steps fed
+    ``tokens`` (a list of (B,) tensors) or, without them, each step's
+    greedy tokens, with ``kernels.ops`` patched by ``patch``, activations
+    quantized onto ``a_fmt`` where the model asks. Returns (the
+    f32 logits of each program, the caches, the tokens fed, each program's
+    launch counts, each program's ms when ``timed``)."""
+    from repro_torch.models import api
+
+    dev = params["embed"].device
+    out, fed, counts, ms = [], [], [], []
+    with _ops_patched(patch or {}):
+        for i in range(n_dec + 1):
+            before = _counts()
+            if timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32).to(dev)}
+                logits, caches = api.prefill(params, cfg, batch, max_seq, a_fmt=a_fmt)
+            else:
+                nxt = out[-1].argmax(-1) if tokens is None else tokens[i - 1]
+                fed.append(nxt)
+                logits = api.decode_step(params, cfg, nxt.to(torch.int32)[:, None].to(dev),
+                                         caches, prompts.shape[1] + i - 1, a_fmt=a_fmt)
+            if timed:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits.float())
+            after = _counts()
+            counts.append({k: after[k] - before[k] for k in after})
+    return out, caches, fed, counts, ms
+
+
+def _held_calls(torch, cfg, params, prompts, max_seq, tokens, op, key, reading, fault):
+    """``_contiguous_run`` of ``prompts`` and one scalar step a token row of
+    ``tokens``, through the kernels, with every call of ``kernels.ops.<op>``
+    also computed on its own operands by the plain version (the same
+    function under PLAIN) and by a planted fault (``fault(call, x, w, *a,
+    **kw)``: the faulty output, or None where it does not apply). Launches
+    not counted. Returns ({``key(x, w, *a, **kw)``: [the kernel's readings,
+    the fault's]}, each ``reading(got, plain)``, and the run's logits)."""
+    from repro_torch.kernels import ops
+
+    call, read, saved = getattr(ops, op), {}, _counts()
+
+    def held(x, w, *a, **kw):
+        y = call(x, w, *a, **kw)
+        with _ops_patched(PLAIN):
+            want = call(x, w, *a, **kw)
+        bad = fault(call, x, w, *a, **kw)
+        sound, faulty = read.setdefault(key(x, w, *a, **kw), ([], []))
+        sound.append(reading(y, want))
+        if bad is not None:
+            faulty.append(reading(bad, want))
+        return y
+
+    out, *_ = _contiguous_run(torch, cfg, params, prompts, max_seq, len(tokens), tokens=tokens,
+                              patch={op: held})
+    _set_counts(saved)
+    return read, out
+
+
+def _fro(got, want):
+    """||got - want|| / ||want|| (Frobenius, f64), as phase 5's readings."""
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def _launch_check(counts, want_pre, want_step, what):
+    """Each program's launches: the prefill's ``want_pre``, every decode
+    step's ``want_step`` (names not given: 0)."""
+    zero = dict.fromkeys(counts[0], 0)
+    for i, c in enumerate(counts):
+        want = {**zero, **(want_pre if i == 0 else want_step)}
+        if c != want:
+            fail(f"{what}: program {i} launched {c}, want {want}")
+
+
+def _share(torch, got, want):
+    """max |got - want| as a share of max |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _gaps(torch, logits):
+    """Each row's top-2 gap over its largest |logit|."""
+    top = logits.topk(2, dim=-1).values
+    return ((top[:, 0] - top[:, 1]) / logits.abs().amax(-1)).tolist()
+
+
+def phase_contiguous(torch, cfg, packed, card):
+    """The contiguous-cache path (``api.prefill``, ``api.decode_step`` at a
+    scalar index) on phase 4's packed opt-125m: CONTIG_ROWS prompts of
+    CONTIG_PROMPT tokens into caches of CONTIG_MAX_SEQ, then CONTIG_STEPS
+    greedy steps, each launching 72 row-1 kernels and no attention kernel
+    (the cache is read by plain PyTorch, as the reference reads it in
+    ``jnp``); tokens/s and the median step printed. Each row's prompt
+    prefilled again with activations taken as they are (the packed weights
+    on row 1's unquantized variant) and spliced (``kv_cache.splice_prefill``)
+    into a bf16 and an FP8 page pool, then CONTIG_SPLICE_STEPS paged steps
+    through row 2 on that path's tokens, logits within CONTIG_RTOL of its;
+    the same steps one position short (each overwriting the previous slot)
+    must read CONTIG_FAULT times that. Then the paged bf16
+    Server serves the same prompts: each stream equals the contiguous one
+    up to a tie at its first difference (top-2 gap under GAP_TOL). Returns
+    (the main path's launches, the splices' paged launches by format,
+    readings)."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.models.layers import PackedLinear
+    from repro_torch.models.params import tree_map
+    from repro_torch.runtime import kv_cache as kvc
+    from repro_torch.runtime import serve
+
+    t_start = time.perf_counter()
+    n = cfg.n_layers
+    prompts = np.random.default_rng(SEED + 20).integers(2, cfg.vocab_size,
+                                                       (CONTIG_ROWS, CONTIG_PROMPT))
+    _set_counts(dict.fromkeys(_counts(), 0))
+    out, caches, toks, counts, ms = _contiguous_run(torch, cfg, packed, prompts, CONTIG_MAX_SEQ,
+                                                    CONTIG_STEPS, timed=True)
+    launches = _counts()
+    _launch_check(counts, {"w4a8_fused": 6 * n}, {"w4a8_fused": 6 * n}, "phase 20 contiguous")
+    if not all(bool(torch.isfinite(o).all()) for o in out):
+        fail("phase 20: non-finite logits on the contiguous path")
+    n_tok = CONTIG_ROWS * CONTIG_STEPS
+    log(f"[20 contiguous] opt-125m, {CONTIG_ROWS} prompts of {CONTIG_PROMPT} tokens into "
+        f"contiguous caches of {CONTIG_MAX_SEQ}, {CONTIG_STEPS} greedy scalar-index steps on "
+        f"{card}: prefill {ms[0]:.1f} ms, median decode step {statistics.median(ms[1:]):.2f} ms, "
+        f"{n_tok} tokens in {sum(ms[1:]) / 1e3:.2f} s = {n_tok / (sum(ms[1:]) / 1e3):.1f} "
+        f"tokens/s (read, not gated); launches {launches} ({6 * n} row-1 a program, no "
+        f"attention kernel)")
+
+    # that run's prefill (M = 4 x 512 = 2048 rows a call) and first step
+    # (M = 4) again on its tokens, every row-1 call held on its own operands
+    # against the plain version: W4A8_TOL excesses (_excess, at most 1), and
+    # the call with its top group's scale doubled (_doubled_top_group) must
+    # read more than 1 in every call and CONTIG_FAULT in some call
+    held, again = _held_calls(
+        torch, cfg, packed, prompts, CONTIG_MAX_SEQ, toks[:1], "w4a8_matmul",
+        key=lambda x, w: x.numel() // x.shape[-1], reading=_excess,
+        fault=lambda call, x, w: call(x, _doubled_top_group(torch, w, x.reshape(-1, x.shape[-1]))))
+    same = all(torch.equal(a, b) for a, b in zip(again, out))
+    log(f"    the timed run's prefill and first step again, each row-1 call on its own operands "
+        f"(logits equal to the timed run's: {same}): "
+        + "; ".join(f"M={m}: {len(sound)} calls, kernel vs plain at most {max(sound):.3g} "
+                    f"W4A8_TOL excesses (<= 1), top group scale doubled {min(bad):.3g}-"
+                    f"{max(bad):.3g} (> 1 in every call, >= {CONTIG_FAULT} in one)"
+                    for m, (sound, bad) in sorted(held.items(), reverse=True)))
+    if sorted(held) != [CONTIG_ROWS, CONTIG_ROWS * CONTIG_PROMPT] or \
+            any(len(sound) != 6 * n for sound, _ in held.values()):
+        fail(f"phase 20: the held run made row-1 calls {[(m, len(v[0])) for m, v in held.items()]}")
+    for m, (sound, bad) in held.items():
+        if max(sound) > 1:
+            fail(f"phase 20: row 1 at M={m} reads {max(sound):.3g} W4A8_TOL excesses against its "
+                 f"plain version on the contiguous path's operands")
+        if min(bad) <= 1 or max(bad) < CONTIG_FAULT:
+            fail(f"phase 20: the doubled group scale at M={m} reads {min(bad):.3g}-{max(bad):.3g} "
+                 f"excesses: the comparison cannot tell it from the sound weight")
+
+    # the splice check runs the same packed weights with activations taken as
+    # they are (row 1's unquantized variant, a_fmt None): with FP8
+    # activations every one-ulp difference of the attention's rounding tips
+    # FP8 codes and 12 layers amplify it to ~5 % of the largest |logit| on
+    # random weights (F4), which would hide the splice's own error
+    raw = tree_map(lambda t: dataclasses.replace(t, a_fmt=None) if isinstance(t, PackedLinear)
+                   else t, packed, is_leaf=lambda x: isinstance(x, PackedLinear))
+    ref, caches, toks, counts, _ = _contiguous_run(torch, cfg, raw, prompts, CONTIG_MAX_SEQ,
+                                                   CONTIG_SPLICE_STEPS, a_fmt=None)
+    _launch_check(counts, {"w4a8_fused": 6 * n}, {"w4a8_fused": 6 * n},
+                  "phase 20 contiguous, activations unquantized")
+    readings, splice_launches = {}, {}
+    pp = CONTIG_PROMPT // CONTIG_PAGE + 1  # the prompt's pages and one for the decoded tokens
+    table = torch.arange(CONTIG_ROWS * pp, dtype=torch.int32, device=DEV).reshape(CONTIG_ROWS, pp)
+    lengths = lambda i: torch.full((CONTIG_ROWS,), CONTIG_PROMPT + i, dtype=torch.int32,
+                                   device=DEV)
+    for fmt in (None, "fp8_e4m3"):
+        key = fmt or "bf16"
+        pool = kvc.init_gqa_pool(n, CONTIG_ROWS * pp, CONTIG_PAGE, cfg.n_kv_heads,
+                                 cfg.resolved_head_dim, fmt, device=DEV)
+        for r in range(CONTIG_ROWS):
+            kvc.splice_prefill(pool, {k: v[:, r:r + 1] for k, v in caches[0]["kv"].items()},
+                               table[r, :pp - 1].cpu(), CONTIG_PROMPT)
+        faulty = {k: v.clone() for k, v in pool.items()}
+        sound, fault = [], []
+        _set_counts(dict.fromkeys(_counts(), 0))
+        for i in range(CONTIG_SPLICE_STEPS):
+            got = api.decode_step(raw, cfg, toks[i].to(torch.int32)[:, None], [pool],
+                                  kvc.PagedState(table, lengths(i)), a_fmt=None)
+            sound.append(_share(torch, got, ref[i + 1]))
+        splice_launches[key] = _counts()
+        for i in range(CONTIG_SPLICE_STEPS):  # each step one position short
+            got = api.decode_step(raw, cfg, toks[i].to(torch.int32)[:, None], [faulty],
+                                  kvc.PagedState(table, lengths(i - 1)), a_fmt=None)
+            fault.append(_share(torch, got, ref[i + 1]))
+        readings[key] = (max(sound), max(fault))
+        want = {**dict.fromkeys(_counts(), 0), "w4a8_fused": 6 * n * CONTIG_SPLICE_STEPS,
+                "paged_decode_attn": n * CONTIG_SPLICE_STEPS}
+        if splice_launches[key] != want:
+            fail(f"phase 20 splice ({key} pages): launches {splice_launches[key]}, want {want}")
+    log(f"    splice_prefill into bf16 / fp8 pages, then {CONTIG_SPLICE_STEPS} paged steps "
+        f"(row 2) on the contiguous tokens (activations unquantized on both paths): largest "
+        f"|logit err| / largest |logit| "
+        + ", ".join(f"{k} {v[0]:.4g} (bound {CONTIG_RTOL[k]})" for k, v in readings.items())
+        + "; the steps one position short read "
+        + ", ".join(f"{k} {v[1]:.4g} (>= {CONTIG_FAULT} x {CONTIG_RTOL[k]} required)"
+                    for k, v in readings.items()))
+    for key, (sound, fault) in readings.items():
+        if sound > CONTIG_RTOL[key]:
+            fail(f"phase 20: paged steps after the splice into {key} pages read {sound:.4g} > "
+                 f"{CONTIG_RTOL[key]} of the contiguous path's largest |logit|")
+        if fault < CONTIG_FAULT * CONTIG_RTOL[key]:
+            fail(f"phase 20: the steps one position short read {fault:.4g} < {CONTIG_FAULT} x "
+                 f"{CONTIG_RTOL[key]} on {key} pages: the comparison cannot tell them from "
+                 f"sound steps")
+
+    config = serve.ServerConfig(slots=CONTIG_ROWS, max_seq=CONTIG_MAX_SEQ, page_size=CONTIG_PAGE,
+                                a_fmt="fp8_e4m3", cache=serve.CachePolicy())
+    srv = serve.Server(packed, cfg, config)
+    for r in range(CONTIG_ROWS):
+        srv.submit(serve.Request(rid=r, prompt=prompts[r].tolist(), max_new=CONTIG_STREAM_NEW))
+    got = {res.rid: list(res.tokens) for res in srv.run_until_drained()}
+    streams = [[int(o[r].argmax()) for o in out[:CONTIG_STREAM_NEW]] for r in range(CONTIG_ROWS)]
+    gaps = [_gaps(torch, o) for o in out[:CONTIG_STREAM_NEW]]
+    ties = []
+    for r in range(CONTIG_ROWS):
+        if got.get(r) is None or len(got[r]) != CONTIG_STREAM_NEW:
+            fail(f"phase 20: the paged bf16 Server's request {r} emitted {got.get(r)}")
+        i = next((i for i, (a, b) in enumerate(zip(got[r], streams[r])) if a != b), None)
+        if i is not None:
+            if gaps[i][r] >= GAP_TOL:
+                fail(f"phase 20: request {r}'s paged stream leaves the contiguous one at token "
+                     f"{i}, where its top-2 gap is {gaps[i][r]:.3g} >= {GAP_TOL}")
+            ties.append((r, i, gaps[i][r]))
+    distinct = len({t for s in streams for t in s})
+    wall = time.perf_counter() - t_start
+    log(f"    paged bf16 Server (mixed engine, prefix cache), the same {CONTIG_ROWS} prompts, "
+        f"{CONTIG_STREAM_NEW} tokens each: streams equal the contiguous path's but for ties "
+        f"{ties} (first differences under a top-2 gap of {GAP_TOL}); {distinct} distinct "
+        f"tokens; phase {wall:.1f} s")
+    if wall > CONTIG_BUDGET_S:
+        fail(f"phase 20 took {wall:.1f} s > {CONTIG_BUDGET_S} s")
+    return launches, splice_launches, readings, held
+
+
 def step_sum(rows, n_layers, key):
     """One decode step's sum of a kernel's per-launch rows."""
     if key == "bound_ms":  # the bound of the whole step's bytes and operations
@@ -5075,11 +5543,11 @@ def main():
     lap(6)
     launches_7, live_7 = phase_mla(torch, card)
     lap(7)
-    phase_mla_cpu(torch)
+    *_, (mla_contig, mla_spliced, mla_held) = phase_mla_cpu(torch)
     lap(8)
     olmoe, packed_9, launches_9, live_9 = phase_moe(torch, card)
     lap(9)
-    phase_moe_cpu(torch, olmoe, packed_9)
+    *_, (moe_contig, moe_held) = phase_moe_cpu(torch, olmoe, packed_9)
     lap(10)
     del packed_9
     api_launches, act, split, versus, faults, flash = phase_kernel_api(torch)
@@ -5091,6 +5559,10 @@ def main():
     lap(13)
     if time.perf_counter() - t13 > SAMPLING_BUDGET_S:
         fail(f"phase 13 took {time.perf_counter() - t13:.1f} s > {SAMPLING_BUDGET_S} s")
+    log(f"    (before phase 20: {_mem(torch)})")
+    contig, contig_splice, contig_read, contig_held = phase_contiguous(torch, cfg, packed, card)
+    lap(20)
+    log(f"    (after phase 20: {_mem(torch)})")
     del packed
     t14 = time.perf_counter()
     phase_ptq(torch, card)
@@ -5142,7 +5614,6 @@ def main():
     ds_step = ([ds["gemm"][(4, k, n)] for k, n in DS_MLA_GEMMS] * DS_SERVED_LAYERS
                + [ds["gemm"][(4, k, n)] for k, n in DS_DENSE_GEMMS] * 3
                + [ds["gemm"][(4, k, n)] for k, n in DS_SHARED_GEMMS])
-    ds_moe = [ds["moe"][("wu", "routed")]] * 2 + [ds["moe"][("wd", "routed")]]
     ds_per = (f"one DeepSeek-V3 decode step ({DS_SERVED_LAYERS} of 61 layers, B=4); launches from "
               "phase 18's serving run, loss_launches from its loss_fn pass")
     xlstm_step = [recurrent["gemm"][(4, k, n)] for k, n in XLSTM_PAIR_GEMMS] * 6
@@ -5195,6 +5666,22 @@ def main():
          "train": {"launches": launches_19["w4a8_fused"],
                    "per": "phase 19: the opt-125m trained on the card, packed, phase 4's "
                           "traffic"},
+         "contiguous": {"launches": contig["w4a8_fused"],
+                        "mla_launches": mla_contig["w4a8_fused"],
+                        "moe_launches": moe_contig["w4a8_fused"],
+                        "splice_launches": {k: v["w4a8_fused"] for k, v in contig_splice.items()},
+                        "held_excess": {m: max(v[0]) for m, v in contig_held.items()},
+                        "held_fault_excess": {m: [min(v[1]), max(v[1])]
+                                              for m, v in contig_held.items()},
+                        "per": f"phase 20: opt-125m over contiguous caches, {CONTIG_ROWS} x "
+                               f"{CONTIG_PROMPT}-token prefill + {CONTIG_STEPS} scalar-index "
+                               "steps, 72 launches a program; mla_launches phase 8's (MiniCPM3, "
+                               "2 layers, prefill + 2 steps), moe_launches phase 10's (OLMoE, 2 "
+                               "layers, prefill + 1 step); splice_launches the paged steps after "
+                               "each splice; held_excess: the prefill's (M=2048) and first "
+                               "step's (M=4) calls again, each against its plain version on "
+                               "its own operands, in W4A8_TOL excesses; held_fault_excess: the "
+                               "same with the call's top group scale doubled"},
          "deepseek": {**entry(ds_step, 1), "launches": launches_18["w4a8_fused"],
                       "loss_launches": loss_18["w4a8_fused"],
                       "per": f"{ds_per}: 28 launches at M=4 (wq_a 7168->1536, wq_b 1536->24576, "
@@ -5217,6 +5704,13 @@ def main():
                     "fault_enc_lengths_one_short": live_16[1],
                     "per": "phase 16: whisper-tiny's cross-attention, 4 launches a decode step "
                            "over 24 cross pages at kv_len 1500"},
+         "splice": {"launches": {k: v["paged_decode_attn"] for k, v in contig_splice.items()},
+                    "logit_share": {k: v[0] for k, v in contig_read.items()},
+                    "fault_one_position_short": {k: v[1] for k, v in contig_read.items()},
+                    "per": f"phase 20: {CONTIG_SPLICE_STEPS} paged steps after each splice_prefill "
+                           "of the contiguous caches into bf16 and fp8 pages, 12 launches a step; "
+                           "logit_share: the largest |logit err| over the contiguous path's "
+                           "largest |logit|"},
          "recurrent": {**entry([recurrent["attn"]], 7),
                        "launches": launches_17["zamba2-1.2b"]["paged_decode_attn"],
                        "per": "zamba2-1.2b's shared block, 7 launches a decode step (one an "
@@ -5247,7 +5741,14 @@ def main():
                      f"launches from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"),
          "deepseek": {**entry([ds["batched"][False]], DS_SERVED_LAYERS),
                       "launches": launches_18["w4a8_fused_batched"],
-                      "per": f"{ds_per}: 4 launches of wv_b (E=128, M=4, 512->128)"}},
+                      "per": f"{ds_per}: 4 launches of wv_b (E=128, M=4, 512->128)"},
+         "contiguous": {"launches": mla_contig["w4a8_fused_batched"],
+                        "splice_launches": mla_spliced["w4a8_fused_batched"],
+                        "held_share": max(mla_held["wv_b"][0]),
+                        "per": "phase 8's contiguous run: MiniCPM3 2 layers, 2 scalar-index "
+                               "steps, 1 launch of wv_b a layer a step; splice_launches the "
+                               "paged step after the splice; held_share: each call against its "
+                               "plain version on its own operands, ||err|| / ||output||"}},
         {**entry([batched[True]], 62, name="w4a8_fused_transposed", route="cuda",
                  source="src/repro_torch/csrc/w4a8_fused.cu",
                  replaces="src/repro/kernels/w4a8_fused.py:169 (transpose_w=True, a_fmt=None)",
@@ -5256,7 +5757,16 @@ def main():
                      f"launches from phase 7 ({MLA_SERVED_LAYERS} of 62 layers)"),
          "deepseek": {**entry([ds["batched"][True]], DS_SERVED_LAYERS),
                       "launches": launches_18["w4a8_fused_transposed"],
-                      "per": f"{ds_per}: 4 launches of wk_b (E=128, M=4, 128->512)"}},
+                      "per": f"{ds_per}: 4 launches of wk_b (E=128, M=4, 128->512)"},
+         "contiguous": {"launches": mla_contig["w4a8_fused_transposed"],
+                        "splice_launches": mla_spliced["w4a8_fused_transposed"],
+                        "held_share": max(mla_held["wk_b"][0]),
+                        "held_fault_no_lorc": max(mla_held["wk_b"][1]),
+                        "per": "phase 8's contiguous run: MiniCPM3 2 layers, 2 scalar-index "
+                               "steps, 1 launch of wk_b a layer a step; splice_launches the "
+                               "paged step after the splice; held_share: each call against its "
+                               "plain version on its own operands, ||err|| / ||output||; "
+                               "held_fault_no_lorc: the same without wk_b's LoRC factors"}},
         {**entry(moe_layer, 16, name="w4a8_fused_batched_fp8", route="cuda",
                  source="src/repro_torch/csrc/w4a8_fused.cu",
                  replaces="src/repro/kernels/w4a8_fused.py:169 (batched, a_fmt='fp8_e4m3')",
@@ -5269,15 +5779,21 @@ def main():
          "per_launch_device_ms": {f"{w} {m}": r["device_ms"] for (w, m), r in moe.items()},
          "per_launch_library_device_ms": {f"{w} {m}": r["library_device_ms"]
                                           for (w, m), r in moe.items()},
-         "deepseek": {**entry(ds_moe, 1), "launches": launches_18["w4a8_fused_batched_fp8"],
+         "deepseek": {"launches": launches_18["w4a8_fused_batched_fp8"],
                       "loss_launches": loss_18["w4a8_fused_batched_fp8"],
                       "per": f"{ds_per}: 3 launches (wu, wg 7168->2048, wd 2048->7168) over "
-                             "E=256 slabs of M=4 rows, each token's row nonzero in 8 slabs",
-                      "max_abs_err": max(r["max_abs_err"] for r in ds["moe"].values()),
-                      "per_launch_device_ms": {f"{w} {m}": r["device_ms"]
-                                               for (w, m), r in ds["moe"].items()},
-                      "per_launch_library_device_ms": {f"{w} {m}": r["library_device_ms"]
-                                                       for (w, m), r in ds["moe"].items()}}},
+                             "E=256 slabs of M=4 rows, each token's row nonzero in 8 slabs; "
+                             "checked, not timed (PERF.md keeps their times)",
+                      "max_abs_err": max(r["max_abs_err"] for r in ds["moe"].values())},
+         "contiguous": {"launches": moe_contig["w4a8_fused_batched_fp8"],
+                        "held_share": {k: max(v[0]) for k, v in moe_held.items()},
+                        "held_fault_expert_swap": {k: max(v[1]) for k, v in moe_held.items()},
+                        "per": "phase 10's contiguous run: OLMoE 2 layers, 2 x 64-token prefill "
+                               "+ 1 scalar-index step, 3 launches a layer a program over the "
+                               "grouped dispatch's capacity slabs; held_share: each call against "
+                               "its plain version on its own operands, ||err|| / ||output||; "
+                               "held_fault_expert_swap: the same with expert 0 reading expert "
+                               "1's weights"}},
         {**entry([mla[("fp8_e4m3", True)]], 62, name="paged_mla_decode_attn", route="cuda",
                  source="src/repro_torch/csrc/mla_decode_attn.cu",
                  replaces="src/repro/kernels/decode_attn.py:287",
@@ -5293,6 +5809,9 @@ def main():
          "variants_device_ms": {f"{fmt or 'bf16'}{' + fp4 frozen' if fz else ''}":
                                 r["device_ms"] for (fmt, fz), r in mla.items()},
          "fault_combine_drops_last_split": mla[("fp8_e4m3", True)]["fault_combine_drops_last_split"],
+         "splice": {"launches": mla_spliced["paged_mla_decode_attn"],
+                    "per": "phase 8: one paged step over FP8 latent pages after splice_prefill "
+                           "of MiniCPM3's contiguous caches (2 layers)"},
          "deepseek": {**entry([ds["mla"][("fp8_e4m3", True)]], DS_SERVED_LAYERS),
                       "launches": launches_18["paged_mla_decode_attn"]
                       + launches_18["paged_mla_decode_attn_frozen"],

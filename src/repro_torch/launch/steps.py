@@ -1,9 +1,11 @@
 """Step builders (port of ``repro.launch.steps``): the training state and
-the training step. The reference's ``value_and_grad`` becomes autograd
-over detached leaves of the same params tree; its ``lax.scan`` over
-micro-batches a Python loop. (``make_prefill_step`` / ``make_serve_step``
-need the contiguous caches, and the sharding specs the multi-device port;
-neither is here yet.)"""
+the training step, and the contiguous-cache serving steps
+(``make_prefill_step``, ``make_serve_step``). The reference's
+``value_and_grad`` becomes autograd over detached leaves of the same
+params tree; its ``lax.scan`` over micro-batches a Python loop. The
+sharding specs and the cell lowering (``train_state_shapes``,
+``train_state_pspecs``, ``lower_cell``) wait for the multi-device port
+(ROADMAP queue 1, item 14)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -14,7 +16,7 @@ from repro_torch.models import api
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten, tree_zip
 from repro_torch.optimizer import AdamWConfig, OptState, adamw_update
 
-__all__ = ["TrainState", "make_train_step"]
+__all__ = ["TrainState", "make_train_step", "make_prefill_step", "make_serve_step"]
 
 
 class TrainState(NamedTuple):
@@ -72,3 +74,24 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, accum_steps: int = 1,
         return TrainState(new_params, new_opt), dict(metrics, **om, loss=loss)
 
     return train_step
+
+
+def make_prefill_step(cfg, max_seq: int, a_fmt: Optional[str] = None):
+    """Returns ``prefill_step(params, batch) -> (last logits, caches)``:
+    ``api.prefill`` into fresh contiguous caches of ``max_seq`` positions."""
+
+    def prefill_step(params, batch):
+        return api.prefill(params, cfg, batch, max_seq, a_fmt=a_fmt)
+
+    return prefill_step
+
+
+def make_serve_step(cfg, a_fmt: Optional[str] = "fp8_e4m3"):
+    """Returns ``serve_step(params, caches, tokens, cache_index) -> (logits,
+    caches)``: one ``api.decode_step``; ``caches`` are the same objects,
+    written in place. ``params`` is the packed serving checkpoint."""
+
+    def serve_step(params, caches, tokens, cache_index):
+        return api.decode_step(params, cfg, tokens, caches, cache_index, a_fmt=a_fmt), caches
+
+    return serve_step

@@ -1,11 +1,13 @@
-"""Model API (port of ``repro.models.api``): build, init, the paged
-serving step, the enc-dec admission step, the cache-free forward to final
-hidden states (calibration and perplexity) and the loss it feeds. The
-Zamba2 hybrid dispatches to ``models.hybrid``, the enc-dec family to
-``models.encdec``, every other decoder (xLSTM included) to
-``models.transformer``."""
+"""Model API (port of ``repro.models.api``): build, init, the serving step
+over the paged pool or over contiguous caches (``init_cache``,
+``prefill``, and ``decode_step`` at a scalar index), the enc-dec
+admission step, the forward to final hidden states (calibration and
+perplexity) and the loss it feeds. The Zamba2 hybrid dispatches to
+``models.hybrid``, the enc-dec family to ``models.encdec``, every other
+decoder (xLSTM included) to ``models.transformer``."""
 from __future__ import annotations
 
+import operator
 from typing import Optional
 
 import torch
@@ -19,8 +21,8 @@ from . import transformer as _tf
 from .losses import chunked_xent, mtp_loss
 from .params import init_tree
 
-__all__ = ["build_def", "init_params", "decode_step", "encode_cross_pages", "forward_hidden",
-           "loss_fn"]
+__all__ = ["build_def", "init_params", "loss_fn", "prefill", "decode_step", "encode_cross_pages",
+           "forward_hidden", "init_cache"]
 
 
 def _is_encdec(cfg) -> bool:
@@ -53,10 +55,43 @@ def init_params(cfg, seed: int = 0, device=None):
     return init_tree(build_def(cfg), seed, resolve_device(device))
 
 
+def init_cache(cfg, batch: int, max_seq: int, device=None):
+    """Zeroed contiguous caches for ``batch`` rows of up to ``max_seq``
+    positions on ``device`` (the card unless ``device='cpu'``): a list of
+    per-segment caches for a decoder LM (``transformer.init_lm_cache``),
+    one tree for the enc-dec decoder and for the hybrid. Every layer's
+    leaves have storage of their own."""
+    dev = resolve_device(device)
+    if _is_encdec(cfg):
+        return _encdec.init_encdec_cache(cfg, batch, max_seq, device=dev)
+    if _is_hybrid(cfg):
+        return _hybrid.init_hybrid_cache(cfg, batch, max_seq, device=dev)
+    return _tf.init_lm_cache(cfg, batch, max_seq, device=dev)
+
+
 @torch.no_grad()
-def decode_step(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
+def prefill(params, cfg, batch: dict, max_seq: int, a_fmt: Optional[str] = None):
+    """Run the prompt ``batch["tokens"]`` (B, S) (behind ``patches`` or
+    ``frames_prefix``; an enc-dec model encodes ``batch["frames"]``) into
+    fresh contiguous caches of ``max_seq`` positions on the params' device.
+    Returns (the last position's f32 logits (B, V), caches)."""
+    dev = params["embed"].device
+    caches = init_cache(cfg, batch["tokens"].shape[0], max_seq, device=dev)
+    hidden, caches, _ = forward_hidden(params, cfg, batch, a_fmt=a_fmt, caches=caches,
+                                       cache_index=0)
+    return _tf.lm_logits(params, cfg, hidden[:, -1]), caches
+
+
+@torch.no_grad()
+def decode_step(params, cfg, tokens: torch.Tensor, caches, state,
                 a_fmt: Optional[str] = None, cross=None) -> torch.Tensor:
-    """One serving step over the paged pool (written in place): tokens
+    """One serving step over contiguous caches or the paged pool, each
+    written in place. An integer ``state`` is the contiguous caches' one
+    synchronized index (``init_cache`` / ``prefill``'s): tokens (B, S) at
+    positions index + j, logits of the last position; a step that would
+    write past ``max_seq`` (or read past the learned positions) raises
+    ``ValueError`` (ROADMAP queue 3, F10), as does a step of more than one
+    token at an index past 0 on a family that attends (F11). Over the paged pool: tokens
     (B, S) at per-row positions ``state.lengths``. A state with
     ``chunk_len`` is a bucketed prefill chunk, so the logits row is its last
     *true* token (``chunk_len - 1``); otherwise the last row. Returns
@@ -68,6 +103,10 @@ def decode_step(params, cfg, tokens: torch.Tensor, caches, state: PagedState,
     row's state slab (``state.slabs``): ``caches`` holds its slab pools
     (the hybrid's {"mamba", "shared_kv"}; xLSTM's {"mlstm", "slstm"} a
     segment)."""
+    if not isinstance(state, PagedState):
+        hidden, _, _ = forward_hidden(params, cfg, {"tokens": tokens}, a_fmt=a_fmt,
+                                      caches=caches, cache_index=operator.index(state))
+        return _tf.lm_logits(params, cfg, hidden[:, -1])
     if _is_encdec(cfg):
         hidden = _encdec.encdec_forward(params, cfg, tokens, caches=caches, state=state,
                                         a_fmt=a_fmt, cross=cross)
@@ -90,34 +129,45 @@ def _head_w(params, cfg) -> torch.Tensor:
     return params["embed"] if (cfg.tie_embeddings or "lm_head" not in params) else params["lm_head"]
 
 
-def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None, remat: bool = False):
-    """The whole forward to final hidden states, no cache: ``batch["tokens"]``
-    (B, S) at positions 0..S-1, moved to the params' device, behind
+def forward_hidden(params, cfg, batch: dict, a_fmt: Optional[str] = None, remat: bool = False,
+                   caches=None, cache_index: Optional[int] = None):
+    """The whole forward to final hidden states: ``batch["tokens"]``
+    (B, S) at positions 0..S-1 (from ``cache_index`` with ``caches``, the
+    contiguous caches it writes in place), moved to the params' device, behind
     ``batch["patches"]`` (B, P, 1024) or ``batch["frames_prefix"]`` (B, P,
-    d) when given; an enc-dec model encodes ``batch["frames"]`` first.
-    Returns ``(hidden (B, S, d), None, aux)`` as the reference does: ``aux``
-    the MoE balance loss summed over the layers, an f32 0-d tensor (0
+    d) when given; an enc-dec model encodes ``batch["frames"]`` first when
+    the batch has them (a contiguous step without them reads the cross K/V
+    its caches hold).
+    Returns ``(hidden (B, S, d), caches, aux)`` as the reference does:
+    ``aux`` the MoE balance loss summed over the layers, an f32 0-d tensor (0
     without an MoE layer). MLA runs its materialized form, MoE the grouped
     capacity dispatch; the recurrent families run from their pristine state
-    (the chunked forms over the sequence). Autograd records the pass when
+    (the chunked forms over the sequence), or from the caches' states.
+    Autograd records the pass when
     a leaf requires a gradient (a caller who wants values only runs it
     under ``torch.no_grad()``); ``remat`` recomputes each block in the
     backward pass, as the reference's ``jax.checkpoint`` does."""
     dev = params["embed"].device
     tokens = batch["tokens"].to(dev)
+    index = None if caches is None else operator.index(cache_index or 0)
     aux = 0.0
     if _is_encdec(cfg):
-        enc = _encdec.encode(params, cfg, batch["frames"], a_fmt=a_fmt, remat=remat)
-        hidden = _encdec.encdec_forward(params, cfg, tokens, enc, a_fmt=a_fmt, remat=remat)
+        enc = (_encdec.encode(params, cfg, batch["frames"], a_fmt=a_fmt, remat=remat)
+               if "frames" in batch else None)
+        hidden = _encdec.encdec_forward(params, cfg, tokens, enc, caches, index, a_fmt=a_fmt,
+                                        remat=remat)
     elif _is_hybrid(cfg):
-        hidden = _hybrid.hybrid_forward(params, cfg, tokens, a_fmt=a_fmt, remat=remat)
+        hidden = _hybrid.hybrid_forward(params, cfg, tokens, caches, index, a_fmt=a_fmt,
+                                        remat=remat)
     else:
         prefix = batch.get("patches")
         if prefix is None:
             prefix = batch.get("frames_prefix")
-        hidden, aux = _tf.lm_forward(params, cfg, tokens, a_fmt=a_fmt, embeds_prefix=prefix,
-                                     remat=remat)
-    return hidden, None, torch.as_tensor(aux, dtype=torch.float32, device=dev)
+        hidden, aux = _tf.lm_forward(params, cfg, tokens, caches, index, a_fmt=a_fmt,
+                                     embeds_prefix=prefix, remat=remat)
+    if not torch.is_tensor(aux):  # no MoE layer: a zero made on the device, not copied there
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return hidden, caches, aux.to(torch.float32)
 
 
 def loss_fn(params, cfg, batch: dict, a_fmt: Optional[str] = None, remat: bool = True,

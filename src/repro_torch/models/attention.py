@@ -2,13 +2,16 @@
 pool, the decode step (one token per row, appended then read through
 ``ops.paged_decode_attn``), the streaming-prefill chunk (batch 1: written
 to its pages, attending gathered history pages plus its own exact K/V) and
-the mixed engine's fused row of both; without a cache, the forward over a
-whole sequence (full softmax rows, query-chunked above ``attn_chunk``),
-which calibration and perplexity run; and the enc-dec decoder's
-cross-attention, over the write-once cross pages when serving
-(``paged_cross_attention``) or against the encoder's K/V. The
-contiguous-cache modes come with a later slice (ROADMAP queue 1, item 13
-step 4)."""
+the mixed engine's fused row of both; over a contiguous cache
+(``init_kv_cache``: (B, max_seq, KV, hd) bf16, one synchronized position
+for every row), the prefill (attending within x, K/V written from the
+position given) and the scalar-index decode step (one token written, then
+a full softmax row over the whole cache under a length mask); without a
+cache, the forward over a whole sequence (full softmax rows,
+query-chunked above ``attn_chunk``), which calibration and perplexity
+run; and the enc-dec decoder's cross-attention, over the write-once cross
+pages when serving (``paged_cross_attention``) or against the encoder's
+K/V."""
 from __future__ import annotations
 
 import math
@@ -23,7 +26,8 @@ from repro_torch.runtime.kv_cache import (PagedState, append_paged, append_prefi
 
 from .layers import ParamDef, apply_rope, linear, quant_act
 
-__all__ = ["attn_params", "attention", "paged_cross_attention", "block_mask"]
+__all__ = ["attn_params", "attention", "paged_cross_attention", "block_mask", "init_kv_cache",
+           "write_contiguous", "check_contiguous_step"]
 
 _NEG_INF = -1e30
 
@@ -44,10 +48,44 @@ def attn_params(cfg):
     return p
 
 
+def init_kv_cache(batch: int, max_seq: int, n_kv: int, head_dim: int,
+                  dtype=torch.bfloat16, device=None):
+    """A zeroed contiguous K/V cache: {"k", "v"} (B, max_seq, KV, hd)."""
+    return {name: torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device)
+            for name in ("k", "v")}
+
+
+def write_contiguous(cache, new_vals, index: int):
+    """Write ``new_vals`` ({name: (B, S, ...)}) at positions index ..
+    index + S - 1 of the contiguous cache leaves (B, max_seq, ...), in place,
+    rounded to the cache's dtype. A write that runs past max_seq raises
+    ``ValueError``: the reference's ``dynamic_update_slice`` clamps the index
+    instead and silently overwrites the last slots (ROADMAP queue 3, F10)."""
+    for name, v in new_vals.items():
+        leaf = cache[name]
+        if index < 0 or index + v.shape[1] > leaf.shape[1]:
+            raise ValueError(f"contiguous cache write of {v.shape[1]} positions at index {index} "
+                             f"runs past max_seq {leaf.shape[1]} (ROADMAP queue 3, F10)")
+        leaf[:, index:index + v.shape[1]] = v.to(leaf.dtype)
+    return cache
+
+
+def check_contiguous_step(s: int, index: int):
+    """Refuse a contiguous-cache step of ``s`` > 1 tokens at an ``index``
+    past 0. The reference attends such a step within its own tokens, masked
+    as a prefill from position 0, and silently ignores every position the
+    cache holds (ROADMAP queue 3, F11); only the prefill (index 0) and the
+    one-token step are defined."""
+    if s > 1 and index > 0:
+        raise ValueError(f"a contiguous step of {s} tokens at index {index}: the cache's "
+                         f"earlier positions would be ignored (ROADMAP queue 3, F11)")
+
+
 def block_mask(sq: int, sk: int, q_start: int, k_start: int, causal: bool, window: int,
-               device=None) -> torch.Tensor:
+               kv_len: Optional[int] = None, device=None) -> torch.Tensor:
     """(sq, sk) additive f32 mask of a block of queries from ``q_start``
-    against keys from ``k_start``: causal and / or a sliding window."""
+    against keys from ``k_start``: causal and / or a sliding window, and
+    keys at or past ``kv_len`` hidden when it is given."""
     qi = q_start + torch.arange(sq, device=device)[:, None]
     ki = k_start + torch.arange(sk, device=device)[None, :]
     ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
@@ -55,6 +93,8 @@ def block_mask(sq: int, sk: int, q_start: int, k_start: int, causal: bool, windo
         ok &= ki <= qi
     if window:
         ok &= ki > qi - window
+    if kv_len is not None:
+        ok &= ki < kv_len
     return torch.where(ok, 0.0, _NEG_INF).to(torch.float32)
 
 
@@ -113,17 +153,31 @@ def _paged_chunk_attn(q, k, v, pool_layer, state: PagedState, g: int, window: in
     return _sdpa_full(q, _repeat_kv(kc, g), _repeat_kv(vc, g), mask)
 
 
+def _self_attention(q, k, v, g: int, cfg, device):
+    """A whole sequence attending within itself from position 0: full
+    softmax rows, query-chunked above ``attn_chunk``."""
+    s = q.shape[1]
+    kf, vf = _repeat_kv(k, g), _repeat_kv(v, g)
+    if s > cfg.attn_chunk:
+        return _sdpa_chunked(q, kf, vf, cfg.causal, cfg.window, cfg.attn_chunk)
+    return _sdpa_full(q, kf, vf, block_mask(s, s, 0, 0, cfg.causal, cfg.window, device=device))
+
+
 def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=None,
-              state: Optional[PagedState] = None, a_fmt: Optional[str] = None,
-              cross_kv=None):
+              state=None, a_fmt: Optional[str] = None, cross_kv=None):
     """Returns (out, kv_cache). ``kv_cache`` is one layer's pool slice,
     written in place; ``positions`` (B, S) are the rows' token positions
     (rope). A state with ``prefill`` is a mixed step (x is the fused (1,
     slots + S) row); one with ``chunk_len`` a prefill chunk (even a 1-token
-    one); otherwise x is one decode token per row. Without a state (and
-    cache) x is a whole sequence at ``positions`` = 0..S-1, attending
-    within itself, or with ``cross_kv`` = (k, v) (B, T, KV, hd) from the
-    encoder, attending to all of it."""
+    one); otherwise x is one decode token per row. An ``int`` state is the
+    contiguous cache's synchronized index (``kv_cache`` one layer's
+    {"k", "v"}, (B, max_seq, KV, hd)): K/V are written there; with S > 1
+    x attends within itself as from position 0 (the prefill, as the
+    reference), with S == 1 the token attends to the cache's first index + 1
+    positions; S > 1 at an index past 0 raises (F11). Without a state (and
+    cache) x is a whole sequence at ``positions`` = 0..S-1, attending within
+    itself, or with ``cross_kv`` = (k, v) (B, T, KV, hd) from the encoder,
+    attending to all of it."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = h // kv
     b, s, _ = x.shape
@@ -143,12 +197,17 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=None,
     if cfg.pos_embedding == "rope":
         k = apply_rope(k, positions, cfg.rope_theta)
     if state is None:
-        kf, vf = _repeat_kv(k, g), _repeat_kv(v, g)
-        if s > cfg.attn_chunk:
-            o = _sdpa_chunked(q, kf, vf, cfg.causal, cfg.window, cfg.attn_chunk)
+        o = _self_attention(q, k, v, g, cfg, x.device)
+    elif isinstance(state, int):
+        check_contiguous_step(s, state)
+        write_contiguous(kv_cache, {"k": k, "v": v}, state)
+        if s == 1:
+            t = kv_cache["k"].shape[1]
+            mask = block_mask(1, t, state, 0, cfg.causal, cfg.window, kv_len=state + 1,
+                              device=x.device)
+            o = _sdpa_full(q, _repeat_kv(kv_cache["k"], g), _repeat_kv(kv_cache["v"], g), mask)
         else:
-            o = _sdpa_full(q, kf, vf, block_mask(s, s, 0, 0, cfg.causal, cfg.window,
-                                                 device=x.device))
+            o = _self_attention(q, k, v, g, cfg, x.device)
     elif state.prefill is not None:
         # the mixed engine's fused batch-1 row: one decode token per slot,
         # then one request's bucketed prefill chunk. The decode lanes append

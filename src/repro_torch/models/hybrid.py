@@ -10,7 +10,8 @@ the Mamba2 state lives in slabs (``caches["mamba"]``, leaves
 (L, n_slabs + 1, ...), gathered per row by ``state.slabs``) and the shared
 block's K/V in a GQA page pool whose layer axis is the invocation
 (``caches["shared_kv"]``), read through the paged decode kernel like any
-GQA layer stack.
+GQA layer stack. Over contiguous caches (``init_hybrid_cache``) each layer
+holds its rows' Mamba2 states and each invocation a contiguous K/V cache.
 """
 from __future__ import annotations
 
@@ -20,13 +21,14 @@ import torch
 
 from repro_torch.runtime.kv_cache import PagedState, gather_slabs, scatter_slabs
 
-from .attention import attention, attn_params
+from .attention import attention, attn_params, init_kv_cache
 from .layers import ParamDef, mlp, mlp_params, norm, norm_params
 from .params import tree_map
-from .ssm import mamba2_block, mamba2_params
-from .transformer import _embed_tokens, _stack_defs, layer_view, positions_of, rematerialized
+from .ssm import init_mamba2_cache, mamba2_block, mamba2_params
+from .transformer import (_embed_tokens, _stack_defs, copy_into, layer_view, positions_of,
+                          rematerialized, stacked)
 
-__all__ = ["build_hybrid", "hybrid_forward", "n_attn_invocations"]
+__all__ = ["build_hybrid", "hybrid_forward", "n_attn_invocations", "init_hybrid_cache"]
 
 
 def n_attn_invocations(cfg) -> int:
@@ -48,6 +50,19 @@ def build_hybrid(cfg):
     return p
 
 
+def init_hybrid_cache(cfg, batch: int, max_seq: int, device=None):
+    """Contiguous caches: {"mamba": each layer's pristine Mamba2 states
+    (L, B, ...), "shared_kv": one contiguous K/V cache an invocation of the
+    shared block (n_inv, B, max_seq, KV, hd)}, every layer and invocation
+    its own storage."""
+    c = {"mamba": stacked(init_mamba2_cache(cfg, batch, device), cfg.n_layers)}
+    n_inv = n_attn_invocations(cfg)
+    if n_inv:
+        c["shared_kv"] = stacked(init_kv_cache(batch, max_seq, cfg.n_kv_heads,
+                                               cfg.resolved_head_dim, device=device), n_inv)
+    return c
+
+
 def _shared_block(p, x, cfg, positions, kv_layer, state, a_fmt):
     nk, eps = cfg.norm_kind, cfg.norm_eps
     h, _ = attention(p["attn"], norm(p["ln1"], x, nk, eps), cfg, positions, kv_layer, state,
@@ -67,18 +82,23 @@ def _cache_free_layer(p_layer, shared, x, cfg, positions, attn: bool, a_fmt):
 
 
 def hybrid_forward(params, cfg, tokens: torch.Tensor, caches=None,
-                   state: Optional[PagedState] = None, a_fmt: Optional[str] = None,
+                   state=None, a_fmt: Optional[str] = None,
                    remat: bool = False):
     """tokens (B, S) -> final-norm hidden states (B, S, d). Served
     (``state`` and ``caches`` = {"mamba": slab pools, "shared_kv": the
-    invocation-indexed page pool}), written in place; without them the
-    tokens are whole sequences at positions 0..S-1 from the pristine
-    state (no cache read or written), and ``remat`` recomputes each layer
-    (with its shared block) in the backward pass."""
+    invocation-indexed page pool}), written in place; an ``int`` state is
+    the contiguous caches' index (``init_hybrid_cache``'s, written in
+    place); without them the tokens are whole sequences at positions
+    0..S-1 from the pristine state (no cache read or written), and
+    ``remat`` recomputes each layer (with its shared block) in the backward
+    pass."""
     x = _embed_tokens(params, cfg, tokens)
     s = x.shape[1]
-    positions = (torch.arange(s, device=x.device) if state is None
-                 else positions_of(state, s, x.device))
+    paged = isinstance(state, PagedState)
+    if paged:
+        positions = positions_of(state, s, x.device)
+    else:
+        positions = torch.arange(s, device=x.device) + (0 if state is None else state)
     every = cfg.ssm.attn_every
     shared = params.get("shared")
     if caches is None:
@@ -95,7 +115,11 @@ def hybrid_forward(params, cfg, tokens: torch.Tensor, caches=None,
         pool = tree_map(lambda leaf: leaf[li], caches["mamba"])
         dh, new_m = mamba2_block(p_layer["mamba"], norm(p_layer["ln"], x, cfg.norm_kind,
                                                         cfg.norm_eps), cfg,
-                                 cache=gather_slabs(pool, state.slabs), a_fmt=a_fmt)
+                                 cache=gather_slabs(pool, state.slabs) if paged else pool,
+                                 a_fmt=a_fmt)
         x = x + dh
-        scatter_slabs(pool, state.slabs, new_m)
+        if paged:
+            scatter_slabs(pool, state.slabs, new_m)
+        else:
+            copy_into(pool, new_m)
     return norm(params["final_ln"], x, cfg.norm_kind, cfg.norm_eps)

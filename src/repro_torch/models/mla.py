@@ -16,8 +16,12 @@ calibration, perplexity) MLA takes the reference's materialized form:
 ``wk_b`` and ``wv_b`` expand c_kv into per-head keys and values (plain
 ``linear``s, so packed weights run the W4A8 GEMM), the rope key is
 broadcast over the heads and the attention is ``attention._sdpa_full`` or,
-past ``attn_chunk`` tokens, ``_sdpa_chunked``, v at its own width. The
-contiguous-cache prefill comes with the training slice.
+past ``attn_chunk`` tokens, ``_sdpa_chunked``, v at its own width. Over a
+contiguous latent cache (``init_mla_cache``: ckv (B, max_seq, r), krope
+(B, max_seq, dr), bf16) the prefill takes the materialized form and writes
+the latents; the scalar-index decode step takes the absorbed form against
+the whole cache under a length mask, its ``wk_b`` / ``wv_b`` on the
+batched W4A8 kernel as on the pages.
 """
 from __future__ import annotations
 
@@ -29,11 +33,12 @@ from repro_torch.kernels import ops
 from repro_torch.runtime.kv_cache import (PagedState, append_paged, append_prefill_chunk,
                                           gather_history)
 
-from .attention import _sdpa_chunked, _sdpa_full, block_mask
+from .attention import (_sdpa_chunked, _sdpa_full, block_mask, check_contiguous_step,
+                        write_contiguous)
 from .layers import (PackedLinear, ParamDef, apply_rope, batched_linear, linear, norm,
                      packed_head_view, quant_act)
 
-__all__ = ["mla_params", "mla_attention"]
+__all__ = ["mla_params", "mla_attention", "init_mla_cache"]
 
 _NEG_INF = -1e30
 
@@ -54,6 +59,14 @@ def mla_params(cfg):
     p["wv_b"] = ParamDef((h * m.v_head_dim, m.kv_lora_rank), ("heads", "lora"), dt)
     p["wo"] = ParamDef((d, h * m.v_head_dim), ("embed", "heads"), dt)
     return p
+
+
+def init_mla_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None):
+    """A zeroed contiguous latent cache: {"ckv": (B, max_seq, r), "krope":
+    (B, max_seq, dr)}."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_seq, m.qk_rope_dim), dtype=dtype, device=device)}
 
 
 def _project_q(p, xq, cfg):
@@ -115,12 +128,16 @@ def _materialized(p, q_nope, q_rope, c_kv, k_rope, cfg) -> torch.Tensor:
 
 
 def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=None,
-                  state: Optional[PagedState] = None, a_fmt: Optional[str] = None):
+                  state=None, a_fmt: Optional[str] = None):
     """Returns (out, kv_cache). ``kv_cache`` is one layer's latent pool
     slice, written in place; ``positions`` (B, S) the rope positions. A
     state with ``prefill`` is a mixed step (x the fused (1, slots + S)
     row); one with ``chunk_len`` a prefill chunk; otherwise x is one decode
-    token per row. Without a state x is a whole sequence at ``positions``
+    token per row. An ``int`` state is the contiguous cache's index
+    (``kv_cache`` one layer's {"ckv", "krope"}): the latents are written
+    there; S > 1 takes the materialized form within x, S == 1 the absorbed
+    form over the cache's first index + 1 positions; S > 1 at an index past
+    0 raises (F11). Without a state x is a whole sequence at ``positions``
     0..S-1 (the materialized form; no cache)."""
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
@@ -134,9 +151,13 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=Non
     c_kv = norm(p["kv_norm"], kv_a[..., :m.kv_lora_rank], "rmsnorm", cfg.norm_eps)
     k_rope = apply_rope(kv_a[..., m.kv_lora_rank:][:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
-    if state is None:
+    contiguous = isinstance(state, int)
+    if contiguous:
+        check_contiguous_step(s, state)
+        write_contiguous(kv_cache, {"ckv": c_kv, "krope": k_rope}, state)
+    if state is None or (contiguous and s > 1):
         o = _materialized(p, q_nope, q_rope, c_kv, k_rope, cfg)
-        return linear(p["wo"], quant_act(o, a_fmt), p.get("bo")), None
+        return linear(p["wo"], quant_act(o, a_fmt), p.get("bo")), kv_cache
 
     # q absorbed into the latent space: (B, S, H, r)
     if isinstance(p["wk_b"], PackedLinear):
@@ -148,7 +169,12 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, kv_cache=Non
         wk_b = p["wk_b"].reshape(h, m.qk_nope_dim, m.kv_lora_rank)
         q_lat = torch.einsum("bshn,hnr->bshr", q_nope.float(), wk_b.float()).to(x.dtype)
 
-    if state.prefill is not None:
+    if contiguous:
+        mask = block_mask(s, kv_cache["ckv"].shape[1], state, 0, False, 0, kv_len=state + s,
+                          device=x.device)[None, None]
+        ctx_lat = _chunk_attn(q_lat, q_rope, kv_cache["ckv"], kv_cache["krope"], mask, scale_dim,
+                              x.dtype)
+    elif state.prefill is not None:
         # the mixed engine's fused batch-1 row: one decode token per slot,
         # then one request's bucketed prefill chunk. Decode latents append
         # at each slot's true position (mid-prefill slots ride with lengths

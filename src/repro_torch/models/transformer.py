@@ -13,11 +13,13 @@ reads it.
 
 Parameters stack per segment with a leading ``(L, ...)`` dim as in the
 reference; a Python loop over the layers takes the place of ``lax.scan``.
-Blocks run over the paged pool (serving) or with no cache over whole
-sequences (calibration, perplexity, the loss): MLA then takes its
-materialized form and MoE the capacity-bounded grouped dispatch, whose
-balance loss ``aux`` is summed over the layers as the reference's scan
-carries it."""
+Blocks run over the paged pool (serving), over contiguous caches at one
+synchronized index (``init_lm_cache``: the prefill and the scalar-index
+decode step), or with no cache over whole sequences (calibration,
+perplexity, the loss). Off the pages MoE takes the capacity-bounded
+grouped dispatch, whose balance loss ``aux`` is summed over the layers as
+the reference's scan carries it; without a cache MLA takes its
+materialized form."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,17 +29,18 @@ import torch
 
 from repro_torch.runtime.kv_cache import PagedState, gather_slabs, scatter_slabs
 
-from .attention import attention, attn_params, paged_cross_attention
+from .attention import attention, attn_params, init_kv_cache, paged_cross_attention
 from .layers import (PackedLinear, ParamDef, activation, embed_lookup, linear, mlp, mlp_params,
                      norm, norm_params)
-from .mla import mla_attention, mla_params
+from .mla import init_mla_cache, mla_attention, mla_params
 from .moe import moe_layer, moe_params
 from .params import tree_items, tree_map
-from .xlstm import mlstm_block, mlstm_params, slstm_block, slstm_params
+from .xlstm import (init_mlstm_cache, init_slstm_cache, mlstm_block, mlstm_params, slstm_block,
+                    slstm_params)
 
 __all__ = ["SegmentSpec", "segments_for", "build_lm", "block_params", "block_apply",
            "layer_view", "positions_of", "rematerialized", "run_segment", "lm_forward",
-           "lm_logits"]
+           "lm_logits", "init_block_cache", "init_lm_cache", "stacked", "copy_into", "pos_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +130,59 @@ def build_lm(cfg):
     return p
 
 
+def init_block_cache(cfg, seg: SegmentSpec, batch: int, max_seq: int, enc_seq: int = 0,
+                     device=None):
+    """One layer's contiguous cache for a segment's block: GQA {"kv"}
+    (+ ``cross_k`` / ``cross_v`` (B, enc_seq, KV, hd) for a cross block),
+    MLA {"kv"} latents, xLSTM {"mlstm", "slstm"} pristine states."""
+    if seg.mixer == "gqa":
+        kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        c = {"kv": init_kv_cache(batch, max_seq, kv, hd, device=device)}
+        if seg.cross:
+            c["cross_k"] = torch.zeros((batch, enc_seq, kv, hd), dtype=torch.bfloat16,
+                                       device=device)
+            c["cross_v"] = torch.zeros_like(c["cross_k"])
+        return c
+    if seg.mixer == "mla":
+        return {"kv": init_mla_cache(cfg, batch, max_seq, device=device)}
+    if seg.mixer == "xlstm_pair":
+        return {"mlstm": init_mlstm_cache(cfg, batch, device),
+                "slstm": init_slstm_cache(cfg, batch, device)}
+    raise ValueError(seg.mixer)
+
+
+def stacked(one, n: int):
+    """``one``'s leaves repeated along a new leading layer axis of ``n``, each
+    layer its own storage (the reference's ``broadcast_to``; an ``expand``
+    would alias every layer to one buffer under in-place writes)."""
+    return tree_map(lambda t: t[None].repeat((n,) + (1,) * t.dim()), one)
+
+
+def init_lm_cache(cfg, batch: int, max_seq: int, enc_seq: int = 0, device=None):
+    """Contiguous caches, one per segment, each layer's stacked on a leading
+    (L, ...) axis."""
+    return [stacked(init_block_cache(cfg, seg, batch, max_seq, enc_seq, device), seg.count)
+            for seg in segments_for(cfg)]
+
+
+def copy_into(cache, new):
+    """Write a block's new recurrent state (``new``: the same tree as
+    ``cache``) into the cache's leaves, in place, in their dtypes."""
+    for name, leaf in cache.items():
+        leaf.copy_(new[name].to(leaf.dtype))
+    return cache
+
+
+def pos_rows(table: torch.Tensor, index: int, s: int) -> torch.Tensor:
+    """Rows index .. index + s - 1 of a learned position table. Past its end
+    this raises ``ValueError``, where the reference's
+    ``dynamic_slice_in_dim`` clamps the index (ROADMAP queue 3, F10)."""
+    if index < 0 or index + s > table.shape[0]:
+        raise ValueError(f"positions {index}..{index + s - 1} run past the {table.shape[0]} "
+                         "learned positions (ROADMAP queue 3, F10)")
+    return table[index:index + s]
+
+
 def layer_view(stack, i: int):
     """Layer ``i`` of a stacked segment (views, no copies)."""
     return tree_map(lambda t: t.layer(i) if isinstance(t, PackedLinear) else t[i], stack,
@@ -134,7 +190,7 @@ def layer_view(stack, i: int):
 
 
 def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
-                state: Optional[PagedState] = None, a_fmt=None, cross_layer=None,
+                state=None, a_fmt=None, cross_layer=None,
                 enc_out: Optional[torch.Tensor] = None):
     """One pre-norm block: x + mixer(ln(x)), then x + ffn(ln(x)); the mixer
     is GQA attention or MLA by ``seg.mixer``, the ffn an MLP or an MoE layer
@@ -144,34 +200,47 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
     "slstm" slab pools, stepped and scattered back. A ``seg.cross`` block
     adds x + cross(ln_cross(x)) after the self-attention: over the
     write-once cross pages ``cross_layer`` when serving, else against the
-    K/V of ``enc_out``. Without ``state`` x is a whole sequence at
-    ``positions`` 0..S-1 and no cache is read or written. Returns (x, aux):
-    aux the MoE layer's balance loss (a 0-d f32 tensor), 0.0 for an MLP or
-    no ffn."""
+    K/V of ``enc_out``. An ``int`` state is the contiguous caches' index:
+    ``cache_layer`` is the layer's {"kv"} (+ ``cross_k`` / ``cross_v``, which
+    a step over more than one token computes from ``enc_out`` and stores,
+    and a one-token step reads) or xLSTM's {"mlstm", "slstm"}, each written
+    in place. Without ``state`` x is a whole sequence at ``positions``
+    0..S-1 and no cache is read or written. Returns (x, aux): aux the MoE
+    layer's balance loss (a 0-d f32 tensor), 0.0 for an MLP or no ffn."""
     nk = cfg.norm_kind
     pm = p["mixer"]
+    paged, contiguous = isinstance(state, PagedState), isinstance(state, int)
     if seg.mixer == "xlstm_pair":
         return _xlstm_pair(pm, x, cfg, cache_layer, state, a_fmt), 0.0
     pf = p["ffn"]
     hn = norm(pm["ln"], x, nk, cfg.norm_eps)
+    kv_cache = cache_layer["kv"] if contiguous else cache_layer
     if seg.mixer == "mla":
-        h, _ = mla_attention(pm["attn"], hn, cfg, positions, cache_layer, state, a_fmt=a_fmt)
+        h, _ = mla_attention(pm["attn"], hn, cfg, positions, kv_cache, state, a_fmt=a_fmt)
     else:
-        h, _ = attention(pm["attn"], hn, cfg, positions, cache_layer, state, a_fmt=a_fmt)
+        h, _ = attention(pm["attn"], hn, cfg, positions, kv_cache, state, a_fmt=a_fmt)
     x = x + h
     if seg.cross:
-        if state is not None:
+        if paged:
             # the engine ran the encoder at admission and quantized its K/V
             # into the cross pages; decode and prefill chunks only read them
             h = paged_cross_attention(pm["cross"], norm(pm["ln_cross"], x, nk, cfg.norm_eps),
                                       cfg, positions, cross_layer, state, a_fmt=a_fmt)
         else:
-            b, t = x.shape[0], enc_out.shape[1]
-            kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-            ek = linear(pm["cross"]["wk"], enc_out).reshape(b, t, kv, hd)
-            ev = linear(pm["cross"]["wv"], enc_out, pm["cross"].get("bv")).reshape(b, t, kv, hd)
+            if contiguous and x.shape[1] == 1:  # the prefill computed and stored these
+                cross_kv = (cache_layer["cross_k"], cache_layer["cross_v"])
+            else:
+                b, t = x.shape[0], enc_out.shape[1]
+                kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+                ek = linear(pm["cross"]["wk"], enc_out).reshape(b, t, kv, hd)
+                ev = linear(pm["cross"]["wv"], enc_out, pm["cross"].get("bv")).reshape(b, t, kv,
+                                                                                      hd)
+                cross_kv = (ek, ev)
+                if contiguous:
+                    copy_into({"k": cache_layer["cross_k"], "v": cache_layer["cross_v"]},
+                              {"k": ek, "v": ev})
             h, _ = attention(pm["cross"], norm(pm["ln_cross"], x, nk, cfg.norm_eps), cfg,
-                             positions, a_fmt=a_fmt, cross_kv=(ek, ev))
+                             positions, a_fmt=a_fmt, cross_kv=cross_kv)
         x = x + h
     x_ln = norm(pf["ln"], x, nk, cfg.norm_eps)
     if seg.ffn == "mlp":
@@ -184,27 +253,35 @@ def block_apply(p, x, cfg, seg: SegmentSpec, positions, cache_layer=None,
     # token's routing, which is what makes serving outputs independent of
     # batchmates and the mixed engine bit-identical to the alternating one.
     # The cache-free forward keeps the capacity-bounded grouped dispatch.
-    h, aux = moe_layer(pf["moe"], x_ln, cfg, a_fmt=a_fmt,
-                       group_size=1 if state is not None else 1024)
+    # The contiguous caches and the cache-free forward keep the
+    # capacity-bounded grouped dispatch.
+    h, aux = moe_layer(pf["moe"], x_ln, cfg, a_fmt=a_fmt, group_size=1 if paged else 1024)
     return x + h, aux
 
 
-def _xlstm_pair(pm, x, cfg, cache_layer, state: Optional[PagedState], a_fmt):
+def _xlstm_pair(pm, x, cfg, cache_layer, state, a_fmt):
     """x + mLSTM(ln_m(x)), then x + sLSTM(ln_s(x)); over the slab pools
-    when serving (``cache_layer`` {"mlstm", "slstm"}, one layer's view)."""
+    when serving (``cache_layer`` {"mlstm", "slstm"}, one layer's view), or
+    over the contiguous per-row states (an ``int`` state)."""
     nk, eps = cfg.norm_kind, cfg.norm_eps
     mlc = slc = None
-    if state is not None:
+    paged = isinstance(state, PagedState)
+    if paged:
         mlc = gather_slabs(cache_layer["mlstm"], state.slabs)
         slc = gather_slabs(cache_layer["slstm"], state.slabs)
+    elif state is not None:
+        mlc, slc = cache_layer["mlstm"], cache_layer["slstm"]
     h, new_m = mlstm_block(pm["mlstm"], norm(pm["ln_m"], x, nk, eps), cfg, cache=mlc,
                            a_fmt=a_fmt)
     x = x + h
     h, new_s = slstm_block(pm["slstm"], norm(pm["ln_s"], x, nk, eps), cfg, cache=slc,
                            a_fmt=a_fmt)
-    if state is not None:
+    if paged:
         scatter_slabs(cache_layer["mlstm"], state.slabs, new_m)
         scatter_slabs(cache_layer["slstm"], state.slabs, new_s)
+    elif state is not None:
+        copy_into(cache_layer["mlstm"], new_m)
+        copy_into(cache_layer["slstm"], new_s)
     return x + h
 
 
@@ -248,13 +325,13 @@ def rematerialized(fn, remat: bool):
 
 
 def run_segment(seg_params, x, cfg, seg: SegmentSpec, positions, pool=None,
-                state: Optional[PagedState] = None, a_fmt=None, cross=None, enc_out=None,
+                state=None, a_fmt=None, cross=None, enc_out=None,
                 remat: bool = False):
     """Every layer of one stacked segment over x, in order (``lax.scan``'s
     place): each layer with its slice of the segment's pool (a page pool,
-    or xLSTM's {"mlstm", "slstm"} slab pools) and of the cross pool, when
-    there are pools; ``remat`` recomputes each block in the backward pass.
-    Returns (x, the layers' aux summed)."""
+    xLSTM's {"mlstm", "slstm"} slab pools, or the contiguous caches) and of
+    the cross pool, when there are pools; ``remat`` recomputes each block in
+    the backward pass. Returns (x, the layers' aux summed)."""
     n = seg.count if pool is None else next(tree_items(pool))[1].shape[0]
     block = rematerialized(block_apply, remat)
     aux_sum = 0.0
@@ -268,22 +345,29 @@ def run_segment(seg_params, x, cfg, seg: SegmentSpec, positions, pool=None,
 
 
 def lm_forward(params, cfg, tokens: torch.Tensor, caches=None,
-               state: Optional[PagedState] = None, a_fmt: Optional[str] = None,
+               state=None, a_fmt: Optional[str] = None,
                embeds_prefix: Optional[torch.Tensor] = None, remat: bool = False):
     """tokens (B, S) at per-row positions ``state.lengths[:, None] + j``
     (for a mixed step, the fused (1, slots + S) row of decode tokens and
     one prefill chunk). ``caches``: one pool dict per segment, written in
-    place. Without ``state`` (and caches) the tokens are whole sequences at
-    positions 0..S-1, behind ``embeds_prefix`` (patches or audio frames)
-    when given; ``remat`` recomputes each block in the backward pass.
-    Returns the final-norm hidden states (B, S, d) and the MoE balance loss
-    summed over every layer (0.0 without an MoE layer)."""
+    place. An ``int`` state is the contiguous caches' index (``caches``:
+    ``init_lm_cache``'s list): every row at positions index + j, behind
+    ``embeds_prefix`` when given. Without ``state`` (and caches) the tokens
+    are whole sequences at positions 0..S-1, behind ``embeds_prefix``
+    (patches or audio frames) when given; ``remat`` recomputes each block in
+    the backward pass. Returns the final-norm hidden states (B, S, d) and
+    the MoE balance loss summed over every layer (0.0 without an MoE
+    layer)."""
     x = _embed_tokens(params, cfg, tokens, embeds_prefix)
     s = x.shape[1]
     if state is None:
         if cfg.pos_embedding == "learned":
             x = x + params["pos_embed"][:s][None].to(x.dtype)
         positions, pools = torch.arange(s, device=x.device), [None] * len(params["segments"])
+    elif isinstance(state, int):
+        if cfg.pos_embedding == "learned":
+            x = x + pos_rows(params["pos_embed"], state, s)[None].to(x.dtype)
+        positions, pools = torch.arange(s, device=x.device) + state, caches
     else:
         positions, pools = positions_of(state, s, x.device), caches
         if cfg.pos_embedding == "learned":

@@ -27,7 +27,8 @@ exactly once, through ``transcode_page`` when the prefix cache freezes it,
 and is read-only afterwards.
 
 Unlike the reference, whose arrays are immutable, the write paths here
-(``append_paged``, ``append_prefill_chunk``, ``transcode_page``) update the
+(``splice_prefill``, ``append_paged``, ``append_prefill_chunk``,
+``transcode_page``) update the
 pool leaves in place: copying the whole pool for every layer of every step
 would cost far more than the step. They return the (same) dict, so callers
 read as in the reference. In place also means a write to a page that other
@@ -53,7 +54,8 @@ from repro_torch.kernels.common import PageFormat, page_format
 
 __all__ = ["CachePolicy", "PagedState", "PrefixCache", "page_key", "init_gqa_pool",
            "init_cross_pool", "write_cross_pages", "init_mla_pool", "pool_keys", "pool_format", "frozen_format", "n_frozen_pages", "quantize_pages",
-           "dequantize_pages", "transcode_page", "append_paged", "append_prefill_chunk",
+           "dequantize_pages", "transcode_page", "splice_prefill", "append_paged",
+           "append_prefill_chunk",
            "gather_slabs", "scatter_slabs", "gather_pages", "gather_history",
            "pool_bytes_per_token", "bf16_bytes_per_token",
            "page_bytes", "pages_needed", "spill_pages", "restore_pages", "payload_checksum"]
@@ -295,6 +297,48 @@ def transcode_page(pool: Dict, src_pid: int, dst_fidx: int) -> Dict:
         pool[name + "_fz"][:, dst_fidx] = codes if heads else codes[..., 0, :]
         pool[name + "_fz_smax"][:, dst_fidx] = smax
         pool[name + "_fz_shift"][:, dst_fidx] = shift
+    return pool
+
+
+def splice_prefill(pool: Dict, prefill_cache: Dict, page_ids, n_tokens: int,
+                   chunk_pages: int = 8) -> Dict:
+    """Quantize a batch-1 prefill's contiguous K/V into a slot's pages, in
+    place, by page id. ``prefill_cache``: one segment's contiguous cache
+    (``api.prefill``'s ``caches[i]["kv"]``), leaves (L, 1, max_seq, KV, hd)
+    (GQA) or (L, 1, max_seq, d) (MLA). ``page_ids``: the pages covering
+    ``n_tokens``. Positions from ``n_tokens`` on are zeroed before a page's
+    amax is taken (as the reference's multiply: a negative value leaves
+    -0.0; a non-finite one leaves 0), pages that overhang ``max_seq`` are
+    padded with zeros, and the pages are quantized ``chunk_pages`` at a time
+    (``quantize_pages``), so the f32 staging copy never exceeds one chunk.
+    Returns the pool."""
+    pf = pool_format(pool)
+    ids_all = np.asarray(page_ids.cpu() if torch.is_tensor(page_ids) else page_ids, np.int64)
+    for c0 in range(0, len(ids_all), chunk_pages):
+        ids_np = ids_all[c0:c0 + chunk_pages]
+        npg = len(ids_np)
+        for name in pool_keys(pool):
+            store = pool[name]
+            heads = _has_heads(store, per_layer=False)
+            page, t0 = store.shape[2], c0 * store.shape[2]
+            src = prefill_cache[name][:, 0, t0:t0 + npg * page].to(store.device).float()
+            short = npg * page - src.shape[1]
+            if short > 0:  # the reserved pages overhang max_seq
+                src = torch.cat([src, src.new_zeros((src.shape[0], short) + src.shape[2:])], 1)
+            if t0 + npg * page > n_tokens:
+                live = (t0 + torch.arange(npg * page, device=src.device)) < n_tokens
+                live = live.reshape((1, npg * page) + (1,) * (src.dim() - 2))
+                src = torch.where(live, src, (src * 0).nan_to_num(0.0))
+            vals = _with_head_axis(src, heads)
+            vals = vals.reshape(vals.shape[0], npg, page, vals.shape[-2], vals.shape[-1])
+            ids = torch.as_tensor(ids_np, device=store.device)
+            if pf.quantized:
+                codes, smax, shifts = quantize_pages(vals, pf)
+                store[:, ids] = codes if heads else codes[..., 0, :]
+                pool[name + "_smax"][:, ids] = smax
+                pool[name + "_shift"][:, ids] = shifts
+            else:
+                store[:, ids] = (vals if heads else vals[..., 0, :]).to(store.dtype)
     return pool
 
 

@@ -1,6 +1,7 @@
-"""Guards of the port's boundaries: it imports neither jax, nor the JAX
-package, nor ml_dtypes, and its entry points never fall back to the CPU on
-their own."""
+"""Guards of the port's boundaries: it and the ``examples/torch_*.py``
+twins import neither jax, nor the JAX package, nor ml_dtypes, nor
+``benchmarks``, and its entry points never fall back to the CPU on their
+own."""
 import ast
 import re
 from pathlib import Path
@@ -14,7 +15,7 @@ from repro_torch.models import api
 from repro_torch.runtime import serve
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes", "benchmarks"}
 
 
 def _imported_roots(path: Path):
@@ -26,7 +27,9 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    twins = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(twins) == 5
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + twins + [
         ROOT / "chip_smoke.py", ROOT / "kernel_compare.py", ROOT / "attn_ablate.py"]
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files}
@@ -42,6 +45,25 @@ def test_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
         api.init_params(SMOKE, seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.Server(params, SMOKE, device="cuda")
+
+
+def test_contiguous_entry_points_refuse_to_fall_back_without_cuda(monkeypatch):
+    """``api.init_cache`` and the example twins take the card unless asked
+    for the CPU."""
+    import sys
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            api.init_cache(SMOKE, 1, 8, device=device)
+    assert api.init_cache(SMOKE, 1, 8, device="cpu")[0]["kv"]["k"].device.type == "cpu"
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_sse_stream_demo
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        torch_sse_stream_demo.main(["--max-new", "1"])
 
 
 def test_training_entry_points_refuse_to_fall_back_without_cuda(monkeypatch, tmp_path):
